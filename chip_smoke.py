@@ -1,9 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py [--dataset as-skitter] [--scale 1.0]
-                          [--community-dataset com-dblp]
-                          [--community-scale 1.0] [--reps 20] [--out FILE]
+    python3 chip_smoke.py [--reps 20] [--profile] [--out FILE]
 
 Phases, each failing loudly (exit code 1, no result line):
 
@@ -29,10 +27,13 @@ Phases, each failing loudly (exit code 1, no result line):
 4. Kernels: each kernel against its plain version on the inputs the main
    path gave it (every level-0 ELL bucket of both graphs, first and last
    sweep; the first level whose bin gate passed), with the graph's unit
-   weights and with integer weights 1..8 — bit for bit — then timed with
-   CUDA events (median of ``--reps`` launches after warm-up) beside the
-   least time the card could take.  The ``kernels`` line sums the R-MAT
-   graph's four buckets (one level-0 sweep).
+   weights and with integer weights 1..8 — bit for bit — then timed:
+   each kernel by device time (``device_ms``: a ``torch.profiler`` trace
+   of ``--reps`` launches after warm-up, the kernel's own durations, so
+   the wrapper's host work between launches is not in it), each plain
+   version by ``loop_ms`` (CUDA events around ``--reps`` back-to-back
+   calls), beside the least time the card could take (``bound_ms``).  The
+   ``kernels`` line sums the R-MAT graph's four buckets (one level-0 sweep).
 
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
@@ -42,7 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
+import math
 import subprocess
 import sys
 import time
@@ -50,9 +51,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
+# The main path's graphs, (name in graph/datasets.py, scale): the R-MAT
+# as-skitter stand-in, whose early levels overflow the bin gate, first; the
+# community-rich com-dblp stand-in, whose later levels pass it.
+MAIN_GRAPH = ("as-skitter", 1.0)
+COMMUNITY_GRAPH = ("com-dblp", 1.0)
+
 # NVIDIA H100 SXM data-sheet peaks used for the bound: HBM3 bandwidth and
-# the float32 rate outside the tensor cores, which prices the kernels'
-# compare-and-add operations.
+# the 32-bit rate outside the tensor cores, which prices the compares and
+# adds the functions need.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -89,22 +96,54 @@ class Recorder:
 # ------------------------------------------------------------ timing
 
 
-def cuda_ms(fn, reps: int, torch) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timed runs
-    after three warm-up runs."""
+def device_events(prof):
+    """The trace's device-side events (kernels, copies, fills): the ones
+    that carry device time exactly once.  Host-side operators also report
+    the device time of the kernels they launched, so summing every event
+    would count those kernels twice."""
+    return [e for e in prof.events()
+            if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, reps: int, torch) -> float:
+    """Device milliseconds per call of ``fn()``: the summed durations of
+    the device events of ``reps`` calls traced by ``torch.profiler`` after
+    three warm-up calls, over ``reps``.  Host time between launches (the
+    wrapper's checks, allocation and ctypes call) is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    if not events:
+        fail("the profiler saw no device time")
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+
+
+def loop_ms(fn, reps: int, torch) -> float:
+    """Milliseconds per call of ``fn()``: CUDA events around ``reps``
+    back-to-back calls after three warm-up calls, over ``reps``.  Used for
+    the plain versions, whose thousands of small launches per call would
+    swamp a profiler trace; the device's waits on the host between those
+    launches are part of their cost."""
+    for _ in range(3):
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -183,14 +222,13 @@ def _summary(plp_res, lv_res, g):
         "plp_timer_s": plp_res.timer.totals}
 
 
-def phase_main(args, torch, rt):
+def phase_main(torch, rt):
     """Both graphs of the main path: the R-MAT stand-in (PLP + Louvain, its
     early levels overflow the bin gate) and a community-rich stand-in
     (PLP + Louvain, whose later levels pass it, so ``bin_rank`` runs)."""
     dev = torch.device("cuda")
     graphs = {}
-    for name, scale in ((args.dataset, args.scale),
-                        (args.community_dataset, args.community_scale)):
+    for name, scale in (MAIN_GRAPH, COMMUNITY_GRAPH):
         t = time.perf_counter()
         lg = rt.datasets.load(name, scale=scale, device=dev)
         torch.cuda.synchronize()
@@ -285,7 +323,7 @@ def phase_main(args, torch, rt):
             f"{ {k: round(v, 3) for k, v in lv_k.timer.totals.items()} }")
     out = {"graphs": {k: v[2] for k, v in graphs.items()},
            "launches": launches, "peak_mem_gib": peak}
-    return out, recs
+    return out, recs, graphs
 
 
 def phase_kernels(args, torch, rt, recs, launches):
@@ -315,16 +353,21 @@ def phase_kernels(args, torch, rt, recs, launches):
                     err = max(err, e)
             rows, nbr, w, *rest = last[0]
             kw = last[1]
-            k_ms = cuda_ms(lambda: kernel(rows, nbr, w, *rest, **kw), reps,
-                           torch)
-            p_ms = cuda_ms(lambda: plain(rows, nbr, w, *rest, **kw), reps,
+            k_ms = device_ms(lambda: kernel(rows, nbr, w, *rest, **kw), reps,
+                             torch)
+            p_ms = loop_ms(lambda: plain(rows, nbr, w, *rest, **kw), reps,
                            torch)
             R, W = nbr.shape
             n1 = rest[0].shape[0]
             valid = int((nbr < n1 - 1).sum())
+            # bytes: rows, the (R, W) ids and weights and every table read
+            # once; the (R,) label/candidate and flag outputs written once.
+            # Operations: a weighted mode or gain argmax over a row's valid
+            # entries needs no more than a sort (log2 W compares per entry)
+            # and a scan (one add and one compare per entry).
             nbytes = 4 * R + 8 * R * W + 4 * n_tables * n1 + 5 * R
-            b_ms, kind = bound_ms(nbytes, 2.0 * valid * W)
-            if graph == args.dataset:
+            b_ms, kind = bound_ms(nbytes, valid * (math.log2(W) + 2.0))
+            if graph == MAIN_GRAPH[0]:
                 bound_kinds[kind] += b_ms
                 total["ms"] += k_ms
                 total["plain_ms"] += p_ms
@@ -355,14 +398,21 @@ def phase_kernels(args, torch, rt, recs, launches):
     bin_err = max_abs_err(ko, po)
     if bin_err != 0.0:
         fail("bin_rank: kernel and plain differ")
-    b_k = cuda_ms(lambda: rec_bin.fn(keys, cs, cd, **kw), reps, torch)
-    b_p = cuda_ms(lambda: rt.agg_ref.bin_rank_ref(keys, cs, cd, **kw), reps,
-                  torch)
+    b_k = device_ms(lambda: rec_bin.fn(keys, cs, cd, **kw), reps, torch)
+    b_p = loop_ms(lambda: rt.agg_ref.bin_rank_ref(keys, cs, cd, **kw),
+                  reps, torch)
     m, W = cs.shape[0], kw["width"]
-    table_bytes = rt.bin_table_bytes(keys.shape[0] // W - 1, W)
-    b_b, b_kind = bound_ms(table_bytes + 12 * m, 2.0 * m * W)
-    log(f"[kernels] bin_rank {bin_graph} W={W} edges={m}: kernel {b_k:.4f} ms, plain "
-        f"{b_p:.4f} ms, bound {b_b:.4f} ms ({b_kind})")
+    # bytes: cs, cd and the rank output once each, and the bin rows the
+    # edges name (this level's communities, plus the sink row of the
+    # masked edges) — not the whole (n+1)-row table, most of whose rows
+    # belong to no community at a late level.  Operations: a binary search
+    # per edge in a sorted row, and the rows' sort.
+    rows_read = int(torch.unique(cs).numel())
+    b_b, b_kind = bound_ms(12 * m + 4 * W * rows_read,
+                           (m + rows_read * W) * math.log2(W))
+    log(f"[kernels] bin_rank {bin_graph} W={W} edges={m} rows read "
+        f"{rows_read}: kernel {b_k:.4f} ms, plain {b_p:.4f} ms, bound "
+        f"{b_b:.4f} ms ({b_kind})")
 
     def row(name, source, replaces, tot, err, kinds, detail):
         return {"name": name, "route": "cuda", "source": source,
@@ -385,16 +435,16 @@ def phase_kernels(args, torch, rt, recs, launches):
         "bin_rank", "src/repro_torch/kernels/csrc/bin_rank.cu",
         "src/repro/kernels/aggregation/kernel.py:62",
         {"ms": b_k, "plain_ms": b_p, "bound_ms": b_b}, bin_err, {b_kind: b_b},
-        [{"graph": bin_graph, "width": W, "edges": m, "ms": b_k, "plain_ms": b_p,
-          "bound_ms": b_b, "bound_by": b_kind}]))
+        [{"graph": bin_graph, "width": W, "edges": m, "rows_read": rows_read,
+          "ms": b_k, "plain_ms": b_p, "bound_ms": b_b, "bound_by": b_kind}]))
     return rows_out
 
 
 def phase_profile(torch, rt, name, g, top: int = 15):
     """One ``louvain(backend="pallas")`` run of ``g`` under
-    ``torch.profiler``: device time by operator (self time, largest first)
-    and the device's busy share of the traced wall time.  The profiler adds
-    host overhead, so this run's wall time is not the main path's."""
+    ``torch.profiler``: device time by kernel name (largest first) and the
+    device's busy share of the traced wall time.  The profiler adds host
+    overhead, so this run's wall time is not the main path's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -405,14 +455,14 @@ def phase_profile(torch, rt, name, g, top: int = 15):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    rows = [{"op": e.key, "device_ms": dev_us(e) / 1e3, "calls": e.count}
-            for e in sorted(events, key=dev_us, reverse=True)[:top]]
+    by_name: dict = {}
+    for e in device_events(prof):
+        us, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), calls + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    rows = [{"op": k, "device_ms": us / 1e3, "calls": calls}
+            for k, (us, calls) in sorted(by_name.items(),
+                                         key=lambda kv: -kv[1][0])[:top]]
     log(f"[profile] {name} louvain(pallas) under the profiler: wall "
         f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%)")
@@ -425,10 +475,6 @@ def phase_profile(torch, rt, name, g, top: int = 15):
 
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--dataset", default="as-skitter")
-    p.add_argument("--scale", type=float, default=1.0)
-    p.add_argument("--community-dataset", default="com-dblp")
-    p.add_argument("--community-scale", type=float, default=1.0)
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--profile", action="store_true",
                    help="also trace one Louvain run of the first graph")
@@ -452,7 +498,6 @@ def main(argv) -> int:
         from repro_torch.kernels.aggregation import kernel as agg_kernel
         from repro_torch.kernels.aggregation import ops as agg_ops
         from repro_torch.kernels.aggregation import ref as agg_ref
-        from repro_torch.kernels.common import bin_table_bytes
         from repro_torch.kernels.local_move import kernel as lm_kernel
         from repro_torch.kernels.local_move import ops as lm_ops
         from repro_torch.kernels.local_move import ref as lm_ref
@@ -462,17 +507,15 @@ def main(argv) -> int:
         datasets=datasets, LouvainConfig=LouvainConfig, louvain=louvain,
         PLPConfig=PLPConfig, plp=plp, build_ell=build_ell,
         agg_kernel=agg_kernel, agg_ops=agg_ops, agg_ref=agg_ref,
-        bin_table_bytes=bin_table_bytes,
         lm_kernel=lm_kernel, lm_ops=lm_ops, lm_ref=lm_ref)
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     phase_build(build)
-    main_out, recs = phase_main(args, torch, rt)
+    main_out, recs, graphs = phase_main(torch, rt)
     kernels = phase_kernels(args, torch, rt, recs, main_out["launches"])
     if args.profile:
-        g = rt.datasets.load(args.dataset, scale=args.scale,
-                             device="cuda").graph
-        main_out["profile"] = phase_profile(torch, rt, args.dataset, g)
+        main_out["profile"] = phase_profile(
+            torch, rt, MAIN_GRAPH[0], graphs[MAIN_GRAPH[0]][0])
     main_out["total_s"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -120,7 +120,7 @@ def remap_and_coarsen(g: Graph, com: torch.Tensor
 
 
 def remap_and_coarsen_binned(g: Graph, com: torch.Tensor, *,
-                             width: int | None = None, impl: str = "auto"
+                             width: int | None = None, impl: str = "kernel"
                              ) -> Tuple[torch.Tensor, int, Graph]:
     """Sort-free remap + coarsen; bit-for-bit the ``remap_and_coarsen``
     oracle.  Returns ``(new_com, n_comm, coarse_graph)``."""
@@ -130,7 +130,7 @@ def remap_and_coarsen_binned(g: Graph, com: torch.Tensor, *,
 
 
 def remap_and_coarsen_by(method: str, g: Graph, com: torch.Tensor, *,
-                         impl: str = "auto"
+                         impl: str = "kernel"
                          ) -> Tuple[torch.Tensor, int, Graph]:
     """One aggregation step by method name (``LouvainConfig.aggregation``);
     ``impl`` picks the binned path's rank pass."""

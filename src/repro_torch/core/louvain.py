@@ -225,7 +225,9 @@ def _louvain_per_level(g: Graph, cfg: LouvainConfig,
     timer = Timer()
     g0 = g_original if g_original is not None else g
     n, dev = g.n_max, g.device
-    impl = "auto" if cfg.backend == "pallas" else "ref"
+    # the pallas backend ranks bins with the bin_rank wrapper, which
+    # launches its kernel on the card; every other backend stays plain
+    impl = "kernel" if cfg.backend == "pallas" else "ref"
 
     assign = torch.arange(n, dtype=torch.int32, device=dev)
     cur = g

@@ -231,31 +231,6 @@ def from_numpy_edges(
     return g
 
 
-def from_numpy_edges_robust(
-    u: np.ndarray,
-    v: np.ndarray,
-    w: Optional[np.ndarray] = None,
-    *,
-    n: Optional[int] = None,
-    m_max: Optional[int] = None,
-    sort_by: str = "src",
-    self_loops: str = "keep",
-    bad_weights: str = "raise",
-    bad_ids: str = "raise",
-    device: Union[str, torch.device, None] = None,
-) -> Tuple[Graph, RepairReport]:
-    """Canonicalize → build → validate.  Clean input produces a Graph
-    identical to ``from_numpy_edges(u, v, w, ...)``; repaired input is
-    described by the returned ``RepairReport``."""
-    u, v, w, n, report = canonicalize_edges(
-        u, v, w, n=n, self_loops=self_loops, bad_weights=bad_weights,
-        bad_ids=bad_ids)
-    g = from_numpy_edges(
-        u, v, w, n=n, m_max=m_max, sort_by=sort_by, device=device)
-    validate_graph(g)
-    return g, report
-
-
 def validate_graph(g: Graph, *, symmetry: bool = True) -> None:
     """Host-side invariant checks (raises ``InputValidationError``):
 

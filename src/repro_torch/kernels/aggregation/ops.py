@@ -12,7 +12,7 @@ Stages, each the JAX package's:
      sequence, so they resolve together.  A survivor after ``width`` rounds
      raises the overflow fallback.
   3. *Rank*: per edge, the rank of its destination key within its bin row
-     (``bin_rank`` — the CUDA kernel or its plain version, ``impl``) plus a
+     (``bin_rank`` — its wrapper or its plain version, ``impl``) plus a
      per-row occupancy count and an exclusive ``cumsum`` give the canonical
      front-compacted, src-sorted output position.
   4. *Output*: an id scatter and a deterministic weight segment sum keyed
@@ -34,7 +34,7 @@ from repro_torch.graph import segment as seg
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.aggregation.kernel import bin_rank_kernel
 from repro_torch.kernels.aggregation.ref import bin_rank_ref
-from repro_torch.kernels.common import hash_u32, pick_bin_width, resolve_bin_impl
+from repro_torch.kernels.common import BIN_IMPLS, hash_u32, pick_bin_width
 from repro_torch.utils import telemetry
 
 
@@ -100,20 +100,23 @@ def binned_coarsen(
     n_comm: int,
     *,
     width: Optional[int] = None,
-    impl: str = "auto",
+    impl: str = "kernel",
     max_rounds: Optional[int] = None,
 ) -> Graph:
     """Sort-free coarse graph for CONTIGUOUS community ids ``new_com``;
     bit-for-bit the one-sort ``core.aggregation.coarsen_graph`` output.
 
     ``impl`` picks the rank pass: ``"kernel"`` the ``bin_rank`` wrapper
-    (CUDA launch on the card, plain version on the CPU), ``"ref"`` the plain
-    version on any device, ``"auto"`` by the tensors' device."""
+    (which launches the CUDA kernel for tensors on the card and runs the
+    plain version for tensors on the CPU), ``"ref"`` the plain version on
+    any device.  The JAX package also weighed a VMEM budget here; the
+    card's kernel reads the bin table from device memory, so none applies."""
+    if impl not in BIN_IMPLS:
+        raise ValueError(f"unknown bin impl {impl!r}, want one of {BIN_IMPLS}")
     n, m = g.n_max, g.m_max
     W = width if width is not None else pick_bin_width(n, m)
     dev = g.device
     active = g.edge_mask
-    impl_r = resolve_bin_impl(impl, dev)
 
     cs, cd = community_edge_keys(g, new_com)
     keys, _resolved, overflow, _rounds = insert_bins(
@@ -141,7 +144,7 @@ def binned_coarsen(
     row_start = torch.cumsum(cnt, 0) - cnt
     n_groups = int(cnt.sum())
     cs_c = torch.clamp(cs, 0, n)
-    rank_fn = bin_rank_kernel if impl_r == "kernel" else bin_rank_ref
+    rank_fn = bin_rank_kernel if impl == "kernel" else bin_rank_ref
     rank_e = rank_fn(keys_flat, cs_c, cd, width=W, empty=n)
     epos = torch.where(active, row_start[torch.clamp(cs, 0, n - 1).long()]
                        + rank_e, m)

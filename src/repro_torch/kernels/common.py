@@ -17,7 +17,7 @@ from repro_torch.utils import telemetry
 F32_ACCUM_SAFE = 1 << 24
 
 TABLE_MODES = ("auto", "resident", "streamed")
-BIN_IMPLS = ("auto", "kernel", "ref")
+BIN_IMPLS = ("kernel", "ref")
 
 # Static width menu shared by the ELL re-bucketing and the bin table.
 STAGE_WIDTH_MENU = (16, 64, 256)
@@ -83,20 +83,6 @@ def bin_table_bytes(n_cap: int, width: int) -> int:
     """Footprint of the (n_cap+1, width) int32 bin-key table (the +1 row is
     the sink for masked edges)."""
     return 4 * (n_cap + 1) * width
-
-
-def resolve_bin_impl(impl: str, device: torch.device) -> str:
-    """Kernel-vs-plain policy for the binned aggregation's rank pass.
-
-    ``auto`` picks the CUDA kernel for tensors on the card and the plain
-    version for tensors on the CPU.  The JAX package decided by a VMEM
-    budget; the card's kernel reads the bin table through L2 from device
-    memory, so no budget applies."""
-    if impl not in BIN_IMPLS:
-        raise ValueError(f"unknown bin impl {impl!r}, want one of {BIN_IMPLS}")
-    if impl != "auto":
-        return impl
-    return "kernel" if torch.device(device).type == "cuda" else "ref"
 
 
 def accum_needs_promotion(m_cap: int, w_max: float = 1.0) -> bool:

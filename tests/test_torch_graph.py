@@ -1,9 +1,11 @@
 """Port graph substrate ≡ the JAX package, bit for bit: ingest
-(``from_numpy_edges``, robust ingest, the dataset stand-ins), the ELL
+(``from_numpy_edges``, ``canonicalize_edges``, the dataset stand-ins), the ELL
 buckets and tail, the segment primitives, and both coarsening paths of the
 aggregation (sort oracle ≡ binned, on a graph that overflows the bin gate
 and one that passes it).  Inputs are made from a seed with numpy; JAX
 graphs cross over as numpy arrays through ``graph_from_numpy``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -73,12 +75,18 @@ def test_robust_ingest_matches_jax():
     w[rng.integers(0, len(w), 5)] = -1.0
     u[:3] = n + 5                                       # out-of-range ids
     kw = dict(n=n, self_loops="drop", bad_weights="zero", bad_ids="drop")
-    jg, jrep = jbuilders.from_numpy_edges_robust(u, v, w, **kw)
-    tg, trep = tbuilders.from_numpy_edges_robust(u, v, w, device="cpu", **kw)
+    *jarrays, jrep = jbuilders.canonicalize_edges(u, v, w, **kw)
+    *tarrays, trep = tbuilders.canonicalize_edges(u, v, w, **kw)
+    for j, t in zip(jarrays, tarrays):
+        np.testing.assert_array_equal(j, t)
+    assert dataclasses.asdict(jrep) == dataclasses.asdict(trep)
+    assert not trep.clean
+    jg = jbuilders.from_numpy_edges(*jarrays[:3], n=jarrays[3])
+    tg = tbuilders.from_numpy_edges(*tarrays[:3], n=tarrays[3], device="cpu",
+                                    validate=True)
     assert_graphs_equal(jg, tg)
-    assert jrep.actions == trep.actions and not trep.clean
     with pytest.raises(InputValidationError):
-        tbuilders.from_numpy_edges_robust(u, v, w, n=n, device="cpu")
+        tbuilders.canonicalize_edges(u, v, w, n=n)
 
 
 def test_validate_graph_rejects_asymmetry():
@@ -237,5 +245,7 @@ def test_coarsening_paths_match_jax(case):
     nc, nn, cg = tagg.remap_and_coarsen(tg, tcom)
     np.testing.assert_array_equal(np.asarray(jnc), nc.numpy())
     assert_graphs_equal(jcg, cg)
+    with pytest.raises(ValueError):
+        tagg.remap_and_coarsen_binned(tg, tcom, impl="auto")
     new_com, n_comm = tagg.remap_communities(tcom, tg.vertex_mask())
     assert_graphs_equal(jcg, tagg.coarsen_graph(tg, new_com, n_comm))

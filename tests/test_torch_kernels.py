@@ -266,7 +266,3 @@ def test_width_and_capacity_helpers_match_jax(n_cap, m_cap):
     assert tk.bin_table_bytes(n_cap, w) == jk.bin_table_bytes(n_cap, w)
     assert (tk.accum_needs_promotion(m_cap)
             == jk.accum_needs_promotion(m_cap))
-    assert tk.resolve_bin_impl("auto", torch.device("cpu")) == "ref"
-    assert tk.resolve_bin_impl("kernel", torch.device("cpu")) == "kernel"
-    with pytest.raises(ValueError):
-        tk.resolve_bin_impl("pallas", torch.device("cpu"))
