@@ -51,7 +51,7 @@ class EngineSpec(ConfigBase):
     use_frontier: bool = True    # paper's active-vertex optimization
     reshuffle_ties: bool = False # PLP: re-draw tie noise each sweep
     singleton_rule: bool = True  # Louvain: Lu et al. swap suppression
-    table_mode: str = "auto"     # auto | resident ("streamed" not ported)
+    table_mode: str = "auto"     # auto | resident | streamed (ell, pallas)
 
     def __post_init__(self):
         if self.evaluator not in EVALUATORS:
@@ -98,8 +98,9 @@ def _evaluate_segment(spec: EngineSpec, g: Graph, level, labels, active,
 def _ell_evaluators(spec: EngineSpec, g: Graph, level, labels, it: int,
                     seed: int, use_pallas: bool):
     """Per-sweep closures ``(eval_bucket, eval_tail)``: the per-vertex
-    tables are built ONCE here per sweep; ``eval_bucket(rows, nbr, w)``
-    hands them to the local_move family (gathers fused into the kernel),
+    tables are built ONCE here per sweep; ``eval_bucket(rows, nbr, w,
+    windows)`` hands them to the local_move family (gathers fused into the
+    kernel; ``windows`` is the bucket's metadata for the streamed layout),
     ``eval_tail(src, dst, w, valid)`` scores an edge list off the same
     extended tables."""
     n = g.n_max
@@ -110,10 +111,11 @@ def _ell_evaluators(spec: EngineSpec, g: Graph, level, labels, it: int,
         noise_it = it if spec.reshuffle_ties else 0
         noise_seed = (seed + noise_it) & 0xFFFFFFFF
 
-        def eval_bucket(rows, nbr, w):
+        def eval_bucket(rows, nbr, w, windows):
             return lm_ops.local_move_plp(
                 rows, nbr, w, labels_ext, noise_seed, tie_eps=spec.tie_eps,
-                sentinel=n, use_pallas=use_pallas, table_mode=spec.table_mode)
+                sentinel=n, use_pallas=use_pallas, windows=windows,
+                table_mode=spec.table_mode)
 
         def eval_tail(src, dst, w, valid):
             best_score, best_lab, cur_score = moves.plp_best_labels_tables(
@@ -130,12 +132,12 @@ def _ell_evaluators(spec: EngineSpec, g: Graph, level, labels, it: int,
     composed = lm_ops.compose_louvain_tables(com_ext, vol_ext, size_ext,
                                              deg_ext, n)
 
-    def eval_bucket(rows, nbr, w):
+    def eval_bucket(rows, nbr, w, windows):
         return lm_ops.local_move_louvain(
             rows, nbr, w, com_ext, vol_ext, size_ext, deg_ext, vol_v,
             sentinel=n, singleton_rule=spec.singleton_rule,
-            use_pallas=use_pallas, table_mode=spec.table_mode,
-            composed=composed)
+            use_pallas=use_pallas, windows=windows,
+            table_mode=spec.table_mode, composed=composed)
 
     def eval_tail(src, dst, w, valid):
         best_gain, best_cand = moves.louvain_best_moves_tables(
@@ -162,7 +164,7 @@ def _evaluate_ell(spec: EngineSpec, g: Graph, level, ell, labels, active,
         if b.n_rows_valid == 0:
             continue
         rows, nbr, w = grid_view(b)
-        best, good = eval_bucket(rows, nbr, w)
+        best, good = eval_bucket(rows, nbr, w, b.windows)
         row_prop = (rows < n) & active[torch.clamp(rows, 0, n - 1)] & good
         idx = torch.where(row_prop, torch.clamp(rows, 0, n - 1), n).long()
         proposal[idx] = torch.where(row_prop, best, -1)

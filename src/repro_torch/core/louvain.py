@@ -14,11 +14,14 @@ levels, Q and every per-level history.  Level 0 runs the configured backend
 as in the JAX per-level driver.  Aggregation's ``bin_rank`` pass uses its
 CUDA kernel when the backend is ``pallas`` and its plain version otherwise.
 
+``table_mode`` (``auto``/``resident``/``streamed``) picks the level-0 ELL
+table layout on the ``ell`` and ``pallas`` backends.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): Leiden refinement (``refine=True``), explicit cascade capacity
-schedules, stage-boundary checkpointing and the windowed table layout.  The
-backend-descent ladder is left out too: a kernel failure raises
-``KernelError`` instead of quietly running another backend.
+schedules and stage-boundary checkpointing.  The backend-descent ladder is
+left out too: a kernel failure raises ``KernelError`` instead of quietly
+running another backend.
 """
 from __future__ import annotations
 
@@ -79,7 +82,7 @@ class LouvainConfig(ConfigBase):
     sweep_threshold: int = 0    # stop local-moving when ΔN <= this
     backend: str = "segment"    # segment | ell | pallas
     aggregation: str = "binned"  # binned | sort
-    table_mode: str = "auto"    # auto | resident ("streamed" not ported)
+    table_mode: str = "auto"    # auto | resident | streamed (ell, pallas)
     use_need_check: bool = True
     singleton_rule: bool = True # Lu et al. swap suppression
     move_prob: float = 0.5      # Luby-style move gating (1.0 = pure Jacobi)

@@ -40,7 +40,7 @@ class PLPConfig(ConfigBase):
     reshuffle_ties: bool = False
     move_prob: float = 0.75     # Luby-style move gating (1.0 = pure Jacobi)
     fused: bool = True          # accepted for config parity; same loop
-    table_mode: str = "auto"    # auto | resident ("streamed" not ported)
+    table_mode: str = "auto"    # auto | resident | streamed (ell, pallas)
 
 
 @dataclasses.dataclass

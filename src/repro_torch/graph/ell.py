@@ -12,33 +12,104 @@ package fills the tiles with a Python loop over every row, which at a
 rows' edges are located by ``repeat_interleave`` arithmetic and written
 with one scatter per bucket.  The resulting buckets — row order included —
 are identical to the JAX package's ``build_ell``.  The JAX package's
-``(n_chunks, rows, W)`` stacking and window metadata serve the TPU grid and
-the streamed layout; neither exists here, and a bucket stays one flat tile.
+``(n_chunks, rows, W)`` stacking serves the TPU grid and has no counterpart:
+a bucket stays one flat tile.  Each bucket carries the window metadata of
+the streamed table layout (``TableWindows``), computed on the device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.graph.structure import Graph
+from repro_torch.kernels.common import TABLE_LANE, cdiv
 
 BUCKET_WIDTHS = (16, 64, 256, 1024)
 ROW_PAD = 8  # rows per bucket are padded to a multiple of this
+
+# Tile entries per block of the streamed layout.  One CUDA block of the
+# streamed kernels stages its window and scores block_rows = 2048 / W rows
+# (128 at W = 16, 32 at W = 64, 8 at W >= 256) one row group after another.
+# On the com-dblp stand-in (scale 1.0, W = 16: 316 776 rows) that is 2 475
+# blocks with a 2 KB (PLP) or 8 KB (Louvain) window each.  Timed on an
+# NVIDIA H100 (700 W; chip_smoke.py), the streamed kernels got faster at
+# every halving from 2048 rows per block down to 128, and only 2 % more
+# from 128 to 64: fewer rows mean fewer dependent passes per block and
+# more blocks in flight, against re-reading more overlapping window.
+STREAM_BLOCK_ELEMS = 2048
+
+
+def stream_block_rows(width: int) -> int:
+    """Default rows per streamed block for ELL width ``width``."""
+    return max(ROW_PAD, STREAM_BLOCK_ELEMS // width)
+
+
+@dataclasses.dataclass(frozen=True)
+class TableWindows:
+    """Per-row-block table windows of the streamed local_move layout.
+
+    Block b of ``block_rows`` consecutive (locality-ordered) rows touches
+    real vertex ids inside ``[win_blk[b]·slot, win_blk[b]·slot + 2·slot)``:
+    the streamed kernel stages exactly that slice of each per-vertex table
+    in shared memory.  ``slot`` is a multiple of ``TABLE_LANE``;
+    ``n_slots`` windows cover ids 0..n_max.  Sentinel ids need no
+    coverage: they are masked, never read."""
+
+    win_blk: torch.Tensor   # int32[n_blocks], on the bucket's device
+    slot: int
+    block_rows: int
+    n_slots: int
+
+
+def compute_windows(rows: torch.Tensor, nbr: torch.Tensor, n_max: int,
+                    block_rows: int) -> TableWindows:
+    """Windows of a bucket's flat (R,)/(R, W) tiles, on their device: per
+    block, [lo, hi) spans every real id of its rows and neighbors; the
+    slot is the widest span rounded up to ``TABLE_LANE``, so every block
+    fits one 2-slot window whatever its alignment.  An all-padding block
+    takes [0, 1).  The JAX package's ``compute_windows``, as tensor ops."""
+    R, W = nbr.shape
+    nb = max(1, cdiv(R, block_rows))
+    pad = nb * block_rows - R
+    dev = nbr.device
+    rows2 = torch.cat([rows, torch.full((pad,), n_max, dtype=rows.dtype,
+                                        device=dev)]).view(nb, block_rows)
+    nbr2 = torch.cat([nbr, torch.full((pad, W), n_max, dtype=nbr.dtype,
+                                      device=dev)]).view(nb, block_rows * W)
+    lo = torch.minimum(
+        torch.where(rows2 < n_max, rows2, n_max).amin(dim=1),
+        torch.where(nbr2 < n_max, nbr2, n_max).amin(dim=1)).long()
+    hi = torch.maximum(
+        torch.where(rows2 < n_max, rows2, -1).amax(dim=1),
+        torch.where(nbr2 < n_max, nbr2, -1).amax(dim=1)).long() + 1
+    empty = hi <= lo
+    lo = torch.where(empty, 0, lo)
+    hi = torch.where(empty, 1, hi)
+    slot = cdiv(max(int((hi - lo).max()), 1), TABLE_LANE) * TABLE_LANE
+    return TableWindows(
+        win_blk=(lo // slot).to(torch.int32),
+        slot=slot,
+        block_rows=int(block_rows),
+        n_slots=max(1, cdiv(n_max + 1, slot)),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
 class EllBucket:
     """One degree bucket: ``rows`` int32[R] (vertex id, ``n_max`` for
     padding rows), ``nbr`` int32[R, W] (``n_max`` padding), ``w``
-    float32[R, W] (0 padding); ``n_rows_valid`` real rows lead."""
+    float32[R, W] (0 padding); ``n_rows_valid`` real rows lead.
+    ``windows`` enables the streamed table layout; a bucket built by hand
+    without it supports the resident layout only."""
 
     width: int
     rows: torch.Tensor
     nbr: torch.Tensor
     w: torch.Tensor
     n_rows_valid: int
+    windows: Optional[TableWindows] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +133,15 @@ class DeviceEll:
         return self.tail_vertices.numel() > 0
 
 
-def build_ell(g: Graph, widths: Tuple[int, ...] = BUCKET_WIDTHS) -> DeviceEll:
+def build_ell(g: Graph, widths: Tuple[int, ...] = BUCKET_WIDTHS,
+              block_rows: Optional[int] = None) -> DeviceEll:
     """ELL build on ``g``'s device.  Rows are IN-neighborhoods (edges
     grouped by dst; by symmetry these equal out-neighborhoods); self-loops
     are never move candidates and stay out of the tiles.  Within a bucket,
     rows are ordered by (min neighbor id, mean neighbor id, vertex id), the
-    JAX package's locality order."""
+    JAX package's locality order.  ``block_rows`` sets the rows per
+    streamed block of every bucket (default ``stream_block_rows(W)``,
+    capped at the bucket's rows)."""
     n, dev = g.n_max, g.device
     mask = g.edge_mask
     src, dst, w = g.src[mask].long(), g.dst[mask].long(), g.w[mask]
@@ -110,7 +184,9 @@ def build_ell(g: Graph, widths: Tuple[int, ...] = BUCKET_WIDTHS) -> DeviceEll:
         e_idx = row_ptr[vids][r_idx] + col
         nbr[r_idx, col] = src_b[e_idx].to(torch.int32)
         ww[r_idx, col] = w_b[e_idx]
-        buckets.append(EllBucket(W, rows, nbr, ww, V))
+        br = min(block_rows or stream_block_rows(W), R)
+        buckets.append(EllBucket(W, rows, nbr, ww, V,
+                                 compute_windows(rows, nbr, n, br)))
 
     is_tail = deg > widths[-1]
     tail = is_tail[dst]
@@ -133,10 +209,15 @@ def grid_view(b: EllBucket) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 def to_device(e: DeviceEll, device: torch.device) -> DeviceEll:
     """Copy every tile and tail array of ``e`` to ``device``."""
+    def moved(win):
+        return None if win is None else dataclasses.replace(
+            win, win_blk=win.win_blk.to(device))
+
     return dataclasses.replace(
         e,
         buckets=tuple(dataclasses.replace(
-            b, rows=b.rows.to(device), nbr=b.nbr.to(device), w=b.w.to(device))
+            b, rows=b.rows.to(device), nbr=b.nbr.to(device), w=b.w.to(device),
+            windows=moved(b.windows))
             for b in e.buckets),
         tail_vertices=e.tail_vertices.to(device),
         tail_src=e.tail_src.to(device),

@@ -10,8 +10,9 @@ library under ``build/kernels/`` at the repository root (listed in
 ``-fmad=false`` keeps every float multiply and add separately rounded, as
 eager PyTorch rounds them, so the kernels agree bit for bit with their
 plain versions; an FMA would change last bits and reorder near-tie argmaxes.
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build()`` starts
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  ``build()`` starts
 one ``nvcc`` per source, all at once, and returns what ``-Xptxas -v``
 printed (registers, shared memory, spills) for each.
 
@@ -31,7 +32,8 @@ from repro_torch.utils.errors import KernelError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("local_move_plp", "local_move_louvain", "bin_rank")
+KERNELS = ("local_move_plp", "local_move_louvain", "local_move_plp_streamed",
+           "local_move_louvain_streamed", "bin_rank")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -49,7 +51,8 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + (CSRC / "common.cuh").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -19,6 +19,17 @@ F32_ACCUM_SAFE = 1 << 24
 TABLE_MODES = ("auto", "resident", "streamed")
 BIN_IMPLS = ("kernel", "ref")
 
+# Window-offset granularity of the streamed table layout: a bucket's slot
+# stride is a multiple of this.  It is the JAX package's value (the TPU lane
+# width), kept so the port's windows are the JAX package's windows.
+TABLE_LANE = 128
+
+# Shared memory one block can use on an NVIDIA H100 (SXM): 227 KB, above
+# 48 KB only as dynamic shared memory after an opt-in.  The streamed layout
+# stages each block's table windows there, so this is the budget the
+# resident-vs-streamed policy weighs tables and windows against.
+SMEM_BUDGET_BYTES = 232_448
+
 # Static width menu shared by the ELL re-bucketing and the bin table.
 STAGE_WIDTH_MENU = (16, 64, 256)
 
@@ -58,6 +69,25 @@ def tie_noise(a: torch.Tensor, b: torch.Tensor, seed, eps: float) -> torch.Tenso
     h = hash_u32(_mul_u32(_u32(a), 0x9E3779B1) ^ hash_u32((b + seed) & _M32))
     scale = torch.tensor(noise_scale(eps), device=h.device)
     return h.to(torch.float32) * scale
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def resolve_table_mode(mode: str, table_bytes: int,
+                       budget_bytes: int | None = None) -> str:
+    """Resident-vs-streamed policy for the local_move per-vertex tables:
+    ``auto`` keeps them resident while they fit half the shared-memory
+    budget (default ``SMEM_BUDGET_BYTES``), the JAX package's rule with
+    the card's budget, and streams per-block windows beyond that."""
+    if mode not in TABLE_MODES:
+        raise ValueError(
+            f"unknown table_mode {mode!r}, want one of {TABLE_MODES}")
+    if mode != "auto":
+        return mode
+    budget = SMEM_BUDGET_BYTES if budget_bytes is None else int(budget_bytes)
+    return "resident" if table_bytes <= budget // 2 else "streamed"
 
 
 def pick_ell_width(max_deg: int | None, n_cap: int, m_cap: int) -> int:

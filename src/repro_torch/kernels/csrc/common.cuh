@@ -36,4 +36,55 @@ __device__ __forceinline__ void argmax_combine(float& best, int& best_id,
   }
 }
 
+// Threads of every local_move block, and how a block's threads split over
+// rows of ELL width W: T threads per row, RPB rows per block (16 rows at
+// W = 16, 4 at W = 64, one at W >= 256), so a narrow row never leaves most
+// of a block idle.
+constexpr int kLocalMoveThreads = 256;
+
+template <int W>
+struct RowGroup {
+  static constexpr int T = W < kLocalMoveThreads ? W : kLocalMoveThreads;
+  static constexpr int RPB = kLocalMoveThreads / T;
+};
+
+// A per-vertex table read from device memory through the read-only cache
+// (the resident layout).
+template <class V>
+struct DeviceTable {
+  const V* p;
+  __device__ __forceinline__ V operator()(int v) const { return __ldg(p + v); }
+};
+
+// A block's window of a per-vertex table, staged in shared memory (the
+// streamed layout): vertex v sits at v - lo.  The offset is clipped into
+// the window as the plain version clips it, so an id that the window
+// metadata failed to cover reads the same entry in both and never reads
+// outside the window.
+template <class V>
+struct WindowTable {
+  const V* s;
+  long long lo;
+  int len;
+  __device__ __forceinline__ V operator()(int v) const {
+    long long i = static_cast<long long>(v) - lo;
+    i = i < 0 ? 0 : (i >= len ? len - 1 : i);
+    return s[i];
+  }
+};
+
+// Copies entries [lo, lo + len) of an n_tab-entry table into shared memory
+// `s` with the whole block, consecutive threads on consecutive entries
+// (coalesced); entries past the table's end take `fill`, the padding of
+// the plain version's window_flat.  The caller synchronises after it.
+template <class V>
+__device__ __forceinline__ void stage_window(V* s, const V* __restrict__ tab,
+                                             long long n_tab, long long lo,
+                                             int len, V fill) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const long long v = lo + i;
+    s[i] = v < n_tab ? tab[v] : fill;
+  }
+}
+
 }  // namespace repro_torch

@@ -4,10 +4,15 @@
 versions on the CPU; the JAX package runs its Pallas kernels in interpret
 mode) on the same unit-weight graphs, one with a tail vertex of degree
 > 1024; labels, iterations, ΔN and active histories must be identical, for
-``fused`` True and False.  One config dict drives both packages.
+``fused`` True and False.  One config dict drives both packages.  The
+streamed table layout: sweeps with ``table_mode`` streamed ≡ resident ≡
+segment, and ``plp()`` under ``auto`` on a banded graph whose tables pass
+the port's shared-memory budget (so it streams) ≡ the JAX package's
+``plp(table_mode="streamed")`` through its windowed jnp oracle.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core.engine import EngineSpec as JSpec
 from repro.core.engine import SweepEngine as JEngine
@@ -18,6 +23,7 @@ from repro.graph.generators import sbm
 from repro_torch.core.engine import EngineSpec, SweepEngine
 from repro_torch.core.plp import PLPConfig, plp
 from repro_torch.graph.structure import graph_from_numpy
+from repro_torch.utils import telemetry
 
 _JAX_CACHE = {}
 
@@ -29,7 +35,23 @@ def to_torch(jg):
         m_max=jg.m_max, sorted_by=jg.sorted_by, device="cpu")
 
 
+def _banded(n, band=40, k=3, seed=5):
+    """Undirected unit-weight edges between ids at most ``band`` apart: the
+    id locality the streamed layout relies on."""
+    rng = np.random.default_rng(seed)
+    u = np.repeat(np.arange(n), k)
+    v = np.clip(u + rng.integers(1, band, size=n * k), 0, n - 1)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    uu, vv = np.concatenate([u, v]), np.concatenate([v, u])
+    return from_numpy_edges(uu, vv, np.ones(uu.size, np.float32))
+
+
 def _graph(kind):
+    if kind == "banded":
+        return _banded(1024)
+    if kind == "streamed":      # PLP table 131 KB: past half the budget
+        return _banded(32_768)
     if kind == "sbm":
         u, v, w, _ = sbm(500, 10, p_in=0.2, p_out=0.01, seed=7)
         return from_numpy_edges(u, v, w, n=500)
@@ -82,5 +104,59 @@ def test_louvain_phase_matches_jax(backend):
 def test_engine_rejects_unported_options():
     with pytest.raises(ValueError, match="backend"):
         EngineSpec(backend="distributed")
-    with pytest.raises(NotImplementedError, match="Queue 2 #4"):
-        EngineSpec(backend="pallas", table_mode="streamed")
+    with pytest.raises(ValueError, match="table_mode"):
+        EngineSpec(backend="pallas", table_mode="windowed")
+    assert EngineSpec(backend="pallas", table_mode="streamed").table_mode \
+        == "streamed"
+
+
+@pytest.mark.parametrize("evaluator", ["plp", "louvain"])
+@pytest.mark.parametrize("kind", ["banded", "hub"])
+def test_sweep_streamed_matches_resident_and_segment(kind, evaluator):
+    """One phase with ``table_mode="streamed"`` on the ``ell`` and
+    ``pallas`` backends ≡ ``"resident"`` ≡ the segment evaluator ≡ the JAX
+    package's ``ell`` streamed phase: narrow windows on the banded graph,
+    whole-table windows and a tail vertex on the hub graph."""
+    jg = _graph(kind)
+    kw = dict(evaluator=evaluator, max_sweeps=30, move_prob=0.75)
+    jeng = JEngine(jg, JSpec(backend="ell", table_mode="streamed", **kw))
+    ref = jeng.run_phase(*jeng.singleton_state(), seed=3)
+    tg = to_torch(jg)
+    for backend, tm in (("segment", "auto"), ("ell", "streamed"),
+                        ("ell", "resident"), ("pallas", "streamed")):
+        eng = SweepEngine(tg, EngineSpec(backend=backend, table_mode=tm, **kw))
+        res = eng.run_phase(*eng.singleton_state(), seed=3)
+        np.testing.assert_array_equal(np.asarray(ref.labels),
+                                      res.labels.numpy())
+        assert (res.sweeps, res.delta_n_history, res.active_history) == (
+            ref.sweeps, ref.delta_n_history, ref.active_history)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The suite runs files in parallel worker processes; on the largest
+    graphs here torch's intra-op threads then oversubscribe the cores and
+    the run slows many times over.  One thread per worker avoids that;
+    integer-weighted sums make the results independent of it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("backend", ["ell", "pallas"])
+def test_plp_auto_streams_and_matches_jax_streamed(backend, one_torch_thread):
+    """Under ``auto`` the port streams the banded graph's buckets (its
+    tables pass half the shared-memory budget) and gives the JAX package's
+    ``table_mode="streamed"`` result, bit for bit."""
+    jcfg = JPLPConfig(backend="ell", table_mode="streamed")
+    ref = _jax_plp("streamed", jcfg)
+    before = telemetry.get("local_move.streamed.w16")
+    res = plp(to_torch(_graph("streamed")),
+              PLPConfig.from_dict(jcfg.replace(backend=backend,
+                                               table_mode="auto").to_dict()))
+    assert telemetry.get("local_move.streamed.w16") - before == res.iterations
+    np.testing.assert_array_equal(ref.labels, res.labels)
+    assert res.iterations == ref.iterations
+    assert res.delta_n_history == ref.delta_n_history
+    assert res.active_history == ref.active_history

@@ -1,6 +1,7 @@
 """Port graph substrate ≡ the JAX package, bit for bit: ingest
 (``from_numpy_edges``, ``canonicalize_edges``, the dataset stand-ins), the ELL
-buckets and tail, the segment primitives, and both coarsening paths of the
+buckets and tail, the streamed layout's table windows, the segment
+primitives, and both coarsening paths of the
 aggregation (sort oracle ≡ binned, on a graph that overflows the bin gate
 and one that passes it).  Inputs are made from a seed with numpy; JAX
 graphs cross over as numpy arrays through ``graph_from_numpy``."""
@@ -22,7 +23,8 @@ from repro_torch.core import aggregation as tagg
 from repro_torch.graph import builders as tbuilders
 from repro_torch.graph import datasets as tdatasets
 from repro_torch.graph import segment as tseg
-from repro_torch.graph.ell import build_ell, to_device
+from repro_torch.graph.ell import (build_ell, compute_windows,
+                                   stream_block_rows, to_device)
 from repro_torch.graph.structure import graph_from_numpy
 from repro_torch.utils import telemetry
 from repro_torch.utils.errors import InputValidationError
@@ -151,6 +153,73 @@ def test_build_ell_matches_jax(hub):
     for f in ("tail_src", "tail_dst", "tail_w", "is_tail"):
         np.testing.assert_array_equal(np.asarray(getattr(jd, f)),
                                       getattr(te, f).numpy(), err_msg=f)
+
+
+def _window_tiles(case, n=300, rows=60, width=16):
+    """(rows, nbr) int32 tiles: random ids, locality-ordered (banded) ids,
+    or banded ids whose last 20 rows are padding (all-padding blocks)."""
+    rng = np.random.default_rng(7)
+    if case == "random":
+        r = rng.choice(n, rows, replace=False)
+        nbr = rng.integers(0, n, (rows, width))
+    else:
+        r = np.sort(rng.choice(np.arange(20, n - 20), rows, replace=False))
+        nbr = r[:, None] + rng.integers(-20, 21, (rows, width))
+    nbr[rng.random((rows, width)) < 0.3] = n
+    if case == "padding_tail":
+        r[-20:], nbr[-20:] = n, n
+    return r.astype(np.int32), nbr.astype(np.int32)
+
+
+def _assert_windows_equal(jw, tw):
+    np.testing.assert_array_equal(np.asarray(jw.win_blk), tw.win_blk.numpy())
+    assert tw.win_blk.dtype == torch.int32
+    assert (jw.slot, jw.block_rows, jw.n_slots) == (tw.slot, tw.block_rows,
+                                                    tw.n_slots)
+
+
+@pytest.mark.parametrize("block_rows", [8, 16, 24, 64, 1000])
+@pytest.mark.parametrize("case", ["random", "banded", "padding_tail"])
+def test_compute_windows_matches_jax(case, block_rows):
+    """Same tiles, same ``win_blk``/``slot``/``n_slots``; 1000 rows per
+    block makes a single-block bucket, and the padded tail gives
+    all-padding blocks at 8 and 16 rows."""
+    n = 300
+    r, nbr = _window_tiles(case, n)
+    jw = jell.compute_windows(r, nbr, n, block_rows)
+    tw = compute_windows(torch.from_numpy(r), torch.from_numpy(nbr), n,
+                         block_rows)
+    _assert_windows_equal(jw, tw)
+    if block_rows == 1000:
+        assert tw.win_blk.numel() == 1
+    if case == "padding_tail" and block_rows <= 16:
+        nb = tw.win_blk.numel()
+        blocks = np.concatenate(
+            [r, np.full(nb * block_rows - len(r), n)]).reshape(nb, block_rows)
+        empty = np.all(blocks == n, axis=1)
+        assert empty.any() and not tw.win_blk.numpy()[empty].any()
+    if case == "banded" and block_rows <= 24:
+        assert tw.slot < n + 1        # a window narrower than the table
+
+
+def test_build_ell_windows_match_jax():
+    """The windows of every real bucket (default and explicit block rows)
+    are the JAX package's windows of the same tiles."""
+    u, v, w, _ = sbm(300, 6, p_in=0.3, p_out=0.03, seed=13)
+    jg = jbuilders.from_numpy_edges(u, v, w, n=300)
+    je, tg = jell.build_ell(jg), to_torch(jg)
+    for block_rows in (None, 16):
+        te = build_ell(tg, block_rows=block_rows)
+        for jb, tb in zip(je.buckets, te.buckets):
+            br = min(block_rows or stream_block_rows(tb.width),
+                     tb.rows.shape[0])
+            assert tb.windows.block_rows == br
+            _assert_windows_equal(
+                jell.compute_windows(jb.rows, jb.nbr, jg.n_max, br),
+                tb.windows)
+    moved = to_device(te, CPU)
+    assert all(torch.equal(a.windows.win_blk, b.windows.win_blk)
+               for a, b in zip(te.buckets, moved.buckets))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

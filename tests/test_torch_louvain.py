@@ -8,12 +8,18 @@ The port's ``louvain()`` runs the per-level driver whatever
 ``pallas`` and aggregations ``binned`` and ``sort``.  Every integer output
 and history must match exactly.
 
+The streamed table layout: ``louvain()`` under ``auto`` on a banded graph
+whose tables pass the port's shared-memory budget (so level 0 streams), and
+with an explicit ``table_mode``, ≡ the JAX package's
+``louvain(table_mode="streamed")`` through its windowed jnp oracle.
+
 Modularity is compared with ``rel=1e-6``: it ends in
 ``Σ_c (vol_c / vol)²``, a float32 sum whose order differs between XLA and
 PyTorch, so its last bits may differ even where every partition agrees.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core.louvain import LouvainConfig as JLouvainConfig
 from repro.core.louvain import louvain as jlouvain
@@ -21,6 +27,7 @@ from repro.graph.builders import from_numpy_edges
 from repro.graph.generators import ring_of_cliques, sbm
 from repro_torch.core.louvain import LouvainConfig, louvain
 from repro_torch.graph.structure import graph_from_numpy
+from repro_torch.utils import telemetry
 
 _JAX_CACHE = {}
 INT_FIELDS = ("n_communities", "levels", "sweeps_per_level",
@@ -35,6 +42,13 @@ def to_torch(jg):
 
 
 def _graph(kind):
+    if kind == "banded":       # Louvain tables 131 KB: past half the budget
+        rng = np.random.default_rng(5)
+        u = np.repeat(np.arange(8192), 3)
+        v = np.clip(u + rng.integers(1, 40, size=u.size), 0, 8191)
+        u, v = u[u != v], v[u != v]
+        return from_numpy_edges(np.concatenate([u, v]),
+                                np.concatenate([v, u]), n=8192)
     if kind == "ring":
         u, v, w, _ = ring_of_cliques(16, 8)
         return from_numpy_edges(u, v, w, n=128)
@@ -97,12 +111,67 @@ def test_weighted_graph_modularity_matches_jax():
     ({"refine": True}, "Queue 1 #6.4"),
     ({"checkpoint_dir": "ckpt"}, "Queue 1 #6.6"),
     ({"capacity_schedule": ((64, 512),)}, "Queue 1 #6.3"),
-    ({"table_mode": "streamed", "backend": "pallas"}, "Queue 2 #4"),
 ])
 def test_unported_options_raise(override, item):
     g = to_torch(_graph("ring"))
     with pytest.raises(NotImplementedError, match=item):
         louvain(g, LouvainConfig(**override))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The suite runs files in parallel worker processes; on the largest
+    graphs here torch's intra-op threads then oversubscribe the cores and
+    the run slows many times over.  One thread per worker avoids that;
+    integer-weighted sums make the results independent of it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _assert_matches(ref, res):
+    np.testing.assert_array_equal(ref.labels, res.labels)
+    for f in INT_FIELDS:
+        assert getattr(res, f) == getattr(ref, f), f
+    assert res.modularity == pytest.approx(ref.modularity, rel=1e-6)
+    assert res.modularity_history == pytest.approx(ref.modularity_history,
+                                                   rel=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["ell", "pallas"])
+def test_louvain_auto_streams_and_matches_jax_streamed(backend,
+                                                       one_torch_thread):
+    """Under ``auto`` level 0 streams the banded graph's buckets and the
+    whole run gives the JAX package's ``table_mode="streamed"`` result."""
+    jcfg = JLouvainConfig(backend="ell", table_mode="streamed",
+                          pipeline_fused=False)
+    ref = _jax_louvain("banded", jcfg)
+    before = telemetry.get("local_move.streamed.w16")
+    res = louvain(to_torch(_graph("banded")), LouvainConfig.from_dict(
+        jcfg.replace(backend=backend, table_mode="auto").to_dict()))
+    assert (telemetry.get("local_move.streamed.w16") - before
+            == res.sweeps_per_level[0])
+    _assert_matches(ref, res)
+
+
+@pytest.mark.parametrize("table_mode", ["streamed", "resident"])
+@pytest.mark.parametrize("backend", ["ell", "pallas"])
+def test_louvain_table_modes_match_jax_streamed(backend, table_mode):
+    """Explicit table modes on a graph with a tail vertex (whole-table
+    windows) ≡ the JAX package's streamed run."""
+    jcfg = JLouvainConfig(backend="ell", table_mode="streamed",
+                          pipeline_fused=False)
+    ref = _jax_louvain("hub", jcfg)
+    res = louvain(to_torch(_graph("hub")), LouvainConfig.from_dict(
+        jcfg.replace(backend=backend, table_mode=table_mode).to_dict()))
+    _assert_matches(ref, res)
+
+
+def test_unknown_table_mode_raises():
+    with pytest.raises(ValueError, match="table_mode"):
+        louvain(to_torch(_graph("ring")),
+                LouvainConfig(backend="pallas", table_mode="windowed"))
 
 
 @pytest.mark.parametrize("backend", ["segment", "pallas"])
