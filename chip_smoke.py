@@ -7,9 +7,9 @@ Phases, each failing loudly (exit code 1, no result line):
 
 1. Device: the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.  No card → failure.
-2. Build: the five CUDA kernels of the main path from
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` per source, all started
-   together; prints what ``-Xptxas -v`` reports for each.
+2. Build: the eight CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together; prints what
+   ``-Xptxas -v`` reports for each.
 3. Main path, on two graphs of real size built on the card with
    ``datasets.load(name, scale, device="cuda")``: the R-MAT ``as-skitter``
    stand-in at scale 1.0 (2^21 vertices, ~28 M directed edges), and the
@@ -22,13 +22,30 @@ Phases, each failing loudly (exit code 1, no result line):
    R-MAT graph's windows span its tables, so it stays resident; com-dblp's
    W = 16 bucket has narrow windows past half the shared-memory budget, so
    it takes the streamed kernels.  The mode each bucket took is logged.
-   Every launch counter is set to 0 just before the ``pallas`` runs and
-   read just after them; each kernel must have launched, no streamed
-   kernel may have launched on the R-MAT graph, and the run reports must
-   show no degradation.  Then ``backend="ell"`` (plain PyTorch on the
-   card) on both graphs, and ``table_mode="resident"`` on com-dblp: every
-   run of a graph must agree on labels, iterations, levels, Q and every
-   per-level history.
+   Every launch counter of the five main-path kernels is set to 0 just
+   before the ``pallas`` runs and read just after them; each must have
+   launched, no streamed kernel may have launched on the R-MAT graph, and
+   the run reports must show no degradation.  Then ``backend="ell"``
+   (plain PyTorch on the card) on both graphs, and
+   ``table_mode="resident"`` on com-dblp: every run of a graph must agree
+   on labels, iterations, levels, Q and every per-level history.
+3b. Two-step scoring, the path the fused local_move kernels replaced: on
+   every non-empty level-0 bucket of both graphs, the first and the last
+   recorded sweep of PLP and Louvain, the (rows, W) tiles are gathered
+   outside a kernel (``local_move/ref.py:_gather`` on the tables the main
+   path built, as ``benchmarks/perf_variants.py``'s ``plp_two_step`` and
+   ``louvain_two_step`` gather them) and scored through
+   ``label_argmax(..., use_pallas=True)`` and ``delta_q_argmax(...,
+   use_pallas=True)``, under unit, integer (1..8) and uniform float32
+   weights; ``(best, propose)`` must equal the fused kernel's bit for bit.
+   Then the GroupBy reduce through ``sorted_segment_sum(...,
+   use_pallas=True)``: the R-MAT graph's weighted degrees from its
+   src-sorted edges and com-dblp's first-level community volumes, each
+   equal to the main path's own.  The three kernels' launch counters are
+   set to 0 just before this path and read just after it.  Per bucket,
+   the fused kernel's device time is printed beside the two-step's gather
+   (CUDA events) and scoring kernel (device time), as the JAX package's
+   ``gather_fusion`` mode prints them (``fused_s``, ``two_step_s``).
 4. Kernels: each kernel against its plain version on the inputs the main
    path gave it (every level-0 ELL bucket of both graphs, first and last
    sweep; the first level whose bin gate passed), with the graph's unit
@@ -40,9 +57,22 @@ Phases, each failing loudly (exit code 1, no result line):
    the least time the card could take (``bound_ms``).  Each streamed
    bucket is also timed through the resident kernel, and the bytes the
    streamed layout reads (tiles, one window per block per table, outputs)
-   are printed beside the bound.  The ``kernels`` line sums the R-MAT
-   graph's four buckets (one level-0 sweep) for the resident kernels and
-   com-dblp's streamed buckets for the streamed ones.
+   are printed beside the bound.  ``label_argmax`` and ``delta_q`` run on
+   phase 3b's tiles (last sweep), ``block_segment_sums`` through
+   ``sorted_segment_sum`` on its sorted keys, beside
+   ``torch.segment_reduce`` on the same keys (``library_ms``, its lengths
+   from ``torch.unique_consecutive`` timed apart); bit for bit on unit and
+   integer weights, and on float32 weights — which the plain versions add
+   with ``torch.sum`` in their own order, the kernels in ascending
+   position order — scores within 1e-5 of the row's weight mass Σ|w| (the
+   scale of a sum's rounding; a ΔQ gain, a difference of two sums, can be
+   far smaller), labels equal wherever the plain version's top two scores
+   differ by more than twice that, and segment sums within rtol = atol =
+   1e-5.  The ``kernels`` line sums the R-MAT graph's four buckets (one
+   level-0 sweep) for the resident and scored-tile kernels, com-dblp's
+   streamed buckets for the streamed ones, and the R-MAT graph's 28 M
+   sorted edge sources for ``block_segment_sums``.  The card's clocks,
+   temperature and power draw are printed before and after this phase.
 
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
@@ -74,6 +104,11 @@ STREAM_BLOCK_ROWS_SWEEP = (64, 128, 256, 512, 1024, 2048)
 # adds the functions need.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+
+# A torch.profiler trace on the card now and then holds no device event at
+# all (two in a row at most so far; the cause is not known), so device_ms
+# traces again, up to this many times, before the run fails.
+PROFILER_TRACES = 6
 
 
 def fail(msg: str) -> None:
@@ -122,21 +157,26 @@ def device_ms(fn, reps: int, torch) -> float:
     """Device milliseconds per call of ``fn()``: the summed durations of
     the device events of ``reps`` calls traced by ``torch.profiler`` after
     three warm-up calls, over ``reps``.  Host time between launches (the
-    wrapper's checks, allocation and ctypes call) is not in it."""
+    wrapper's checks, allocation and ctypes call) is not in it.  A trace
+    that holds no device event is logged and taken again, up to
+    ``PROFILER_TRACES`` times; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    if not events:
-        fail("the profiler saw no device time")
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    for attempt in range(1, PROFILER_TRACES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+        log(f"[timing] trace {attempt} of {PROFILER_TRACES} held no device "
+            f"event")
+    fail(f"the profiler saw no device time in {PROFILER_TRACES} traces")
 
 
 def _events_ms(fn, reps: int, torch) -> float:
@@ -177,8 +217,28 @@ def int_weights(w, torch, seed: int):
     return torch.where(w != 0, ints.to(w.dtype), w)
 
 
+def f32_weights(w, torch, seed: int):
+    """The tile's weights replaced by uniform float32 draws in [0, 1)
+    (padding stays 0)."""
+    gen = torch.Generator(device=w.device).manual_seed(seed)
+    draws = torch.rand(w.shape, generator=gen, device=w.device)
+    return torch.where(w != 0, draws, w)
+
+
+def weightings(w, torch, seed: int):
+    """The three weightings the scored-tile checks run under: the graph's
+    own (unit), integers 1..8 and uniform float32."""
+    return (("unit", w), ("int1..8", int_weights(w, torch, seed)),
+            ("f32", f32_weights(w, torch, seed)))
+
+
 def max_abs_err(a, b) -> float:
-    return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+    if not a.numel():
+        return 0.0
+    if a.is_floating_point():
+        same = (a == b) | (a.isinf() & b.isinf() & (a.sign() == b.sign()))
+        return float((a - b).abs().where(~same, 0.0).max())
+    return float((a.long() - b.long()).abs().max())
 
 
 # ------------------------------------------------------------ phases
@@ -388,6 +448,203 @@ def phase_main(torch, rt):
     out = {"graphs": {k: v[2] for k, v in graphs.items()},
            "launches": launches, "peak_mem_gib": peak}
     return out, recs, graphs
+
+
+# ------------------------------------------------ phase 3b: two-step scoring
+
+
+def plp_tiles(rt, rows, nbr, labels_ext, n):
+    """The two-step path's gather for PLP, as benchmarks/perf_variants.py's
+    plp_two_step gathers: (neighbour labels, current labels, noise keys)."""
+    g = rt.lm_ref._gather
+    return (g(labels_ext, nbr, n, n), g(labels_ext, rows, n, n),
+            rt.torch.where(rows < n, rows, n))
+
+
+def louvain_tiles(rt, rows, nbr, composed, n):
+    """The two-step path's gather for Louvain, as perf_variants.py's
+    louvain_two_step gathers, from the composed per-vertex tables:
+    (cand, cur, deg, vol_cand, vol_cur, size_cand, size_cur)."""
+    g = rt.lm_ref._gather
+    com, vol, size, deg = composed
+    return (g(com, nbr, n, n), g(com, rows, n, n), g(deg, rows, n, 0.0),
+            g(vol, nbr, n, 0.0), g(vol, rows, n, 0.0), g(size, nbr, n, 0),
+            g(size, rows, n, 0))
+
+
+def plp_two_step(rt, tiles, w, seed, kw):
+    lab, cur, keys = tiles
+    best, bs, cs = rt.la_ops.label_argmax(
+        lab, w, cur, keys, seed, tie_eps=kw["tie_eps"],
+        sentinel=kw["sentinel"], use_pallas=True)
+    return best, (best >= 0) & (bs > cs)
+
+
+def louvain_two_step(rt, tiles, w, vol_total, kw):
+    cand, cur, deg, volc, volcur, sizec, sizecur = tiles
+    best, gain = rt.dq_ops.delta_q_argmax(
+        cand, w, cur, deg, volc, volcur, sizec, sizecur, vol_total,
+        sentinel=kw["sentinel"], singleton_rule=kw["singleton_rule"],
+        use_pallas=True)
+    return best, (best >= 0) & (gain > 0.0)
+
+
+def segment_sum_checks(torch, rt, graphs):
+    """The GroupBy reduce of the path through ``sorted_segment_sum``: the
+    R-MAT graph's weighted degrees from its src-sorted edges, and the
+    community-rich graph's first-level community volumes from its edges
+    sorted by the source's community; each must equal the main path's own
+    (``Graph.weighted_degrees``, ``moves.community_aux``) bit for bit (the
+    weights are integers).  Returns the inputs per graph for phase 4."""
+    inputs = {}
+    g = graphs[MAIN_GRAPH[0]][0]
+    if g.sorted_by != "src":
+        fail(f"{MAIN_GRAPH[0]} is not src-sorted")
+    keys, vals = g.src, torch.where(g.edge_mask, g.w, 0.0)
+    sums, starts = rt.ss_ops.sorted_segment_sum(keys, vals, use_pallas=True)
+    deg = torch.zeros(g.n_max + 1, dtype=torch.float32, device=keys.device)
+    deg[keys[starts].long()] = sums[starts]
+    if not torch.equal(deg[:g.n_max], g.weighted_degrees()):
+        fail(f"sorted_segment_sum: {MAIN_GRAPH[0]}'s degrees differ from "
+             f"Graph.weighted_degrees()")
+    inputs[MAIN_GRAPH[0]] = (keys, vals, "edge sources")
+
+    g = graphs[COMMUNITY_GRAPH[0]][0]
+    first = rt.louvain(g, rt.LouvainConfig(backend="pallas", max_levels=1))
+    com = torch.as_tensor(first.labels, device=g.device).to(torch.int32)
+    src, w = g.src[g.edge_mask], g.w[g.edge_mask]
+    ckeys, order = torch.sort(com[src.long()], stable=True)
+    cvals = w[order]
+    sums, starts = rt.ss_ops.sorted_segment_sum(ckeys, cvals, use_pallas=True)
+    vol = torch.zeros(g.n_max, dtype=torch.float32, device=g.device)
+    vol[ckeys[starts].long()] = sums[starts]
+    ref_vol, _ = rt.moves.community_aux(com, g.weighted_degrees(),
+                                        g.vertex_mask(), g.n_max)
+    if not torch.equal(vol, ref_vol):
+        fail(f"sorted_segment_sum: {COMMUNITY_GRAPH[0]}'s first-level "
+             f"community volumes differ from community_aux")
+    inputs[COMMUNITY_GRAPH[0]] = (ckeys, cvals, "first-level communities "
+                                  "of the edge sources")
+    log(f"[two_step] sorted_segment_sum: {MAIN_GRAPH[0]} degrees over "
+        f"{keys.numel()} src-sorted edge slots and {COMMUNITY_GRAPH[0]} "
+        f"volumes of {first.n_communities} first-level communities over "
+        f"{ckeys.numel()} edges equal the main path's, bit for bit")
+    return inputs
+
+
+def phase_two_step(args, torch, rt, recs, graphs):
+    """Phase 3b: the two-step scoring path (gather the (rows, W) tiles
+    outside a kernel, then score them with ``label_argmax`` /
+    ``delta_q_argmax``), which the fused local_move kernels replaced, on
+    every non-empty level-0 bucket of both graphs, the first and the last
+    recorded sweep of PLP and Louvain, under unit, integer (1..8) and
+    uniform float32 weights: its ``(best, propose)`` must equal the fused
+    kernel's (the one the main path ran on that bucket) bit for bit.  Then
+    the GroupBy reduce through ``sorted_segment_sum``.  The three new
+    kernels' launch counters are set to 0 just before this path and read
+    just after it.  Last, per bucket (last sweep, unit weights), the fused
+    kernel's device time against the two-step's gather (CUDA events) plus
+    its scoring kernel's device time."""
+    rec_plp, rec_lv, _, rec_plp_s, rec_lv_s = recs
+    counters = (rt.la_kernel.label_argmax_kernel, rt.dq_kernel.delta_q_kernel,
+                rt.ss_kernel.block_segment_sums_kernel)
+    captured = {"label_argmax": {}, "delta_q": {}}
+    buckets = []
+    for c in counters:
+        c.launches = 0
+    for algo, algo_recs in (("plp", (rec_plp, rec_plp_s)),
+                            ("louvain", (rec_lv, rec_lv_s))):
+        for rec in algo_recs:
+            for (graph, width), (first, last) in sorted(rec.calls.items()):
+                g = graphs[graph][0]
+                n = g.n_max
+                for tag, (a, kw) in (("first", first), ("last", last)):
+                    rows, nbr, w, *rest = a
+                    if algo == "plp":
+                        tiles = plp_tiles(rt, rows, nbr, rest[0], n)
+                        vol_total = None
+                    else:
+                        tiles = louvain_tiles(rt, rows, nbr, rest[:4], n)
+                        vol_total = g.total_volume()
+                        if not torch.equal((1.0 / vol_total).to(torch.float32),
+                                           rest[4]):
+                            fail("the main path's 1/vol(V) is not "
+                                 "(1 / total_volume()) in float32")
+                    for wname, ww in weightings(w, torch, width):
+                        fused = rec.fn(rows, nbr, ww, *rest, **kw)
+                        two = (plp_two_step(rt, tiles, ww, rest[1], kw)
+                               if algo == "plp" else
+                               louvain_two_step(rt, tiles, ww, vol_total, kw))
+                        if not (torch.equal(two[0], fused[0])
+                                and torch.equal(two[1], fused[1])):
+                            fail(f"two-step {algo} {graph} W={width} ({tag} "
+                                 f"sweep, {wname} weights) differs from the "
+                                 f"fused kernel")
+                    if tag == "last":
+                        buckets.append((algo, rec, graph, width, a, kw,
+                                        tiles, vol_total))
+    seg_inputs = segment_sum_checks(torch, rt, graphs)
+    launches = {c.__name__.replace("_kernel", ""): c.launches
+                for c in counters}
+    log(f"[two_step] every level-0 bucket of both graphs, first and last "
+        f"sweep, unit/int1..8/f32 weights: two-step ≡ fused bit for bit; "
+        f"launches {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was launched no time on the two-step path")
+
+    reps = args.reps
+    report = {}
+    for algo, rec, graph, width, a, kw, tiles, vol_total in buckets:
+        rows, nbr, w, *rest = a
+        n = graphs[graph][0].n_max
+        if algo == "plp":
+            def gather():
+                return plp_tiles(rt, rows, nbr, rest[0], n)
+            lab, cur, keys = tiles
+            s_args = (lab, w, cur, keys, rest[1])
+            s_kw = dict(tie_eps=kw["tie_eps"], sentinel=n)
+            score = rt.la_kernel.label_argmax_kernel
+        else:
+            def gather():
+                return louvain_tiles(rt, rows, nbr, rest[:4], n)
+            cand, cur, deg, volc, volcur, sizec, sizecur = tiles
+            s_args = (cand, w, cur, deg, volc, volcur, sizec, sizecur,
+                      rest[4])
+            s_kw = dict(sentinel=n, singleton_rule=kw["singleton_rule"])
+            score = rt.dq_kernel.delta_q_kernel
+        captured["label_argmax" if algo == "plp" else "delta_q"][
+            (graph, width)] = (s_args, s_kw)
+        fused_ms = device_ms(lambda: rec.fn(rows, nbr, w, *rest, **kw), reps,
+                             torch)
+        gather_ms = loop_ms(gather, reps, torch)
+        score_ms = device_ms(lambda: score(*s_args, **s_kw), reps, torch)
+        two_ms = gather_ms + score_ms
+        rec_out = {"width": width, "rows": int(rows.shape[0]),
+                   "rows_real": int((rows < n).sum()),
+                   "fused_kernel": rec.fn.__name__.replace("_kernel", ""),
+                   "fused_s": fused_ms / 1e3, "two_step_s": two_ms / 1e3,
+                   "gather_s": gather_ms / 1e3, "scoring_s": score_ms / 1e3,
+                   "fused_speedup_vs_two_step": two_ms / fused_ms,
+                   "bit_identical": True}
+        report.setdefault((graph, algo), []).append(rec_out)
+        log(f"[two_step] {graph} {algo} W={width} rows={rec_out['rows']}: "
+            f"fused {fused_ms:.4f} ms ({rec_out['fused_kernel']}), two-step "
+            f"{two_ms:.4f} ms (gather {gather_ms:.4f} + scoring "
+            f"{score_ms:.4f}), two-step / fused {two_ms / fused_ms:.2f}")
+    out = []
+    for (graph, algo), per_width in sorted(report.items()):
+        fused = sum(r["fused_s"] for r in per_width)
+        two = sum(r["two_step_s"] for r in per_width)
+        line = {"mode": "gather_fusion", "dataset": graph,
+                f"{algo}_per_width": per_width,
+                f"{algo}_kernel_fused_s": fused,
+                f"{algo}_kernel_two_step_s": two,
+                f"{algo}_kernel_speedup_vs_two_step": two / fused,
+                f"{algo}_bit_identical": True}
+        log(json.dumps(line))
+        out.append(line)
+    return {"launches": launches, "gather_fusion": out}, captured, seg_inputs
 
 
 def local_move_bytes(R: int, W: int, n1: int, n_tables: int) -> int:
@@ -608,6 +865,211 @@ def phase_kernels(args, torch, rt, recs, launches):
     return rows_out
 
 
+def check_tiles_f32(name, plain, args, sentinel, out_k, out_p, where, torch):
+    """Kernel against plain version on float32 weights.  The plain version
+    adds a row with ``torch.sum`` (its own order), the kernel in ascending
+    position order, so a score may differ by the rounding of a sum of up
+    to W terms, which scales with the terms added — the row's weight mass
+    M = Σ|w| — not with the score: a ΔQ gain is a difference of two such
+    sums (S − S_A) and may be far smaller than either.  So scores agree
+    within 1e-5·max(1, M) per row, and labels wherever the plain version's
+    top two scores differ by more than twice that.  The runner-up is the
+    plain version's best once the best label's entries are masked out (no
+    other label's score depends on them).  On the other rows (near ties)
+    the kernel's label must still be a candidate whose plain score lies
+    within 2e-5·M of the plain best: the plain version run on the row with
+    only that label's entries kept (and, for ``delta_q``, the current
+    community's, on which every gain depends) must return that label with
+    such a score.  Logs the near-tie rows and the largest score error
+    against M and against the score itself; returns the largest absolute
+    error and the near-tie row count."""
+    mass = args[1].abs().sum(dim=1).clamp_min(1.0)
+    err_mass = err_score = 0.0
+    for a, b in zip(out_k[1:], out_p[1:]):
+        diff = torch.where(a == b, 0.0, (a - b).abs())
+        if not bool((diff <= 1e-5 * mass).all()):
+            fail(f"{name} {where} (f32 weights): scores differ by more than "
+                 f"1e-5 of the row's weight mass")
+        err_mass = max(err_mass, float((diff / mass).max()))
+        err_score = max(err_score, float(
+            (diff / b.abs().clamp_min(1e-30)).max()))
+    best = out_p[0]
+    masked = torch.where(args[0] == best[:, None], sentinel, args[0])
+    second = plain(masked, *args[1:])[1]
+    decided = (best < 0) | ((out_p[1] - second).abs() > 2e-5 * mass)
+    if not torch.equal(out_k[0][decided], best[decided]):
+        fail(f"{name} {where} (f32 weights): labels differ where the plain "
+             f"version's top two scores are more than 2e-5 of the row's "
+             f"weight mass apart")
+    near = ~decided
+    n_near = int(near.sum())
+    if n_near:
+        sub = [x[near] if torch.is_tensor(x) and x.dim() else x for x in args]
+        lab = out_k[0][near]
+        keep = sub[0] == lab[:, None]
+        if name == "delta_q":
+            keep |= sub[0] == sub[2][:, None]
+        only = plain(torch.where(keep, sub[0], sentinel), *sub[1:])
+        ok = (only[0] == lab) & (
+            only[1] >= out_p[1][near] - 2e-5 * mass[near])
+        if not bool(ok.all()):
+            fail(f"{name} {where} (f32 weights): on {int((~ok).sum())} "
+                 f"near-tie rows the kernel's label is no candidate within "
+                 f"2e-5 of the row's weight mass of the plain best")
+    log(f"[kernels] {name} {where} f32 weights: {n_near} near-tie rows of "
+        f"{best.numel()}, the kernel's label within 2e-5 of the row's "
+        f"weight mass of the plain best on each, labels equal on the rest; "
+        f"largest score error {err_mass:.3g} of the row's weight mass "
+        f"({err_score:.3g} of the score)")
+    return (max(max_abs_err(a, b) for a, b in zip(out_k[1:], out_p[1:])),
+            n_near)
+
+
+def phase_scored_tiles(args, torch, rt, captured, seg_inputs, launches):
+    """Phase 4 for the two-step path's kernels: ``label_argmax`` and
+    ``delta_q`` on the tiles phase 3b gathered (last sweep of every
+    level-0 bucket of both graphs), ``block_segment_sums`` through
+    ``sorted_segment_sum`` on phase 3b's sorted keys, each against its
+    plain version — bit for bit on unit and integer weights, within the
+    stated tolerance on float32 weights — then timed like the other rows.
+    ``label_argmax``/``delta_q`` rows sum the R-MAT graph's four buckets."""
+    reps = args.reps
+    out = []
+    specs = (
+        ("label_argmax", rt.la_kernel.label_argmax_kernel,
+         lambda a, kw: rt.la_ref.label_argmax_chunked(
+             *a, kw["tie_eps"], kw["sentinel"]),
+         "src/repro_torch/kernels/csrc/label_argmax.cu",
+         "src/repro/kernels/label_argmax/kernel.py:67",
+         lambda R, W: 8 * R * W + 8 * R + 12 * R),
+        ("delta_q", rt.dq_kernel.delta_q_kernel,
+         lambda a, kw: rt.dq_ref.delta_q_chunked(
+             *a, kw["sentinel"], kw["singleton_rule"]),
+         "src/repro_torch/kernels/csrc/delta_q.cu",
+         "src/repro/kernels/delta_q/kernel.py:72",
+         lambda R, W: 16 * R * W + 16 * R + 8 * R))
+    for name, kernel, plain, source, replaces, nbytes in specs:
+        total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        kinds, detail = {"bytes": 0.0, "operations": 0.0}, []
+        err = f32_err = 0.0
+        f32_rows = f32_near = 0
+        for (graph, width), (s_args, s_kw) in sorted(captured[name].items()):
+            where = f"{graph} W={width}"
+            for wname, w in weightings(s_args[1], torch, width + 1):
+                a = (s_args[0], w, *s_args[2:])
+                ko, po = kernel(*a, **s_kw), plain(a, s_kw)
+                torch.cuda.synchronize()
+                if wname == "f32":
+                    e, near = check_tiles_f32(
+                        name, lambda *pa: plain(pa, s_kw), a,
+                        s_kw["sentinel"], ko, po, where, torch)
+                    f32_err = max(f32_err, e)
+                    f32_rows += s_args[0].shape[0]
+                    f32_near += near
+                    continue
+                if not all(torch.equal(x, y) for x, y in zip(ko, po)):
+                    fail(f"{name} {where} ({wname} weights): kernel and "
+                         f"plain differ")
+                err = max([err] + [max_abs_err(x, y) for x, y in zip(ko, po)])
+            R, W = s_args[0].shape
+            k_ms = device_ms(lambda: kernel(*s_args, **s_kw), reps, torch)
+            p_ms = loop_ms(lambda: plain(s_args, s_kw), reps, torch)
+            b_ms, kind = bound_ms(nbytes(R, W), R * W * math.log2(W))
+            if graph == MAIN_GRAPH[0]:
+                kinds[kind] += b_ms
+                total["ms"] += k_ms
+                total["plain_ms"] += p_ms
+                total["bound_ms"] += b_ms
+            detail.append({"graph": graph, "width": W, "rows": R, "ms": k_ms,
+                           "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": kind})
+            log(f"[kernels] {name} {where} rows={R}: kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({kind})")
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": err, "f32_max_abs_err": f32_err,
+                    "f32_rows": f32_rows, "f32_near_tie_rows": f32_near,
+                    "ms": total["ms"],
+                    "kernel_ms": total["ms"], "plain_ms": total["plain_ms"],
+                    "bound_ms": total["bound_ms"],
+                    "bound_by": max(kinds, key=kinds.get),
+                    "library_ms": None, "equal": True, "per_width": detail})
+
+    # block_segment_sums, through its entry point sorted_segment_sum
+    ss = rt.ss_ops.sorted_segment_sum
+    block = rt.ss_kernel.DEFAULT_BLOCK
+    err, detail = 0.0, []
+    for graph, (keys, vals, what) in seg_inputs.items():
+        for wname, v in weightings(vals, torch, 5):
+            ko = ss(keys, v, use_pallas=True)
+            po = rt.ss_ref.sorted_segment_sum_ref(keys, v)
+            torch.cuda.synchronize()
+            if not torch.equal(ko[1], po[1]):
+                fail(f"block_segment_sums {graph}: run starts differ")
+            if wname == "f32":
+                if not bool(torch.isclose(ko[0], po[0], rtol=1e-5,
+                                          atol=1e-5).all()):
+                    fail(f"block_segment_sums {graph} (f32 values): sums "
+                         f"differ beyond rtol = atol = 1e-5")
+                continue
+            if not torch.equal(ko[0], po[0]):
+                fail(f"block_segment_sums {graph} ({wname} values): kernel "
+                     f"and plain differ")
+        m = keys.numel()
+        pad = (-m) % block
+        kp = torch.cat([keys, keys.new_full((pad,), 2**31 - 1)])
+        vp = torch.cat([vals, vals.new_zeros(pad)])
+        k_ms = device_ms(lambda: rt.ss_kernel.block_segment_sums_kernel(
+            kp, vp, block=block), reps, torch)
+        e_ms = device_ms(lambda: ss(keys, vals, use_pallas=True), reps, torch)
+        p_ms = loop_ms(lambda: rt.ss_ref.sorted_segment_sum_ref(keys, vals),
+                       reps, torch)
+        lengths_ms = loop_ms(lambda: torch.unique_consecutive(
+            keys, return_counts=True), reps, torch)
+        lengths = torch.unique_consecutive(keys, return_counts=True)[1]
+        lib_ms = device_ms(lambda: torch.segment_reduce(
+            vals, "sum", lengths=lengths), reps, torch)
+        runs = int(lengths.numel())
+        # the kernel reads 8 bytes a padded key and writes the 4-byte
+        # totals; the entry point also writes the 1-byte run starts
+        b_ms, kind = bound_ms(12 * kp.numel(), kp.numel())
+        eb_ms, _ = bound_ms(13 * m, m)
+        detail.append({"graph": graph, "keys": what, "m": m, "runs": runs,
+                       "longest_run": int(lengths.max()), "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": kind,
+                       "entry_ms": e_ms, "entry_bound_ms": eb_ms,
+                       "library_ms": lib_ms, "lengths_ms": lengths_ms})
+        log(f"[kernels] block_segment_sums {graph} ({what}) m={m} runs={runs} "
+            f"longest {int(lengths.max())}: kernel {k_ms:.4f} ms (bound "
+            f"{b_ms:.4f} ms, {kind}), sorted_segment_sum (kernel + spine) "
+            f"{e_ms:.4f} ms (bound {eb_ms:.4f} ms), plain {p_ms:.4f} ms; "
+            f"torch.segment_reduce {lib_ms:.4f} ms, its lengths "
+            f"(unique_consecutive) {lengths_ms:.4f} ms")
+    main = detail[0]
+    out.append({"name": "block_segment_sums", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/block_segment_sums.cu",
+                "replaces": "src/repro/kernels/segment_sum/kernel.py:31",
+                "launches": launches["block_segment_sums"],
+                "max_abs_err": err, "ms": main["ms"],
+                "kernel_ms": main["ms"], "entry_ms": main["entry_ms"],
+                "entry_bound_ms": main["entry_bound_ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"], "equal": True,
+                "per_graph": detail})
+    return out
+
+
+def clocks(stage: str) -> None:
+    """The card's SM clock, its maximum, temperature and power draw."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    log(f"[clocks] {stage}: " + (smi.stdout.strip() if smi.returncode == 0
+                                else f"nvidia-smi failed: {smi.stderr}"))
+
+
 def phase_profile(torch, rt, name, g, top: int = 15):
     """One ``louvain(backend="pallas")`` run of ``g`` under
     ``torch.profiler``: device time by kernel name (largest first) and the
@@ -662,13 +1124,23 @@ def main(argv) -> int:
         from repro_torch.core.louvain import LouvainConfig, louvain
         from repro_torch.core.plp import PLPConfig, plp
         from repro_torch.graph.ell import build_ell, compute_windows
+        from repro_torch.core import moves
         from repro_torch.kernels import build
         from repro_torch.kernels.aggregation import kernel as agg_kernel
         from repro_torch.kernels.aggregation import ops as agg_ops
         from repro_torch.kernels.aggregation import ref as agg_ref
+        from repro_torch.kernels.delta_q import kernel as dq_kernel
+        from repro_torch.kernels.delta_q import ops as dq_ops
+        from repro_torch.kernels.delta_q import ref as dq_ref
+        from repro_torch.kernels.label_argmax import kernel as la_kernel
+        from repro_torch.kernels.label_argmax import ops as la_ops
+        from repro_torch.kernels.label_argmax import ref as la_ref
         from repro_torch.kernels.local_move import kernel as lm_kernel
         from repro_torch.kernels.local_move import ops as lm_ops
         from repro_torch.kernels.local_move import ref as lm_ref
+        from repro_torch.kernels.segment_sum import kernel as ss_kernel
+        from repro_torch.kernels.segment_sum import ops as ss_ops
+        from repro_torch.kernels.segment_sum import ref as ss_ref
         from repro_torch.utils import telemetry
     except ImportError as err:
         fail(f"the repro_torch package is not next to this script ({err})")
@@ -677,13 +1149,22 @@ def main(argv) -> int:
         PLPConfig=PLPConfig, plp=plp, build_ell=build_ell,
         compute_windows=compute_windows,
         agg_kernel=agg_kernel, agg_ops=agg_ops, agg_ref=agg_ref,
-        lm_kernel=lm_kernel, lm_ops=lm_ops, lm_ref=lm_ref,
+        lm_kernel=lm_kernel, lm_ops=lm_ops, lm_ref=lm_ref, moves=moves,
+        la_kernel=la_kernel, la_ops=la_ops, la_ref=la_ref,
+        dq_kernel=dq_kernel, dq_ops=dq_ops, dq_ref=dq_ref,
+        ss_kernel=ss_kernel, ss_ops=ss_ops, ss_ref=ss_ref, torch=torch,
         telemetry=telemetry)
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     phase_build(build)
     main_out, recs, graphs = phase_main(torch, rt)
+    main_out["two_step"], captured, seg_inputs = phase_two_step(
+        args, torch, rt, recs, graphs)
+    clocks("before phase 4")
     kernels = phase_kernels(args, torch, rt, recs, main_out["launches"])
+    kernels += phase_scored_tiles(args, torch, rt, captured, seg_inputs,
+                                  main_out["two_step"]["launches"])
+    clocks("after phase 4")
     if args.profile:
         main_out["profile"] = phase_profile(
             torch, rt, MAIN_GRAPH[0], graphs[MAIN_GRAPH[0]][0])

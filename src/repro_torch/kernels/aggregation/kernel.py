@@ -4,7 +4,7 @@ The plain version (``ref.py``) serves tensors on the CPU; tensors on the
 card launch the kernel, with no fallback between the two.  The wrapper
 checks device, dtype, shape and contiguity, allocates the output, launches
 on PyTorch's current stream, raises ``KernelError`` on a launch error, and
-counts its launches in ``bin_rank_kernel.launches``.
+counts its launches in ``bin_rank_kernel.launches``; no edges, no launch.
 
 Callers guarantee every ``cs`` lies in [0, rows of the table).
 """
@@ -43,12 +43,11 @@ def bin_rank_kernel(
                              f"of shape {tuple(shape)} on {dev}")
     if keys_flat.data_ptr() % 16:
         raise ValueError("keys_flat must be 16-byte aligned")
-    fn = build.load("bin_rank").bin_rank_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, _P, _P]
-        fn.restype = ctypes.c_int
     out = torch.empty(R, dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    fn = build.entry("bin_rank", [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                  ctypes.c_int, _P, _P])
     err = fn(keys_flat.data_ptr(), cs.data_ptr(), cd.data_ptr(), R, width,
              empty, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("bin_rank", err)

@@ -33,7 +33,8 @@ from repro_torch.utils.errors import KernelError
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("local_move_plp", "local_move_louvain", "local_move_plp_streamed",
-           "local_move_louvain_streamed", "bin_rank")
+           "local_move_louvain_streamed", "bin_rank", "label_argmax", "delta_q",
+           "block_segment_sums")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
@@ -94,6 +95,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, argtypes, suffix: str = "launch"):
+    """The C function ``<name>_<suffix>`` of kernel ``name``, loaded (and
+    built) at first use, with its argument types set; it returns a
+    ``cudaError_t`` as an int."""
+    fn = getattr(load(name), f"{name}_{suffix}")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check_launch(name: str, err: int) -> None:

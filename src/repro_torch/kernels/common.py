@@ -71,8 +71,35 @@ def tie_noise(a: torch.Tensor, b: torch.Tensor, seed, eps: float) -> torch.Tenso
     return h.to(torch.float32) * scale
 
 
+def check_tensor(t: torch.Tensor, what: str, dtype: torch.dtype, shape,
+                 device) -> None:
+    """A kernel wrapper's input check: raise unless ``t`` lies on
+    ``device`` with this dtype and shape, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} is not contiguous")
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+# Pairwise-tensor elements per row chunk of the plain scoring versions
+# (128 MB of float32 per temporary).
+PAIRWISE_ELEMS = 1 << 25
+
+
+def row_chunks(R: int, W: int):
+    """[(a, b), ...] row ranges covering R rows of width W, each small enough
+    that its (rows, W, W) pairwise tensor holds ``PAIRWISE_ELEMS`` entries
+    at most.  Rows are scored independently, so chunking changes no value."""
+    step = max(1, PAIRWISE_ELEMS // max(1, W * W))
+    return [(i, min(R, i + step)) for i in range(0, R, step)] or [(0, 0)]
 
 
 def resolve_table_mode(mode: str, table_bytes: int,

@@ -4,7 +4,7 @@
 // (body _local_move_louvain_kernel) in its resident-table form.  Plain
 // version: src/repro_torch/kernels/local_move/ref.py
 // local_move_louvain_tables_ref.  The row scoring is local_move_louvain.cuh,
-// shared with the streamed kernel.
+// shared with the streamed kernel and the two-step delta_q kernel.
 //
 // Bound on the H100: bytes, at every width.  The function must read each
 // row's 8*W bytes of tile and four gathered table entries per neighbor; a
@@ -18,6 +18,8 @@
 namespace {
 
 using repro_torch::DeviceTable;
+using repro_torch::LouvainGathered;
+using repro_torch::LouvainProposal;
 using repro_torch::RowGroup;
 using repro_torch::kLocalMoveThreads;
 
@@ -33,9 +35,11 @@ louvain_kernel(const int* __restrict__ rows, const int* __restrict__ nbr,
                unsigned char* __restrict__ out_prop) {
   const long long first = static_cast<long long>(blockIdx.x) * RowGroup<W>::RPB;
   repro_torch::louvain_score_rows<W>(
-      rows, nbr, w, DeviceTable<int>{com_v}, DeviceTable<float>{volcom_v},
-      DeviceTable<int>{sizecom_v}, DeviceTable<float>{deg_v}, *inv_vol_ptr,
-      singleton_rule, sentinel, first, n_rows, out_best, out_prop);
+      LouvainGathered<DeviceTable<int>, DeviceTable<float>>{
+          rows, nbr, w, DeviceTable<int>{com_v}, DeviceTable<float>{volcom_v},
+          DeviceTable<int>{sizecom_v}, DeviceTable<float>{deg_v}, sentinel},
+      *inv_vol_ptr, singleton_rule, sentinel, first, n_rows,
+      LouvainProposal{out_best, out_prop});
 }
 
 template <int W>

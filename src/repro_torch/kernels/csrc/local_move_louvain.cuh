@@ -1,17 +1,20 @@
-// Louvain row scoring shared by the resident kernel (local_move_louvain.cu)
-// and the streamed kernel (local_move_louvain_streamed.cu); they differ
-// only in where the four tables are read (DeviceTable or WindowTable,
-// common.cuh).
+// Louvain row scoring shared by the fused kernels (local_move_louvain.cu
+// resident, local_move_louvain_streamed.cu streamed) and the two-step
+// scoring kernel (delta_q.cu).  They differ only in where a row's
+// candidates and the row's own community terms come from (a row source
+// below) and in what they write (an output sink below); the floats are
+// added in the same order in all of them, so fused and two-step scoring
+// agree bit for bit on any weights.
 //
-// Per row r (vertex v = rows[r]) on the per-VERTEX composed tables
-// (com_v, volcom_v, sizecom_v, deg_v; ref.compose_louvain_tables):
-//   cand_k = com_v[nbr_k], S_k = sum_j w_j [cand_j == cand_k]
-//   A = com_v[v], S_A = sum_j w_j [valid_j and cand_j == A]
+// Per row r (candidate community cand_k, weight w_k, candidate volume and
+// size vol_k, size_k, k < W; the row's community A, degree deg, A's volume
+// and size):
+//   S_k = sum_j w_j [cand_j == cand_k],  S_A = sum_j w_j [valid_j and cand_j == A]
 //   gain_k = (S_k - S_A) - deg * ((volB_k - volA) * inv_vol)
-//     volB_k = volcom_v[nbr_k] - [cand_k == A] deg,  volA = volcom_v[v] - deg
-//   singleton rule: -inf when size(A) == size(cand_k) == 1 and cand_k > A
-//   out = (argmax over valid k with cand_k != A, ties to the smaller id,
-//          or -1; best gain > 0)
+//     volB_k = vol_k - [cand_k == A] deg,  volA = vol(A) - deg
+//   singleton rule: -inf when size(A) == size_k == 1 and cand_k > A
+//   out = (argmax over valid k with cand_k != A, ties to the smaller id, or
+//          -1; the best gain or -inf)
 // The gain keeps exactly this association with every operation rounded
 // separately (__fsub_rn/__fmul_rn, built with -fmad=false), as
 // src/repro/kernels/delta_q/ref.py and eager PyTorch compute it.
@@ -26,15 +29,107 @@
 
 namespace repro_torch {
 
+// The row's own terms: its community A, degree, vol(A) and |A|.
+struct LouvainRowTerms {
+  int cur;
+  float deg;
+  float vol_cur;
+  int size_cur;
+};
+
+// Row source of the fused kernels: candidates and their terms gathered from
+// the per-VERTEX composed tables (com_v, volcom_v, sizecom_v, deg_v;
+// ref.compose_louvain_tables), each a DeviceTable or a WindowTable
+// (common.cuh), at the neighbour ids; sentinel ids take the sentinel and 0
+// without reading a table.  The row's terms are the tables' entries of its
+// vertex.
+template <class Ints, class Floats>
+struct LouvainGathered {
+  const int* rows;
+  const int* nbr;
+  const float* w;
+  Ints com_v;
+  Floats volcom_v;
+  Ints sizecom_v;
+  Floats deg_v;
+  int sentinel;
+  __device__ __forceinline__ void stage(long long r, int k, int W, int& cand,
+                                        float& wt, float& vol,
+                                        int& size) const {
+    const long long i = r * W + k;
+    const int v = __ldg(nbr + i);
+    const bool real = v < sentinel;
+    cand = real ? com_v(v) : sentinel;
+    vol = real ? volcom_v(v) : 0.0f;
+    size = real ? sizecom_v(v) : 0;
+    wt = __ldg(w + i);
+  }
+  __device__ __forceinline__ LouvainRowTerms row(long long r) const {
+    const int v = __ldg(rows + r);
+    if (v >= sentinel) return {sentinel, 0.0f, 0.0f, 0};
+    return {com_v(v), deg_v(v), volcom_v(v), sizecom_v(v)};
+  }
+};
+
+// Row source of the two-step kernel: pre-gathered (R, width) candidate,
+// weight, volume and size tiles, width <= W; staging entries past `width`
+// are padding (the sentinel, 0), which no valid candidate equals.  The
+// row's terms are its (R,) inputs.
+struct LouvainTiles {
+  const int* cand;
+  const float* w;
+  const float* vol_cand;
+  const int* size_cand;
+  const int* cur_com;
+  const float* deg_v;
+  const float* vol_cur;
+  const int* size_cur;
+  int width;
+  int sentinel;
+  __device__ __forceinline__ void stage(long long r, int k, int, int& c,
+                                        float& wt, float& vol,
+                                        int& size) const {
+    const long long i = r * width + k;
+    const bool in = k < width;
+    c = in ? __ldg(cand + i) : sentinel;
+    wt = in ? __ldg(w + i) : 0.0f;
+    vol = in ? __ldg(vol_cand + i) : 0.0f;
+    size = in ? __ldg(size_cand + i) : 0;
+  }
+  __device__ __forceinline__ LouvainRowTerms row(long long r) const {
+    return {__ldg(cur_com + r), __ldg(deg_v + r), __ldg(vol_cur + r),
+            __ldg(size_cur + r)};
+  }
+};
+
+// Output sink of the fused kernels: (best community, propose = gain > 0).
+struct LouvainProposal {
+  int* out_best;
+  unsigned char* out_prop;
+  __device__ __forceinline__ void operator()(long long r, int cand,
+                                             float gain) const {
+    out_best[r] = cand;
+    out_prop[r] = (cand >= 0 && gain > 0.0f) ? 1 : 0;
+  }
+};
+
+// Output sink of the two-step kernel: (best community, best gain).
+struct LouvainGain {
+  int* out_cand;
+  float* out_gain;
+  __device__ __forceinline__ void operator()(long long r, int cand,
+                                             float gain) const {
+    out_cand[r] = cand;
+    out_gain[r] = gain;
+  }
+};
+
 // Scores rows first + (threadIdx.x / T) of the flat tiles, those below
 // `end`; every thread of the block calls it (it synchronises the block).
-template <int W, class Ints, class Floats>
+template <int W, class Row, class Out>
 __device__ __forceinline__ void louvain_score_rows(
-    const int* __restrict__ rows, const int* __restrict__ nbr,
-    const float* __restrict__ w, const Ints& com_v, const Floats& volcom_v,
-    const Ints& sizecom_v, const Floats& deg_v, float inv_vol,
-    int singleton_rule, int sentinel, long long first, long long end,
-    int* __restrict__ out_best, unsigned char* __restrict__ out_prop) {
+    const Row& src, float inv_vol, int singleton_rule, int sentinel,
+    long long first, long long end, const Out& out) {
   constexpr int T = RowGroup<W>::T;
   constexpr int RPB = RowGroup<W>::RPB;
   __shared__ int s_cand[RPB][W];
@@ -51,22 +146,13 @@ __device__ __forceinline__ void louvain_score_rows(
   const bool live = r < end;
 
   if (live) {
-    const long long base = r * W;
-    for (int k = t; k < W; k += T) {
-      const int v = nbr[base + k];
-      const bool real = v < sentinel;
-      s_cand[sub][k] = real ? com_v(v) : sentinel;
-      s_vol[sub][k] = real ? volcom_v(v) : 0.0f;
-      s_size[sub][k] = real ? sizecom_v(v) : 0;
-      s_w[sub][k] = w[base + k];
-    }
+    for (int k = t; k < W; k += T)
+      src.stage(r, k, W, s_cand[sub][k], s_w[sub][k], s_vol[sub][k],
+                s_size[sub][k]);
   }
-  const int row = live ? rows[r] : sentinel;
-  const bool row_real = row < sentinel;
-  const int cur = row_real ? com_v(row) : sentinel;
-  const float deg = row_real ? deg_v(row) : 0.0f;
-  const float vol_cur = row_real ? volcom_v(row) : 0.0f;
-  const int size_cur = row_real ? sizecom_v(row) : 0;
+  const LouvainRowTerms a =
+      live ? src.row(r) : LouvainRowTerms{sentinel, 0.0f, 0.0f, 0};
+  const int cur = a.cur;
   __syncthreads();
   if (live && t == 0) {
     float sa = 0.0f;
@@ -82,20 +168,20 @@ __device__ __forceinline__ void louvain_score_rows(
   int best_id = INT_MAX;
   if (live) {
     const float sa = s_sa[sub];
-    const float vol_a_minus = __fsub_rn(vol_cur, deg);
+    const float vol_a_minus = __fsub_rn(a.vol_cur, a.deg);
     for (int k = t; k < W; k += T) {
       const int ck = s_cand[sub][k];
       if (ck == sentinel || ck == cur) continue;  // invalid or is_A
-      if (singleton_rule && size_cur == 1 && s_size[sub][k] == 1 && ck > cur)
+      if (singleton_rule && a.size_cur == 1 && s_size[sub][k] == 1 && ck > cur)
         continue;                                  // gain = -inf
       float s_k = 0.0f;
       for (int j = 0; j < W; ++j)
         if (s_cand[sub][j] == ck) s_k = __fadd_rn(s_k, s_w[sub][j]);
-      // ck != cur, so vol(B-) = volcom - 0
+      // ck != cur, so vol(B-) = vol_k - 0
       const float vol_b_minus = __fsub_rn(s_vol[sub][k], 0.0f);
       const float gain = __fsub_rn(
           __fsub_rn(s_k, sa),
-          __fmul_rn(deg, __fmul_rn(__fsub_rn(vol_b_minus, vol_a_minus), inv_vol)));
+          __fmul_rn(a.deg, __fmul_rn(__fsub_rn(vol_b_minus, vol_a_minus), inv_vol)));
       argmax_combine(best, best_id, gain, ck);
     }
   }
@@ -115,9 +201,7 @@ __device__ __forceinline__ void louvain_score_rows(
 
   if (live && t == 0) {
     best = s_best[sub][0];
-    const int cand = best > -INFINITY ? s_id[sub][0] : -1;
-    out_best[r] = cand;
-    out_prop[r] = (cand >= 0 && best > 0.0f) ? 1 : 0;
+    out(r, best > -INFINITY ? s_id[sub][0] : -1, best);
   }
 }
 

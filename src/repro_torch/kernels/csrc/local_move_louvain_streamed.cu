@@ -23,6 +23,8 @@
 
 namespace {
 
+using repro_torch::LouvainGathered;
+using repro_torch::LouvainProposal;
 using repro_torch::RowGroup;
 using repro_torch::WindowTable;
 using repro_torch::kLocalMoveThreads;
@@ -63,9 +65,11 @@ louvain_streamed_kernel(const int* __restrict__ rows,
   const long long end = min(start + block_rows, n_rows);
   // the loop bounds depend on blockIdx only: every thread runs every pass
   for (long long first = start; first < end; first += RowGroup<W>::RPB) {
-    repro_torch::louvain_score_rows<W>(rows, nbr, w, com, vol, size, deg,
-                                       inv_vol, singleton_rule, sentinel,
-                                       first, end, out_best, out_prop);
+    repro_torch::louvain_score_rows<W>(
+        LouvainGathered<WindowTable<int>, WindowTable<float>>{
+            rows, nbr, w, com, vol, size, deg, sentinel},
+        inv_vol, singleton_rule, sentinel, first, end,
+        LouvainProposal{out_best, out_prop});
     __syncthreads();  // the next pass overwrites the row staging
   }
 }

@@ -3,7 +3,8 @@
 // Replaces src/repro/kernels/local_move/kernel.py local_move_plp_pallas
 // (body _local_move_plp_kernel) in its resident-table form.  Plain version:
 // src/repro_torch/kernels/local_move/ref.py local_move_plp_ref.  The row
-// scoring is local_move_plp.cuh, shared with the streamed kernel.
+// scoring is local_move_plp.cuh, shared with the streamed kernel and the
+// two-step label_argmax kernel.
 //
 // Bound on the H100: bytes, at every width.  The function must read each
 // row's 8*W bytes of tile and its neighbors' labels; a sort-based count of
@@ -19,6 +20,8 @@
 namespace {
 
 using repro_torch::DeviceTable;
+using repro_torch::PlpGathered;
+using repro_torch::PlpProposal;
 using repro_torch::RowGroup;
 using repro_torch::kLocalMoveThreads;
 
@@ -29,9 +32,10 @@ plp_kernel(const int* __restrict__ rows, const int* __restrict__ nbr,
            uint32_t seed, float scale, int sentinel, long long n_rows,
            int* __restrict__ out_best, unsigned char* __restrict__ out_prop) {
   const long long first = static_cast<long long>(blockIdx.x) * RowGroup<W>::RPB;
-  repro_torch::plp_score_rows<W>(rows, nbr, w, DeviceTable<int>{labels}, seed,
-                                 scale, sentinel, first, n_rows, out_best,
-                                 out_prop);
+  repro_torch::plp_score_rows<W>(
+      PlpGathered<DeviceTable<int>>{rows, nbr, w, DeviceTable<int>{labels},
+                                    sentinel},
+      seed, scale, sentinel, first, n_rows, PlpProposal{out_best, out_prop});
 }
 
 template <int W>

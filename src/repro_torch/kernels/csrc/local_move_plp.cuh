@@ -1,13 +1,15 @@
-// PLP row scoring shared by the resident kernel (local_move_plp.cu) and the
-// streamed kernel (local_move_plp_streamed.cu); they differ only in where
-// the label table is read (a DeviceTable or a WindowTable, common.cuh).
+// PLP row scoring shared by the fused kernels (local_move_plp.cu resident,
+// local_move_plp_streamed.cu streamed) and the two-step scoring kernel
+// (label_argmax.cu).  They differ only in where a row's labels come from (a
+// row source below) and in what they write (an output sink below); the
+// floats are added in the same order in all of them, so fused and two-step
+// scoring agree bit for bit on any weights.
 //
-// Per row r (vertex rows[r], neighbors nbr[r, :W], weights w[r, :W]):
-//   lab_k  = labels(nbr_k)   (sentinel ids keep the sentinel, never read)
-//   score  = sum_j w_j [lab_j == lab_k] + tie_noise(row, lab_k)
-//   best   = argmax over valid k, ties to the smaller label
-//   cur    = sum_j w_j [lab_j == labels(row)] + noise, or 0 if absent
-//   out    = (best label or -1, best > cur)
+// Per row r (noise key row_r, labels lab_k, weights w_k, k < W):
+//   score  = sum_j w_j [lab_j == lab_k] + tie_noise(row_r, lab_k)
+//   best   = argmax over valid k (lab_k != sentinel), ties to the smaller label
+//   cur    = sum_j w_j [lab_j == cur_r] + noise, or 0 if cur_r is absent
+//   out    = (best label or -1, best score or -inf, cur)
 //
 // A row's labels and weights are staged once in shared memory (8 KB at
 // W = 1024), so the W*W loop reads only shared memory.  Each thread scores
@@ -21,14 +23,91 @@
 
 namespace repro_torch {
 
+// Row source of the fused kernels: row r's labels are gathered from the
+// label table (a DeviceTable or a WindowTable, common.cuh) at its neighbour
+// ids; sentinel ids keep the sentinel and never read the table.  The noise
+// key is the row's vertex id (the sentinel for a padding row), the current
+// label the table's entry of that vertex, read at the key so the row id is
+// loaded once.
+template <class Labels>
+struct PlpGathered {
+  const int* rows;
+  const int* nbr;
+  const float* w;
+  Labels labels;
+  int sentinel;
+  __device__ __forceinline__ void stage(long long r, int k, int W, int& lab,
+                                        float& wt) const {
+    const long long i = r * W + k;
+    const int v = __ldg(nbr + i);
+    lab = v < sentinel ? labels(v) : sentinel;
+    wt = __ldg(w + i);
+  }
+  __device__ __forceinline__ int key(long long r) const {
+    const int row = __ldg(rows + r);
+    return row < sentinel ? row : sentinel;
+  }
+  __device__ __forceinline__ int cur(long long, int key) const {
+    return key < sentinel ? labels(key) : sentinel;
+  }
+};
+
+// Row source of the two-step kernel: pre-gathered (R, width) label and
+// weight tiles, width <= W; staging entries past `width` are padding (the
+// sentinel label, weight 0), which no valid label equals, so they add
+// nothing.  The noise key and the current label are the row's inputs.
+struct PlpTiles {
+  const int* nbr_lab;
+  const float* nbr_w;
+  const int* cur_lab;
+  const int* rows;
+  int width;
+  int sentinel;
+  __device__ __forceinline__ void stage(long long r, int k, int, int& lab,
+                                        float& wt) const {
+    const long long i = r * width + k;
+    lab = k < width ? __ldg(nbr_lab + i) : sentinel;
+    wt = k < width ? __ldg(nbr_w + i) : 0.0f;
+  }
+  __device__ __forceinline__ int key(long long r) const {
+    return __ldg(rows + r);
+  }
+  __device__ __forceinline__ int cur(long long r, int) const {
+    return __ldg(cur_lab + r);
+  }
+};
+
+// Output sink of the fused kernels: (best label, propose = best > cur).
+struct PlpProposal {
+  int* out_best;
+  unsigned char* out_prop;
+  __device__ __forceinline__ void operator()(long long r, int lab, float best,
+                                             float cur) const {
+    out_best[r] = lab;
+    out_prop[r] = (lab >= 0 && best > cur) ? 1 : 0;
+  }
+};
+
+// Output sink of the two-step kernel: (best label, best score, cur score).
+struct PlpScores {
+  int* out_lab;
+  float* out_best;
+  float* out_cur;
+  __device__ __forceinline__ void operator()(long long r, int lab, float best,
+                                             float cur) const {
+    out_lab[r] = lab;
+    out_best[r] = best;
+    out_cur[r] = cur;
+  }
+};
+
 // Scores rows first + (threadIdx.x / T) of the flat tiles, those below
 // `end`; every thread of the block calls it (it synchronises the block).
-template <int W, class Labels>
-__device__ __forceinline__ void plp_score_rows(
-    const int* __restrict__ rows, const int* __restrict__ nbr,
-    const float* __restrict__ w, const Labels& labels, uint32_t seed,
-    float scale, int sentinel, long long first, long long end,
-    int* __restrict__ out_best, unsigned char* __restrict__ out_prop) {
+template <int W, class Row, class Out>
+__device__ __forceinline__ void plp_score_rows(const Row& src, uint32_t seed,
+                                               float scale, int sentinel,
+                                               long long first, long long end,
+                                               const Out& out) {
   constexpr int T = RowGroup<W>::T;
   constexpr int RPB = RowGroup<W>::RPB;
   __shared__ int s_lab[RPB][W];
@@ -41,18 +120,14 @@ __device__ __forceinline__ void plp_score_rows(
   const long long r = first + sub;
   const bool live = r < end;
 
+  // the row's key is loaded before the staging, so its latency overlaps it
+  const int key = live ? src.key(r) : sentinel;
   if (live) {
-    const long long base = r * W;
-    for (int k = t; k < W; k += T) {
-      const int v = nbr[base + k];
-      s_lab[sub][k] = v < sentinel ? labels(v) : sentinel;
-      s_w[sub][k] = w[base + k];
-    }
+    for (int k = t; k < W; k += T) src.stage(r, k, W, s_lab[sub][k], s_w[sub][k]);
   }
   __syncthreads();
 
-  const int row = live ? rows[r] : sentinel;
-  const uint32_t row_n = static_cast<uint32_t>(row < sentinel ? row : sentinel);
+  const uint32_t row_n = static_cast<uint32_t>(key);
   float best = -INFINITY;
   int best_id = INT_MAX;
   if (live) {
@@ -84,7 +159,7 @@ __device__ __forceinline__ void plp_score_rows(
   if (live && t == 0) {
     best = s_best[sub][0];
     best_id = s_id[sub][0];
-    const int cur = row < sentinel ? labels(row) : sentinel;
+    const int cur = src.cur(r, key);
     float cur_sum = 0.0f;
     bool present = false;
     for (int j = 0; j < W; ++j) {
@@ -98,9 +173,7 @@ __device__ __forceinline__ void plp_score_rows(
         present ? __fadd_rn(cur_sum, tie_noise(row_n, static_cast<uint32_t>(cur),
                                                seed, scale))
                 : 0.0f;
-    const int lab = best > -INFINITY ? best_id : -1;
-    out_best[r] = lab;
-    out_prop[r] = (lab >= 0 && best > cur_score) ? 1 : 0;
+    out(r, best > -INFINITY ? best_id : -1, best, cur_score);
   }
 }
 

@@ -26,6 +26,8 @@
 
 namespace {
 
+using repro_torch::PlpGathered;
+using repro_torch::PlpProposal;
 using repro_torch::RowGroup;
 using repro_torch::WindowTable;
 using repro_torch::kLocalMoveThreads;
@@ -50,8 +52,9 @@ plp_streamed_kernel(const int* __restrict__ rows, const int* __restrict__ nbr,
   const long long end = min(start + block_rows, n_rows);
   // the loop bounds depend on blockIdx only: every thread runs every pass
   for (long long first = start; first < end; first += RowGroup<W>::RPB) {
-    repro_torch::plp_score_rows<W>(rows, nbr, w, lab, seed, scale, sentinel,
-                                   first, end, out_best, out_prop);
+    repro_torch::plp_score_rows<W>(
+        PlpGathered<WindowTable<int>>{rows, nbr, w, lab, sentinel}, seed,
+        scale, sentinel, first, end, PlpProposal{out_best, out_prop});
     __syncthreads();  // the next pass overwrites the row staging
   }
 }

@@ -1,1 +1,2 @@
-"""Plain Louvain Eq. 1 ΔQ scoring over pre-gathered tiles."""
+"""Louvain Eq. 1 ΔQ scoring over pre-gathered tiles: the CUDA kernel, its
+plain version and the dispatch."""

@@ -13,14 +13,20 @@ of neighbor j):
 Lu–Halappanavar rule: candidate suppressed when both communities are
 singletons and cand > cur.  Argmax tie-break: smallest candidate id.  The
 gain keeps exactly this association: eager PyTorch rounds every operation
-separately, which the CUDA kernel matches by building without FMA
+separately, which the CUDA kernels match by building without FMA
 contraction.
+
+``delta_q_ref`` materializes an (R, W, W) pairwise tensor, so it takes a
+bounded R; ``delta_q_chunked`` runs it over the row chunks of
+``common.row_chunks`` and is what the wrapper and ``ops`` call.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.common import row_chunks
 
 
 def delta_q_ref(
@@ -61,3 +67,15 @@ def delta_q_ref(
     best_cand = torch.amin(torch.where(is_best, cand_com, sentinel), dim=1)
     best_cand = torch.where(best_gain > neg_inf, best_cand, -1).to(torch.int32)
     return best_cand, best_gain
+
+
+def delta_q_chunked(cand_com, nbr_w, cur_com, deg_v, vol_cand, vol_cur,
+                    size_cand, size_cur, inv_vol_total, sentinel: int,
+                    singleton_rule: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``delta_q_ref`` over bounded row chunks, concatenated."""
+    outs = [delta_q_ref(cand_com[a:b], nbr_w[a:b], cur_com[a:b], deg_v[a:b],
+                        vol_cand[a:b], vol_cur[a:b], size_cand[a:b],
+                        size_cur[a:b], inv_vol_total, sentinel,
+                        singleton_rule)
+            for a, b in row_chunks(*cand_com.shape)]
+    return tuple(torch.cat(o) for o in zip(*outs))

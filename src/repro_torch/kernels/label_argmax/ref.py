@@ -7,8 +7,10 @@ Per row r (one vertex, ELL-padded neighbor tile of width W):
   best      = argmax over candidate labels present in the row (tie → min)
   cur_score = score(cur_lab[r]) if cur_lab present among neighbors else 0
 
-The pairwise (R, W, W) equality tensor is materialized; callers bound R
-(``local_move.ref`` loops over row chunks).
+The pairwise (R, W, W) equality tensor is materialized, so
+``label_argmax_ref`` takes a bounded R; ``label_argmax_chunked`` runs it
+over the row chunks of ``common.row_chunks`` (rows are independent, so the
+result is the same) and is what the wrapper and ``ops`` call.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import tie_noise
+from repro_torch.kernels.common import row_chunks, tie_noise
 
 
 def label_argmax_ref(
@@ -47,3 +49,13 @@ def label_argmax_ref(
     cur_noise = tie_noise(rows, cur_lab, seed, tie_eps)
     cur_score = torch.where(cur_present, cur_sum + cur_noise, 0.0)
     return best_lab, best_score, cur_score
+
+
+def label_argmax_chunked(nbr_lab, nbr_w, cur_lab, rows, seed, tie_eps: float,
+                         sentinel: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``label_argmax_ref`` over bounded row chunks, concatenated."""
+    outs = [label_argmax_ref(nbr_lab[a:b], nbr_w[a:b], cur_lab[a:b],
+                             rows[a:b], seed, tie_eps, sentinel)
+            for a, b in row_chunks(*nbr_lab.shape)]
+    return tuple(torch.cat(o) for o in zip(*outs))

@@ -10,7 +10,8 @@ contiguity, allocates the outputs, launches on PyTorch's current stream
 and raises ``KernelError`` if the launch returned an error.  A streamed
 wrapper also raises ``KernelError``, naming the bytes, when the block's
 windows do not fit the shared memory a block can use on the device.
-``launches`` on each wrapper counts its kernel launches, and nothing else.
+``launches`` on each wrapper counts its kernel launches, and nothing else:
+an empty tile (R = 0) returns empty outputs without a launch.
 
 Callers guarantee the ids: row and neighbor ids lie in [0, sentinel], and
 the tables have sentinel + 1 entries.
@@ -23,7 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import noise_scale
+from repro_torch.kernels.common import check_tensor, noise_scale
 from repro_torch.kernels.local_move.ref import (
     check_windows, local_move_louvain_tables_ref,
     local_move_louvain_windowed_ref, local_move_plp_ref,
@@ -38,23 +39,14 @@ _P = ctypes.c_void_p
 _SMEM_LIMITS: Dict[Tuple[str, int], int] = {}
 
 
-def _lib(name: str, argtypes, suffix: str = "launch") -> ctypes.CDLL:
-    lib = build.load(name)
-    fn = getattr(lib, f"{name}_{suffix}")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_window_fits(name: str, windows, n_tables: int, width: int) -> None:
     """Raise ``KernelError`` when a block's windows exceed the shared memory
     a block of kernel ``name`` can take on this device — the counterpart of
     the TPU kernel's compile failure; nothing runs in its place."""
     key = (name, width)
     if key not in _SMEM_LIMITS:
-        fn = _lib(name, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
-                  "smem_limit")
+        fn = build.entry(name, [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                         "smem_limit")
         out = ctypes.c_int(0)
         build.check_launch(name, fn(width, ctypes.byref(out)))
         _SMEM_LIMITS[key] = out.value
@@ -68,19 +60,8 @@ def _check_window_fits(name: str, windows, n_tables: int, width: int) -> None:
 
 
 def _check_win_blk(windows, R: int, dev) -> None:
-    _check(windows.win_blk, "win_blk", torch.int32,
-           (check_windows(windows, R),), dev)
-
-
-def _check(t: torch.Tensor, what: str, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} is not contiguous")
+    check_tensor(windows.win_blk, "win_blk", torch.int32,
+                 (check_windows(windows, R),), dev)
 
 
 def _check_tiles(rows, nbr, w, n_tab: int, sentinel: int):
@@ -91,9 +72,9 @@ def _check_tiles(rows, nbr, w, n_tab: int, sentinel: int):
         raise ValueError(f"tables need sentinel + 1 = {sentinel + 1} entries, "
                          f"got {n_tab}")
     dev = rows.device
-    _check(rows, "rows", torch.int32, (R,), dev)
-    _check(nbr, "nbr", torch.int32, (R, W), dev)
-    _check(w, "w", torch.float32, (R, W), dev)
+    check_tensor(rows, "rows", torch.int32, (R,), dev)
+    check_tensor(nbr, "nbr", torch.int32, (R, W), dev)
+    check_tensor(w, "w", torch.float32, (R, W), dev)
     return R, W, dev
 
 
@@ -112,12 +93,15 @@ def local_move_plp_kernel(
         return local_move_plp_ref(rows, nbr, w, labels_ext, seed,
                                   tie_eps=tie_eps, sentinel=sentinel)
     R, W, dev = _check_tiles(rows, nbr, w, labels_ext.shape[0], sentinel)
-    _check(labels_ext, "labels_ext", torch.int32, (sentinel + 1,), dev)
-    fn = _lib("local_move_plp", [_P, _P, _P, _P, ctypes.c_uint32,
-                                 ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_longlong, ctypes.c_int, _P, _P, _P])
+    check_tensor(labels_ext, "labels_ext", torch.int32, (sentinel + 1,), dev)
     best = torch.empty(R, dtype=torch.int32, device=dev)
     prop = torch.empty(R, dtype=torch.bool, device=dev)
+    if R == 0:
+        return best, prop
+    fn = build.entry("local_move_plp",
+                     [_P, _P, _P, _P, ctypes.c_uint32, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P,
+                      _P])
     err = fn(rows.data_ptr(), nbr.data_ptr(), w.data_ptr(),
              labels_ext.data_ptr(), int(seed) & 0xFFFFFFFF,
              float(noise_scale(tie_eps)), sentinel, R, W, best.data_ptr(),
@@ -150,16 +134,19 @@ def local_move_louvain_kernel(
             sentinel=sentinel, singleton_rule=singleton_rule)
     R, W, dev = _check_tiles(rows, nbr, w, com_v.shape[0], sentinel)
     n1 = (sentinel + 1,)
-    _check(com_v, "com_v", torch.int32, n1, dev)
-    _check(volcom_v, "volcom_v", torch.float32, n1, dev)
-    _check(sizecom_v, "sizecom_v", torch.int32, n1, dev)
-    _check(deg_v, "deg_v", torch.float32, n1, dev)
-    _check(inv_vol, "inv_vol", torch.float32, (), dev)
-    fn = _lib("local_move_louvain",
-              [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-               ctypes.c_longlong, ctypes.c_int, _P, _P, _P])
+    check_tensor(com_v, "com_v", torch.int32, n1, dev)
+    check_tensor(volcom_v, "volcom_v", torch.float32, n1, dev)
+    check_tensor(sizecom_v, "sizecom_v", torch.int32, n1, dev)
+    check_tensor(deg_v, "deg_v", torch.float32, n1, dev)
+    check_tensor(inv_vol, "inv_vol", torch.float32, (), dev)
     best = torch.empty(R, dtype=torch.int32, device=dev)
     prop = torch.empty(R, dtype=torch.bool, device=dev)
+    if R == 0:
+        return best, prop
+    fn = build.entry("local_move_louvain",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P,
+                      _P])
     err = fn(rows.data_ptr(), nbr.data_ptr(), w.data_ptr(), com_v.data_ptr(),
              volcom_v.data_ptr(), sizecom_v.data_ptr(), deg_v.data_ptr(),
              inv_vol.data_ptr(), int(bool(singleton_rule)), sentinel, R, W,
@@ -191,15 +178,18 @@ def local_move_plp_streamed_kernel(
             rows, nbr, w, labels_ext, seed, tie_eps=tie_eps,
             sentinel=sentinel, windows=windows)
     R, W, dev = _check_tiles(rows, nbr, w, labels_ext.shape[0], sentinel)
-    _check(labels_ext, "labels_ext", torch.int32, (sentinel + 1,), dev)
+    check_tensor(labels_ext, "labels_ext", torch.int32, (sentinel + 1,), dev)
     _check_win_blk(windows, R, dev)
     name = "local_move_plp_streamed"
     _check_window_fits(name, windows, 1, W)
-    fn = _lib(name, [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_uint32, ctypes.c_float, ctypes.c_int,
-                     ctypes.c_longlong, ctypes.c_int, _P, _P, _P])
     best = torch.empty(R, dtype=torch.int32, device=dev)
     prop = torch.empty(R, dtype=torch.bool, device=dev)
+    if R == 0:
+        return best, prop
+    fn = build.entry(name, [_P, _P, _P, _P, _P, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float,
+                            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P,
+                            _P, _P])
     err = fn(rows.data_ptr(), nbr.data_ptr(), w.data_ptr(),
              labels_ext.data_ptr(), windows.win_blk.data_ptr(), windows.slot,
              windows.block_rows, int(seed) & 0xFFFFFFFF,
@@ -236,19 +226,21 @@ def local_move_louvain_streamed_kernel(
             windows=windows)
     R, W, dev = _check_tiles(rows, nbr, w, com_v.shape[0], sentinel)
     n1 = (sentinel + 1,)
-    _check(com_v, "com_v", torch.int32, n1, dev)
-    _check(volcom_v, "volcom_v", torch.float32, n1, dev)
-    _check(sizecom_v, "sizecom_v", torch.int32, n1, dev)
-    _check(deg_v, "deg_v", torch.float32, n1, dev)
-    _check(inv_vol, "inv_vol", torch.float32, (), dev)
+    check_tensor(com_v, "com_v", torch.int32, n1, dev)
+    check_tensor(volcom_v, "volcom_v", torch.float32, n1, dev)
+    check_tensor(sizecom_v, "sizecom_v", torch.int32, n1, dev)
+    check_tensor(deg_v, "deg_v", torch.float32, n1, dev)
+    check_tensor(inv_vol, "inv_vol", torch.float32, (), dev)
     _check_win_blk(windows, R, dev)
     name = "local_move_louvain_streamed"
     _check_window_fits(name, windows, 4, W)
-    fn = _lib(name, [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_longlong, ctypes.c_int, _P, _P, _P])
     best = torch.empty(R, dtype=torch.int32, device=dev)
     prop = torch.empty(R, dtype=torch.bool, device=dev)
+    if R == 0:
+        return best, prop
+    fn = build.entry(name, [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, _P, _P, _P])
     err = fn(rows.data_ptr(), nbr.data_ptr(), w.data_ptr(), com_v.data_ptr(),
              volcom_v.data_ptr(), sizecom_v.data_ptr(), deg_v.data_ptr(),
              inv_vol.data_ptr(), windows.win_blk.data_ptr(), windows.slot,

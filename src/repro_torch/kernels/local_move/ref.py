@@ -22,9 +22,9 @@ copied out per block — so the windowed and the resident results are
 identical by construction, as in the JAX package.
 
 The scoring materializes an (R, W, W) pairwise tensor: about 4 MB a row at
-W = 1024.  The functions here therefore score ``PAIRWISE_ELEMS``-sized row
-chunks one after another; rows are independent, so chunking changes no
-value.
+W = 1024.  The functions here therefore score the row chunks of
+``common.row_chunks`` one after another; rows are independent, so chunking
+changes no value.
 """
 from __future__ import annotations
 
@@ -32,17 +32,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.common import cdiv, row_chunks
 from repro_torch.kernels.delta_q.ref import delta_q_ref
 from repro_torch.kernels.label_argmax.ref import label_argmax_ref
-
-# Pairwise-tensor elements per row chunk (128 MB of float32 per temporary).
-PAIRWISE_ELEMS = 1 << 25
-
-
-def _chunks(R: int, W: int):
-    step = max(1, PAIRWISE_ELEMS // (W * W))
-    return [(i, min(R, i + step)) for i in range(0, R, step)] or [(0, 0)]
 
 
 def _gather(tab: torch.Tensor, ids: torch.Tensor, sentinel: int, fill,
@@ -105,7 +97,7 @@ def local_move_plp_ref(
     """(best_label[R], propose[R]) for the PLP move, gathers included."""
     n = sentinel
     outs = []
-    for a, b in _chunks(rows.shape[0], nbr.shape[1]):
+    for a, b in row_chunks(rows.shape[0], nbr.shape[1]):
         r, nb = rows[a:b], nbr[a:b]
         lo = None if win_lo is None else win_lo[a:b]
         nbr_lab = _gather(labels_ext, nb, n, n,
@@ -150,7 +142,7 @@ def local_move_louvain_tables_ref(
     """(best_community[R], propose[R]) on vertex-composed tables (Eq. 1)."""
     n = sentinel
     outs = []
-    for a, b in _chunks(rows.shape[0], nbr.shape[1]):
+    for a, b in row_chunks(rows.shape[0], nbr.shape[1]):
         r, nb = rows[a:b], nbr[a:b]
         lo = None if win_lo is None else win_lo[a:b]
         lo_n = None if lo is None else lo[:, None]

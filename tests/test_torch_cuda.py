@@ -10,22 +10,37 @@ package:
 Inputs are made from a seed with numpy at small shapes: every ELL width,
 integer and all-equal (tie-rich) weights, both singleton-rule settings.
 The streamed kernels run on locality-ordered tiles (windows narrower than
-the table, several blocks) and on random ones (whole-table windows).
+the table, several blocks) and on random ones (whole-table windows).  The
+scored-tile kernels (``label_argmax``, ``delta_q``) also run at widths
+that are not ELL widths, and the two-step path (gather the tiles, then
+score them) must equal the fused kernels bit for bit on float32 weights
+too; ``sorted_segment_sum`` runs with runs longer than two blocks and
+lengths that are not a block multiple.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.graph.ell import compute_windows
+from repro_torch.graph.ell import TableWindows, compute_windows
 from repro_torch.kernels.aggregation.kernel import bin_rank_kernel
 from repro_torch.kernels.aggregation.ref import bin_rank_ref
+from repro_torch.kernels.delta_q.kernel import delta_q_kernel
+from repro_torch.kernels.delta_q.ops import delta_q_argmax
+from repro_torch.kernels.delta_q.ref import delta_q_chunked
+from repro_torch.kernels.label_argmax.kernel import label_argmax_kernel
+from repro_torch.kernels.label_argmax.ops import label_argmax
+from repro_torch.kernels.label_argmax.ref import label_argmax_chunked
 from repro_torch.kernels.local_move.kernel import (
     local_move_louvain_kernel, local_move_louvain_streamed_kernel,
     local_move_plp_kernel, local_move_plp_streamed_kernel)
 from repro_torch.kernels.local_move.ref import (
-    compose_louvain_tables, local_move_louvain_tables_ref,
+    _gather, compose_louvain_tables, local_move_louvain_tables_ref,
     local_move_louvain_windowed_ref, local_move_plp_ref,
     local_move_plp_windowed_ref)
+from repro_torch.kernels.segment_sum.kernel import block_segment_sums_kernel
+from repro_torch.kernels.segment_sum.ops import sorted_segment_sum
+from repro_torch.kernels.segment_sum.ref import (block_segment_sums_ref,
+                                                 sorted_segment_sum_ref)
 from repro_torch.utils.errors import KernelError
 
 WIDTHS = (16, 64, 256, 1024)
@@ -60,8 +75,9 @@ def _tiles(rows, width, n, seed, weights, dev, band=None):
     pad = rng.random((rows, width)) < 0.25
     pad[~real] = True
     nbr[pad] = n
-    w = (rng.integers(1, 5, (rows, width)) if weights == "int"
-         else np.ones((rows, width)))
+    w = {"int": lambda: rng.integers(1, 5, (rows, width)),
+         "equal": lambda: np.ones((rows, width)),
+         "f32": lambda: rng.random((rows, width))}[weights]()
     w = np.where(pad, 0.0, w).astype(np.float32)
     labels = rng.integers(0, max(2, n // 8), n)
     tabs = [np.concatenate([labels, [n]]).astype(np.int32),
@@ -229,3 +245,229 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         local_move_plp_kernel(tiles[0], tiles[1][:, :8].contiguous(),
                               tiles[2][:, :8].contiguous(), tabs[0], 0,
                               tie_eps=0.25, sentinel=n)
+
+
+# ------------------------------------------------ scored tiles, segment sum
+
+# Every ELL width, and widths that are not one (they run in the next wider
+# instantiation), up to the widest each kernel takes.
+TILE_WIDTHS = (1, 8, 16, 40, 64, 128, 256, 1000, 1024)
+
+
+def _plp_tiles(tiles, tabs, n):
+    """The two-step path's gather for PLP (the tiles the scoring kernel
+    reads): neighbour labels, current labels, noise keys."""
+    rows, nbr, _ = tiles
+    return (_gather(tabs[0], nbr, n, n), _gather(tabs[0], rows, n, n),
+            torch.where(rows < n, rows, n))
+
+
+def _louvain_tiles(tiles, composed, n):
+    """The two-step path's gather for Louvain on the composed tables:
+    (cand, cur, deg, vol_cand, vol_cur, size_cand, size_cur)."""
+    rows, nbr, _ = tiles
+    com, vol, size, deg = composed
+    return (_gather(com, nbr, n, n), _gather(com, rows, n, n),
+            _gather(deg, rows, n, 0.0), _gather(vol, nbr, n, 0.0),
+            _gather(vol, rows, n, 0.0), _gather(size, nbr, n, 0),
+            _gather(size, rows, n, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["int", "equal"])
+@pytest.mark.parametrize("width", TILE_WIDTHS + (4096,))
+def test_label_argmax_kernel_matches_plain(cuda_device, width, weights):
+    n = 512
+    tiles, tabs = _tiles(8 if width >= 1000 else 300, width, n, width,
+                         weights, cuda_device)
+    lab, cur, keys = _plp_tiles(tiles, tabs, n)
+    args = (lab, tiles[2], cur, keys, 11)
+    kw = dict(tie_eps=0.25, sentinel=n)
+    k = label_argmax_kernel(*args, **kw)
+    p = label_argmax_chunked(*args, 0.25, n)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("singleton_rule", [True, False])
+@pytest.mark.parametrize("weights", ["int", "equal"])
+@pytest.mark.parametrize("width", TILE_WIDTHS + (2048,))
+def test_delta_q_kernel_matches_plain(cuda_device, width, weights,
+                                      singleton_rule):
+    n = 512
+    tiles, tabs = _tiles(8 if width >= 1000 else 300, width, n, width + 1,
+                         weights, cuda_device)
+    cand, cur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
+        tiles, compose_louvain_tables(*tabs, n), n)
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32, device=cuda_device)
+    args = (cand, tiles[2], cur, deg, volc, volcur, sizec, sizecur, inv)
+    k = delta_q_kernel(*args, sentinel=n, singleton_rule=singleton_rule)
+    p = delta_q_chunked(*args, n, singleton_rule)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", (16, 64, 256, 1024))
+def test_two_step_equals_fused_on_f32_weights(cuda_device, width):
+    """Gather + scoring kernel ≡ the fused kernel, bit for bit, on uniform
+    float32 weights: both add the same floats in the same order."""
+    n = 512
+    tiles, tabs = _tiles(300, width, n, width + 5, "f32", cuda_device)
+    lab, cur, keys = _plp_tiles(tiles, tabs, n)
+    best, bs, cs = label_argmax(lab, tiles[2], cur, keys, 3, tie_eps=0.25,
+                                sentinel=n, use_pallas=True)
+    fused = local_move_plp_kernel(*tiles, tabs[0], 3, tie_eps=0.25,
+                                  sentinel=n)
+    assert torch.equal(best, fused[0])
+    assert torch.equal((best >= 0) & (bs > cs), fused[1])
+
+    composed = compose_louvain_tables(*tabs, n)
+    vol_total = torch.tensor(977.0, device=cuda_device)
+    cand, cur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
+        tiles, composed, n)
+    best, gain = delta_q_argmax(cand, tiles[2], cur, deg, volc, volcur,
+                                sizec, sizecur, vol_total, sentinel=n,
+                                singleton_rule=True, use_pallas=True)
+    fused = local_move_louvain_kernel(*tiles, *composed,
+                                      (1.0 / vol_total).to(torch.float32),
+                                      sentinel=n, singleton_rule=True)
+    torch.cuda.synchronize()
+    assert torch.equal(best, fused[0])
+    assert torch.equal((best >= 0) & (gain > 0.0), fused[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,block", [(512, 512), (5000, 512), (3001, 256),
+                                     (4096, 1024), (77, 16)])
+def test_sorted_segment_sum_kernel_matches_plain(cuda_device, m, block):
+    """Short runs, runs up to a block long, and one run of 2·block + 37
+    keys (crossing two block edges where m allows); integer values, so the
+    sums are exact in any order."""
+    rng = np.random.default_rng(m)
+    lengths = np.where(rng.random(m) < 0.1, rng.integers(1, block + 1, m),
+                       rng.integers(1, 4, m))
+    lengths[3] = 2 * block + 37
+    keys = np.repeat(np.arange(m), lengths)[:m].astype(np.int32)
+    vals = rng.integers(-8, 9, m).astype(np.float32)
+    k_t, v_t = _card(keys, cuda_device), _card(vals, cuda_device)
+    sums, starts = sorted_segment_sum(k_t, v_t, block=block, use_pallas=True)
+    ref_sums, ref_starts = sorted_segment_sum_ref(k_t, v_t)
+    torch.cuda.synchronize()
+    assert torch.equal(starts, ref_starts) and torch.equal(sums, ref_sums)
+    pad = (-m) % block
+    kp = torch.cat([k_t, k_t.new_full((pad,), 2**31 - 1)])
+    vp = torch.cat([v_t, v_t.new_zeros(pad)])
+    assert torch.equal(block_segment_sums_kernel(kp, vp, block=block),
+                       block_segment_sums_ref(kp, vp, block))
+
+
+@pytest.mark.cuda
+def test_scored_tile_launch_counters_count_their_own_kernel(cuda_device):
+    n = 512
+    tiles, tabs = _tiles(40, 16, n, 9, "int", cuda_device)
+    lab, cur, keys = _plp_tiles(tiles, tabs, n)
+    cand, ccur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
+        tiles, compose_louvain_tables(*tabs, n), n)
+    inv = torch.tensor(1e-3, dtype=torch.float32, device=cuda_device)
+    seg = _card(np.repeat(np.arange(40), 30).astype(np.int32), cuda_device)
+    counters = (label_argmax_kernel, delta_q_kernel,
+                block_segment_sums_kernel, local_move_plp_kernel)
+    calls = (
+        lambda: label_argmax_kernel(lab, tiles[2], cur, keys, 0,
+                                    tie_eps=0.25, sentinel=n),
+        lambda: delta_q_kernel(cand, tiles[2], ccur, deg, volc, volcur,
+                               sizec, sizecur, inv, sentinel=n,
+                               singleton_rule=True),
+        lambda: sorted_segment_sum(seg, seg.float(), use_pallas=True),
+        lambda: local_move_plp_kernel(*tiles, tabs[0], 0, tie_eps=0.25,
+                                      sentinel=n))
+    for i, call in enumerate(calls):
+        before = [c.launches for c in counters]
+        call()
+        after = [c.launches for c in counters]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(j == i) for j in range(len(counters))]
+    before = [c.launches for c in counters]
+    sorted_segment_sum(seg, seg.float(), use_pallas=False)
+    label_argmax(lab, tiles[2], cur, keys, 0, tie_eps=0.25, sentinel=n)
+    assert [c.launches for c in counters] == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_empty_inputs_launch_nothing(cuda_device):
+    """Every wrapper given no rows returns empty outputs and counts no
+    launch: its counter counts kernels that ran."""
+    n = 64
+    tiles, tabs = _tiles(8, 16, n, 3, "int", cuda_device)
+    rows, nbr, w = (t[:0] for t in tiles)
+    composed = compose_louvain_tables(*tabs, n)
+    inv = torch.tensor(1e-3, dtype=torch.float32, device=cuda_device)
+    win = TableWindows(win_blk=rows, slot=128, block_rows=8, n_slots=1)
+    table = torch.full((4 * 16,), n, dtype=torch.int32, device=cuda_device)
+    counters = (local_move_plp_kernel, local_move_louvain_kernel,
+                local_move_plp_streamed_kernel,
+                local_move_louvain_streamed_kernel, bin_rank_kernel,
+                label_argmax_kernel, delta_q_kernel,
+                block_segment_sums_kernel)
+    calls = (
+        lambda: local_move_plp_kernel(rows, nbr, w, tabs[0], 0,
+                                      tie_eps=0.25, sentinel=n),
+        lambda: local_move_louvain_kernel(rows, nbr, w, *composed, inv,
+                                          sentinel=n, singleton_rule=True),
+        lambda: local_move_plp_streamed_kernel(rows, nbr, w, tabs[0], 0,
+                                               tie_eps=0.25, sentinel=n,
+                                               windows=win),
+        lambda: local_move_louvain_streamed_kernel(
+            rows, nbr, w, *composed, inv, sentinel=n, singleton_rule=True,
+            windows=win),
+        lambda: (bin_rank_kernel(table, rows, rows, width=16, empty=n),),
+        lambda: label_argmax_kernel(nbr, w, rows, rows, 0, tie_eps=0.25,
+                                    sentinel=n),
+        lambda: delta_q_kernel(nbr, w, rows, w[:, 0], w, w[:, 0], nbr, rows,
+                               inv, sentinel=n, singleton_rule=True),
+        lambda: (block_segment_sums_kernel(rows, w[:, 0]),))
+    before = [c.launches for c in counters]
+    for call in calls:
+        assert all(o.shape[0] == 0 for o in call())
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+def test_scored_tile_wrappers_reject_bad_inputs(cuda_device):
+    n = 64
+    tiles, tabs = _tiles(8, 16, n, 0, "int", cuda_device)
+    lab, cur, keys = _plp_tiles(tiles, tabs, n)
+    launches = label_argmax_kernel.launches
+    with pytest.raises(TypeError):
+        label_argmax_kernel(lab, tiles[2].double(), cur, keys, 0,
+                            tie_eps=0.25, sentinel=n)
+    with pytest.raises(ValueError, match="contiguous"):
+        label_argmax_kernel(lab.t(), tiles[2].t(), cur.new_zeros(16),
+                            keys.new_zeros(16), 0, tie_eps=0.25, sentinel=n)
+    with pytest.raises(ValueError, match="4096"):
+        wide = torch.full((2, 4097), n, dtype=torch.int32, device=cuda_device)
+        label_argmax_kernel(wide, wide.float(), cur[:2], keys[:2], 0,
+                            tie_eps=0.25, sentinel=n)
+    assert label_argmax_kernel.launches == launches
+
+    cand, ccur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
+        tiles, compose_louvain_tables(*tabs, n), n)
+    inv = torch.tensor(1e-3, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        delta_q_kernel(cand, tiles[2], ccur[:4], deg, volc, volcur, sizec,
+                       sizecur, inv, sentinel=n, singleton_rule=True)
+    with pytest.raises(ValueError, match="2048"):
+        wide = torch.full((2, 2049), n, dtype=torch.int32, device=cuda_device)
+        delta_q_kernel(wide, wide.float(), ccur[:2], deg[:2], wide.float(),
+                       volcur[:2], wide, sizecur[:2], inv, sentinel=n,
+                       singleton_rule=True)
+    seg = torch.zeros(1000, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="divide"):
+        block_segment_sums_kernel(seg, seg.float(), block=512)
+    with pytest.raises(ValueError, match="1024"):
+        block_segment_sums_kernel(seg, seg.float(), block=2000)

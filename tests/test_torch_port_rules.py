@@ -34,7 +34,14 @@ def test_every_module_is_visited():
     for m in ("repro_torch.core.louvain", "repro_torch.kernels.build",
               "repro_torch.kernels.local_move.kernel",
               "repro_torch.kernels.aggregation.ops",
-              "repro_torch.graph.ell"):
+              "repro_torch.graph.ell",
+              "repro_torch.kernels.label_argmax.kernel",
+              "repro_torch.kernels.label_argmax.ops",
+              "repro_torch.kernels.delta_q.kernel",
+              "repro_torch.kernels.delta_q.ops",
+              "repro_torch.kernels.segment_sum.kernel",
+              "repro_torch.kernels.segment_sum.ops",
+              "repro_torch.kernels.segment_sum.ref"):
         assert m in mods
 
 
