@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py [--reps 20] [--profile] [--out FILE]
 
+``--profile`` also traces one Louvain run of the R-MAT graph, one LM
+prefill and four batched LM decode steps under ``torch.profiler``.
+
 Phases, each failing loudly (exit code 1, no result line):
 
 1. Device: the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.  No card → failure.
-2. Build: the eight CUDA kernels from ``src/repro_torch/kernels/csrc``,
+2. Build: the nine CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together; prints what
    ``-Xptxas -v`` reports for each.
 3. Main path, on two graphs of real size built on the card with
@@ -50,9 +53,10 @@ Phases, each failing loudly (exit code 1, no result line):
    path gave it (every level-0 ELL bucket of both graphs, first and last
    sweep; the first level whose bin gate passed), with the graph's unit
    weights and with integer weights 1..8 — bit for bit — then timed:
-   each kernel by device time (``device_ms``: a ``torch.profiler`` trace
-   of ``--reps`` launches after warm-up, the kernel's own durations, so
-   the wrapper's host work between launches is not in it), each plain
+   each kernel by device time (``device_ms``: CUDA events around
+   ``--reps`` launches after warm-up, enqueued while a spin kernel holds
+   the stream, so the wrapper's host work between launches is not in
+   it), each plain
    version by ``loop_ms`` (CUDA events around back-to-back calls), beside
    the least time the card could take (``bound_ms``).  Each streamed
    bucket is also timed through the resident kernel, and the bytes the
@@ -73,6 +77,33 @@ Phases, each failing loudly (exit code 1, no result line):
    streamed buckets for the streamed ones, and the R-MAT graph's 28 M
    sorted edge sources for ``block_segment_sums``.  The card's clocks,
    temperature and power draw are printed before and after this phase.
+5. LM: ``qwen3-1.7b`` at full width and depth (28 layers, d_model 2048,
+   16 query heads over 8 KV heads repeated to 16, head dim 128, vocab
+   151 936), its f32 master weights drawn by ``init_params(seed=0)`` on
+   the card (parameter count, init time, peak memory logged).
+   ``prefill_fn`` on (2, 4096) tokens drawn from the seed — 4096 is past
+   the JAX package's 1024-key chunk, so the reference there takes its
+   chunked path; ``prefill_32k`` (32 x 32 768) is cut to this for the
+   time limit — twice, the flash kernel's launch counter set to 0 before
+   each call and read after it: exactly 28 launches per call, finite
+   logits, wall time.  Layer 0's and layer 27's (q, k, v) of that prefill
+   go through the kernel and ``attention_ref``, in bf16 as the model
+   gives them and cast to float32; so do the shapes of
+   ``tests/test_kernels.py`` plus ragged lengths (100, 1000) at head dim
+   128.  Float32 within rtol = atol = 1e-5; bf16 within one bf16 ulp of
+   the larger value plus 1e-6 (both sides compute in float32 and round
+   once).  Then
+   ``ServeEngine(batch_slots=4, max_seq=512)`` answers 8 requests
+   (prompts of 16-96 tokens, 16 new tokens each, all from the seed): every
+   request returns 16 tokens, and the decode logits after each prompt lie
+   within ``LM_LOGIT_REL`` of each row's largest |logit| of ``prefill_fn``'s
+   last-position logits for that prompt (tokens/s and latencies logged).
+   Last, the kernel's device time at (2, 16, 4096, 128) and at one
+   ``prefill_32k`` sequence (1, 16, 32768, 128), bf16 causal, beside the
+   plain version (CUDA events; skipped at 32 768, whose float32 scores
+   alone are 64 GiB), ``F.scaled_dot_product_attention(is_causal=True)``
+   (the library call, CUDA events) and the bound max(2·B·Hq·Sq·Sk·D /
+   989 TFLOP/s, bytes of q, k, v, o / 3.35 TB/s).
 
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
@@ -105,10 +136,29 @@ STREAM_BLOCK_ROWS_SWEEP = (64, 128, 256, 512, 1024, 2048)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# A torch.profiler trace on the card now and then holds no device event at
-# all (two in a row at most so far; the cause is not known), so device_ms
-# traces again, up to this many times, before the run fails.
-PROFILER_TRACES = 6
+# Phase 5: the model, its prefill and serving shapes, and the tolerance of
+# decode logits against prefill logits.  The two paths round differently
+# (the flash kernel keeps its probabilities in float32, decode attention
+# rounds them to bf16; cuBLAS sums a one-row and a 4096-row product in
+# other orders), and 28 layers carry a few bf16 ulps of the hidden state
+# into every logit at the scale of the row's largest.
+LM_ARCH = "qwen3-1.7b"
+LM_PREFILL = (2, 4096)
+LM_LONG = (1, 32768)             # one prefill_32k sequence, kernel timing
+LM_SERVE = {"batch_slots": 4, "max_seq": 512, "requests": 8,
+            "prompt": (16, 96), "max_new": 16}
+LM_LOGIT_REL = 2.0 ** -4
+BF16_TFLOPS = 989e12
+
+# device_ms holds the stream with a spin kernel while the host enqueues
+# the timed calls: the spin starts at twice the host's enqueue time (at
+# least SPIN_MIN_S) at SPIN_CYCLES_PER_S (the H100's 1980 MHz SM clock
+# maximum; a slower clock only spins longer), and is made SPIN_GROWTH
+# times longer, up to SPIN_TRIES times, while it ends too soon.
+SPIN_CYCLES_PER_S = 1.98e9
+SPIN_MIN_S = 2e-3
+SPIN_GROWTH = 4
+SPIN_TRIES = 4
 
 
 def fail(msg: str) -> None:
@@ -154,29 +204,44 @@ def device_events(prof):
 
 
 def device_ms(fn, reps: int, torch) -> float:
-    """Device milliseconds per call of ``fn()``: the summed durations of
-    the device events of ``reps`` calls traced by ``torch.profiler`` after
-    three warm-up calls, over ``reps``.  Host time between launches (the
-    wrapper's checks, allocation and ctypes call) is not in it.  A trace
-    that holds no device event is logged and taken again, up to
-    ``PROFILER_TRACES`` times; then the run fails."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device milliseconds per call of ``fn()``: CUDA events around
+    ``reps`` back-to-back calls, after three warm-up calls, enqueued while
+    a spin kernel (``torch.cuda._sleep``) holds the stream.  The device
+    then runs the calls with no wait on the host between them, so the
+    wrapper's host work (checks, allocation, the ctypes call) is not in
+    the time; the device's own gaps between launches are.  The spin lasts
+    twice the warm-up's enqueue time of ``reps`` calls: if it has ended
+    after the first call, that call waited on the device (a read-back),
+    which this timing cannot take, and the run fails; if it ends before
+    the last call is enqueued, it is made longer and the calls are timed
+    again."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(1, PROFILER_TRACES + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = device_events(prof)
-        if events:
-            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
-        log(f"[timing] trace {attempt} of {PROFILER_TRACES} held no device "
-            f"event")
-    fail(f"the profiler saw no device time in {PROFILER_TRACES} traces")
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin_s = max(2 * (time.perf_counter() - t), SPIN_MIN_S)
+    torch.cuda.synchronize()
+    where = f"chip_smoke.py:{sys._getframe(1).f_lineno}"
+    for _ in range(SPIN_TRIES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        a.record()
+        for i in range(reps):
+            fn()
+            if i == 0 and a.query():
+                fail(f"the function timed at {where} waits on the device")
+        b.record()
+        held = not a.query()
+        b.synchronize()
+        if held:
+            return a.elapsed_time(b) / reps
+        log(f"[timing] {where}: a {spin_s * 1e3:.3f} ms spin ended before "
+            f"{reps} calls were enqueued; spinning {SPIN_GROWTH}x longer")
+        spin_s *= SPIN_GROWTH
+    fail(f"the spin never held the stream for {reps} calls at {where}")
 
 
 def _events_ms(fn, reps: int, torch) -> float:
@@ -195,9 +260,10 @@ def loop_ms(fn, reps: int, torch, budget_ms: float = 2000.0) -> float:
     """Milliseconds per call of ``fn()``: CUDA events around back-to-back
     calls after a warm-up call, over their count — ``reps`` calls, or
     fewer (at least 3) where one call takes so long that ``reps`` would
-    pass ``budget_ms``.  Used for the plain versions, whose thousands of
-    small launches per call would swamp a profiler trace; the device's
-    waits on the host between those launches are part of their cost."""
+    pass ``budget_ms``.  Used for the plain versions, eager code whose
+    thousands of small launches per call are host-bound, and for functions
+    that read back to the host: the device's waits on the host between
+    launches are part of their cost."""
     fn()
     one = _events_ms(fn, 1, torch)
     return _events_ms(fn, max(3, min(reps, int(budget_ms / max(one, 1e-3)))),
@@ -1021,14 +1087,18 @@ def phase_scored_tiles(args, torch, rt, captured, seg_inputs, launches):
         vp = torch.cat([vals, vals.new_zeros(pad)])
         k_ms = device_ms(lambda: rt.ss_kernel.block_segment_sums_kernel(
             kp, vp, block=block), reps, torch)
-        e_ms = device_ms(lambda: ss(keys, vals, use_pallas=True), reps, torch)
+        # the entry point reads its run count back to the host (segment
+        # lengths), so it is timed with that wait in it
+        e_ms = loop_ms(lambda: ss(keys, vals, use_pallas=True), reps, torch)
         p_ms = loop_ms(lambda: rt.ss_ref.sorted_segment_sum_ref(keys, vals),
                        reps, torch)
         lengths_ms = loop_ms(lambda: torch.unique_consecutive(
             keys, return_counts=True), reps, torch)
         lengths = torch.unique_consecutive(keys, return_counts=True)[1]
+        # unsafe=True, as graph/segment.py calls it: the checks of the
+        # lengths read them back to the host
         lib_ms = device_ms(lambda: torch.segment_reduce(
-            vals, "sum", lengths=lengths), reps, torch)
+            vals, "sum", lengths=lengths, unsafe=True), reps, torch)
         runs = int(lengths.numel())
         # the kernel reads 8 bytes a padded key and writes the 4-byte
         # totals; the entry point also writes the 1-byte run starts
@@ -1060,6 +1130,294 @@ def phase_scored_tiles(args, torch, rt, captured, seg_inputs, launches):
     return out
 
 
+# ------------------------------------------------------------ phase 5: LM
+
+
+def attention_bound(q, k) -> tuple[float, str]:
+    """The flash kernel's least time: the causal half of both products
+    (2·B·Hq·Sq·Sk·D flops) on the bf16 tensor cores, or q, k, v and o
+    moved once each at HBM rate."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    flops = 2.0 * b * hq * sq * sk * d
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_ops = flops / BF16_TFLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_attention(rt, torch, q, k, v, causal, where) -> float:
+    """Kernel against ``attention_ref`` on the same inputs; returns the
+    largest absolute difference, or fails past the tolerance: in float32
+    rtol = atol = 1e-5; in bf16 one bf16 ulp of the larger of the two
+    values, plus 1e-6 — both sides compute in float32 and round to bf16
+    once, so they differ by that rounding at most."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = rt.fa_kernel.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    ref = rt.fa_ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    a, b = out.float(), ref.float()
+    if not torch.isfinite(a).all():
+        fail(f"flash_attention_fwd {where}: non-finite output")
+    diff = (a - b).abs()
+    if q.dtype == torch.float32:
+        bad, tol = ~torch.isclose(a, b, rtol=1e-5, atol=1e-5), "1e-5"
+    else:
+        # frexp: |x| in [2^(e-1), 2^e); bf16 keeps 8 significant bits
+        e = torch.frexp(torch.maximum(a.abs(), b.abs())).exponent
+        bad = diff > torch.ldexp(torch.ones_like(a), e - 8) + 1e-6
+        tol = "1 bf16 ulp + 1e-6"
+    err = float(diff.max())
+    if bad.any():
+        fail(f"flash_attention_fwd {where}: {int(bad.sum())} of "
+             f"{bad.numel()} outputs differ from attention_ref beyond {tol} "
+             f"(max |difference| {err})")
+    return err
+
+
+def phase_lm(args, torch, rt):
+    """The dense model's prefill and serving path at full width, with the
+    flash kernel held against its plain version and timed."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    c = rt.configs.get(LM_ARCH)
+    model = rt.model_api.build(c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = rt.init_params(model.decls, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = rt.param_count(params)
+    n_norms = sum(p.numel() for k, p in params["layers"].items()
+                  if k in ("ln1", "ln2", "q_norm", "k_norm")) \
+        + params["final_norm"].numel()
+    if n_params != c.total_params() + n_norms:
+        fail(f"{n_params} parameters, CONFIG.total_params() "
+             f"{c.total_params()} + {n_norms} norm scales expected")
+    out = {"arch": LM_ARCH, "n_layers": c.n_layers, "d_model": c.d_model,
+           "params": n_params, "total_params": c.total_params(),
+           "init_s": init_s,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "reduced": [f"prefill_32k (32 x 32768 tokens) cut to "
+                       f"{LM_PREFILL[0]} x {LM_PREFILL[1]} for the time "
+                       f"limit; weights random from seed 0"]}
+    log(f"[lm] {LM_ARCH}: {c.n_layers} layers, d_model {c.d_model}, "
+        f"{c.n_heads} heads / {c.n_kv_heads} KV heads (kv_eff {c.kv_eff}), "
+        f"head dim {c.hd}, vocab {c.vocab_size}; {n_params} parameters "
+        f"(CONFIG.total_params() {c.total_params()} + {n_norms} norm "
+        f"scales); init {init_s:.1f} s, peak {out['init_peak_gib']:.2f} GiB")
+    log(f"[lm] reduced: {out['reduced']}")
+
+    # prefill, the flash kernel's inputs captured at layers 0 and L-1
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    entry = rt.fa_ops.flash_attention
+    captured = []
+
+    def capture(q, k, v, **kw):
+        captured.append((q, k, v, kw))
+        return entry(q, k, v, **kw)
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, c.vocab_size, LM_PREFILL)).to(dev)
+    rt.fa_ops.flash_attention = capture
+    times, logits = [], None
+    try:
+        for _ in range(2):
+            captured.clear()
+            kern.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = model.prefill_fn(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if kern.launches != c.n_layers:
+                fail(f"prefill launched flash_attention_fwd {kern.launches} "
+                     f"times, want {c.n_layers}")
+            layers = (captured[0], captured[-1]) if len(captured) == \
+                c.n_layers else None
+    finally:
+        rt.fa_ops.flash_attention = entry
+    main_launches = kern.launches
+    if layers is None:
+        fail(f"{len(captured)} attention calls in a prefill")
+    if tuple(logits.shape) != (*LM_PREFILL, c.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail(f"prefill logits {tuple(logits.shape)} not finite or misshaped")
+    n_tok = LM_PREFILL[0] * LM_PREFILL[1]
+    out.update({"prefill_shape": list(LM_PREFILL), "prefill_s": times,
+                "prefill_tokens_per_s": n_tok / times[-1],
+                "prefill_launches": main_launches,
+                "prefill_peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    log(f"[lm] prefill {LM_PREFILL}: {times[0]:.3f} s first call, "
+        f"{times[1]:.3f} s second ({n_tok / times[1]:.0f} tokens/s); "
+        f"flash_attention_fwd launches per call {main_launches}; logits "
+        f"{tuple(logits.shape)} finite; peak {out['prefill_peak_gib']:.2f} GiB")
+    del logits
+
+    # the kernel against its plain version: inside the model (bf16 as the
+    # model gives them, and cast to float32), then at the JAX tests'
+    # shapes plus ragged lengths
+    errs = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for name, (q, k, v, kw) in zip(("layer 0", f"layer {c.n_layers - 1}"),
+                                   layers):
+        for dt in (torch.bfloat16, torch.float32):
+            e = check_attention(rt, torch, q.to(dt), k.to(dt), v.to(dt),
+                                kw.get("causal", True),
+                                f"{name} of the prefill {tuple(q.shape)} {dt}")
+            errs[dt] = max(errs[dt], e)
+            log(f"[lm] flash_attention_fwd on {name}'s q/k/v {tuple(q.shape)}"
+                f" {str(dt)[6:]}: max |kernel - attention_ref| {e:.3g}")
+    gen = np.random.default_rng(1)
+    shapes = [(2, 4, 2, 64, 64, 16, True), (1, 8, 8, 128, 128, 32, True),
+              (2, 4, 1, 64, 128, 16, False), (1, 2, 2, 256, 256, 64, True),
+              (1, 4, 2, 100, 1000, 128, True),
+              (1, 4, 2, 1000, 100, 128, False)]
+    for b, hq, hk, sq, sk, d, causal in shapes:
+        arrs = [torch.from_numpy(gen.standard_normal(sh).astype(np.float32))
+                .to(dev) for sh in ((b, hq, sq, d), (b, hk, sk, d),
+                                    (b, hk, sk, d))]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (a.to(dt) for a in arrs)
+            e = check_attention(rt, torch, q, k, v, causal,
+                                f"{(b, hq, hk, sq, sk, d, causal)} {dt}")
+            errs[dt] = max(errs[dt], e)
+            log(f"[lm] flash_attention_fwd {(b, hq, hk, sq, sk, d)} causal="
+                f"{causal} {str(dt)[6:]}: max error {e:.3g}")
+
+    out["serve"] = serve_check(torch, rt, c, model, params, dev)
+    if args.profile:
+        out["profile"] = lm_profile(torch, c, model, params, toks, dev)
+
+    # time and bound the kernel
+    rows = []
+    for (b, s) in (LM_PREFILL, LM_LONG):
+        q = torch.randn(b, c.n_heads, s, c.hd, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn(b, c.kv_eff, s, c.hd, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn_like(k)
+        reps = args.reps if s <= 4096 else max(3, args.reps // 4)
+        k_ms = device_ms(lambda: kern(q, k, v, causal=True), reps, torch)
+        if s <= 4096:
+            p_ms = loop_ms(lambda: rt.fa_ref.attention_ref(q, k, v,
+                                                           causal=True),
+                           reps, torch)
+        else:
+            p_ms = None
+            log(f"[lm] plain attention_ref not timed at {(b, s)}: its float32 "
+                f"scores alone would take {b * c.n_heads * s * s * 4 / 2**30:.0f}"
+                f" GiB")
+        sdpa = rt.torch.nn.functional.scaled_dot_product_attention
+        gqa = k.shape[1] != q.shape[1]
+        lib_ms = loop_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=gqa), reps, torch)
+        b_ms, kind = attention_bound(q, k)
+        rows.append({"shape": [b, c.n_heads, s, c.hd], "ms": k_ms,
+                     "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                     "bound_by": kind})
+        log(f"[lm] flash_attention_fwd {(b, c.n_heads, s, c.hd)} bf16 causal:"
+            f" kernel {k_ms:.3f} ms, plain "
+            f"{'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, SDPA "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({kind}); kernel at "
+            f"{b_ms / k_ms:.1%} of its bound")
+    main = rows[0]
+    kernels = [{"name": "flash_attention_fwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+                "launches": main_launches,
+                "max_abs_err": errs[torch.bfloat16],
+                "f32_max_abs_err": errs[torch.float32],
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"],
+                "per_shape": rows}]
+    out["kernel_times"] = rows
+    return out, kernels
+
+
+def lm_profile(torch, c, model, params, toks, dev):
+    """One prefill call and four batched decode steps (the serving
+    engine's slots, a cache filled to 64 positions), traced."""
+    out = [traced(torch, f"prefill_fn {tuple(toks.shape)}",
+                  lambda: model.prefill_fn(params, {"tokens": toks}))]
+    slots = LM_SERVE["batch_slots"]
+    state = model.init_decode_state(params, slots, LM_SERVE["max_seq"])
+    state = state._replace(cache=state.cache._replace(
+        pos=torch.full((slots,), 64, dtype=torch.int32, device=dev)))
+    tok = toks[0, :slots]
+
+    def steps():
+        st = state
+        for _ in range(4):
+            _, st = model.decode_fn(params, tok, st)
+
+    out.append(traced(torch, f"4 decode steps of {slots} slots", steps))
+    return out
+
+
+def serve_check(torch, rt, c, model, params, dev):
+    """``ServeEngine`` answers the requests; each prompt's decode logits
+    (after its last token) against ``prefill_fn``'s last position."""
+    import numpy as np
+
+    gen = np.random.default_rng(2)
+    lo, hi = LM_SERVE["prompt"]
+    prompts = [gen.integers(0, c.vocab_size, int(n)).tolist()
+               for n in gen.integers(lo, hi + 1, LM_SERVE["requests"])]
+    eng = rt.ServeEngine(c, params, batch_slots=LM_SERVE["batch_slots"],
+                         max_seq=LM_SERVE["max_seq"], device=dev)
+    decode_logits = {}
+    prefill_into = eng._prefill_into
+
+    def capture(state, slot, prompt):
+        state, logits = prefill_into(state, slot, prompt)
+        decode_logits[tuple(prompt)] = logits[0]
+        return state, logits
+
+    eng._prefill_into = capture
+    reqs = [rt.Request(prompt=p, max_new=LM_SERVE["max_new"]) for p in prompts]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if len(done) != len(prompts) or any(
+            len(r.output) != LM_SERVE["max_new"] for r in done):
+        fail(f"ServeEngine answered {len(done)} of {len(prompts)} requests "
+             f"or cut one short")
+    n_new = sum(len(r.output) for r in done)
+    n_prompt = sum(len(p) for p in prompts)
+    worst, agree = 0.0, 0
+    for p in prompts:
+        ref = model.prefill_fn(params, {"tokens": torch.tensor(
+            [p], device=dev)})[0, -1].float()
+        got = decode_logits[tuple(p)].float()
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        worst = max(worst, rel)
+        agree += int(torch.argmax(got) == torch.argmax(ref))
+        if not torch.isfinite(got).all() or rel > LM_LOGIT_REL:
+            fail(f"decode logits after a {len(p)}-token prompt differ from "
+                 f"prefill_fn's by {rel:.4f} of the row's largest |logit| "
+                 f"(tolerance {LM_LOGIT_REL})")
+    lat = sorted(r.latency_s for r in done)
+    out = {"requests": len(done), "prompt_tokens": n_prompt,
+           "new_tokens": n_new, "wall_s": wall,
+           "new_tokens_per_s": n_new / wall,
+           "tokens_per_s": (n_new + n_prompt) / wall,
+           "latency_s": lat, "decode_vs_prefill_rel": worst,
+           "argmax_agree": agree, **LM_SERVE}
+    log(f"[lm] serve: {len(done)} requests ({n_prompt} prompt tokens, "
+        f"{n_new} new) in {wall:.2f} s: {n_new / wall:.1f} new tokens/s, "
+        f"{(n_new + n_prompt) / wall:.1f} tokens/s with the prompts' decode "
+        f"steps; latency per request {[round(x, 3) for x in lat]} s; decode "
+        f"logits after each prompt within {worst:.4f} of prefill_fn's row "
+        f"scale (tolerance {LM_LOGIT_REL}), argmax equal on {agree} of "
+        f"{len(prompts)}")
+    return out
+
+
 def clocks(stage: str) -> None:
     """The card's SM clock, its maximum, temperature and power draw."""
     smi = subprocess.run(
@@ -1070,18 +1428,18 @@ def clocks(stage: str) -> None:
                                 else f"nvidia-smi failed: {smi.stderr}"))
 
 
-def phase_profile(torch, rt, name, g, top: int = 15):
-    """One ``louvain(backend="pallas")`` run of ``g`` under
-    ``torch.profiler``: device time by kernel name (largest first) and the
-    device's busy share of the traced wall time.  The profiler adds host
-    overhead, so this run's wall time is not the main path's."""
+def traced(torch, what: str, fn, top: int = 15):
+    """``fn()`` under ``torch.profiler``: device time by kernel name
+    (largest first) and the device's busy share of the traced wall time.
+    The profiler adds host overhead, so the traced wall time is not the
+    untraced run's."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rt.louvain(g, rt.LouvainConfig(backend="pallas"))
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
 
@@ -1093,21 +1451,28 @@ def phase_profile(torch, rt, name, g, top: int = 15):
     rows = [{"op": k, "device_ms": us / 1e3, "calls": calls}
             for k, (us, calls) in sorted(by_name.items(),
                                          key=lambda kv: -kv[1][0])[:top]]
-    log(f"[profile] {name} louvain(pallas) under the profiler: wall "
-        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%)")
+    log(f"[profile] {what} under the profiler: wall {wall_ms:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     for r in rows:
         log(f"[profile]   {r['device_ms']:10.2f} ms  {r['calls']:7d}x  "
             f"{r['op'][:90]}")
-    return {"graph": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"what": what, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "top_ops": rows}
+
+
+def phase_profile(torch, rt, name, g):
+    """One ``louvain(backend="pallas")`` run of ``g``, traced."""
+    return dict(traced(torch, f"{name} louvain(pallas)",
+                       lambda: rt.louvain(g, rt.LouvainConfig(
+                           backend="pallas"))), graph=name)
 
 
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--profile", action="store_true",
-                   help="also trace one Louvain run of the first graph")
+                   help="also trace one Louvain run of the first graph, one "
+                        "LM prefill and four LM decode steps")
     p.add_argument("--out", default=None,
                    help="also write every measurement to this JSON file")
     args = p.parse_args(argv)
@@ -1142,6 +1507,13 @@ def main(argv) -> int:
         from repro_torch.kernels.segment_sum import ops as ss_ops
         from repro_torch.kernels.segment_sum import ref as ss_ref
         from repro_torch.utils import telemetry
+        from repro_torch import configs
+        from repro_torch.kernels.flash_attention import kernel as fa_kernel
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.launch.serve import Request, ServeEngine
+        from repro_torch.models import api as model_api
+        from repro_torch.models.common import init_params, param_count
     except ImportError as err:
         fail(f"the repro_torch package is not next to this script ({err})")
     rt = argparse.Namespace(
@@ -1153,7 +1525,10 @@ def main(argv) -> int:
         la_kernel=la_kernel, la_ops=la_ops, la_ref=la_ref,
         dq_kernel=dq_kernel, dq_ops=dq_ops, dq_ref=dq_ref,
         ss_kernel=ss_kernel, ss_ops=ss_ops, ss_ref=ss_ref, torch=torch,
-        telemetry=telemetry)
+        telemetry=telemetry, configs=configs, fa_kernel=fa_kernel,
+        fa_ops=fa_ops, fa_ref=fa_ref, Request=Request,
+        ServeEngine=ServeEngine, model_api=model_api,
+        init_params=init_params, param_count=param_count)
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     phase_build(build)
@@ -1165,6 +1540,9 @@ def main(argv) -> int:
     kernels += phase_scored_tiles(args, torch, rt, captured, seg_inputs,
                                   main_out["two_step"]["launches"])
     clocks("after phase 4")
+    main_out["lm"], lm_kernels = phase_lm(args, torch, rt)
+    kernels += lm_kernels
+    clocks("after phase 5")
     if args.profile:
         main_out["profile"] = phase_profile(
             torch, rt, MAIN_GRAPH[0], graphs[MAIN_GRAPH[0]][0])

@@ -34,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("local_move_plp", "local_move_louvain", "local_move_plp_streamed",
            "local_move_louvain_streamed", "bin_rank", "label_argmax", "delta_q",
-           "block_segment_sums")
+           "block_segment_sums", "flash_attention_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 

@@ -16,15 +16,28 @@ that are not ELL widths, and the two-step path (gather the tiles, then
 score them) must equal the fused kernels bit for bit on float32 weights
 too; ``sorted_segment_sum`` runs with runs longer than two blocks and
 lengths that are not a block multiple.
+
+The flash-attention kernel runs against its plain version at every head
+dim it takes, GQA groups 1, 2 and 4, causal and not, Sq != Sk and ragged
+lengths, within the JAX kernel test's tolerances (1e-5 in float32, 3e-2
+in bf16: the kernel keeps float32 throughout and rounds once); and the
+dense model's ``prefill_fn`` at its REDUCED size on the card, attention
+through that kernel, against the same model on the CPU within 2^-5 of
+each logit row's largest magnitude (bf16 matmuls on the card sum in
+another order, and the CPU path rounds its probabilities to bf16).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.graph.ell import TableWindows, compute_windows
 from repro_torch.kernels.aggregation.kernel import bin_rank_kernel
 from repro_torch.kernels.aggregation.ref import bin_rank_ref
 from repro_torch.kernels.delta_q.kernel import delta_q_kernel
+from repro_torch.kernels.flash_attention.kernel import \
+    flash_attention_fwd_kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.delta_q.ops import delta_q_argmax
 from repro_torch.kernels.delta_q.ref import delta_q_chunked
 from repro_torch.kernels.label_argmax.kernel import label_argmax_kernel
@@ -41,6 +54,8 @@ from repro_torch.kernels.segment_sum.kernel import block_segment_sums_kernel
 from repro_torch.kernels.segment_sum.ops import sorted_segment_sum
 from repro_torch.kernels.segment_sum.ref import (block_segment_sums_ref,
                                                  sorted_segment_sum_ref)
+from repro_torch.models import api as model_api
+from repro_torch.models.common import init_params
 from repro_torch.utils.errors import KernelError
 
 WIDTHS = (16, 64, 256, 1024)
@@ -471,3 +486,83 @@ def test_scored_tile_wrappers_reject_bad_inputs(cuda_device):
         block_segment_sums_kernel(seg, seg.float(), block=512)
     with pytest.raises(ValueError, match="1024"):
         block_segment_sums_kernel(seg, seg.float(), block=2000)
+
+
+# ------------------------------------------------------------ flash attention
+
+# (b, hq, hk, sq, sk, d, causal)
+FLASH_SHAPES = [
+    (2, 4, 2, 64, 64, 16, True), (1, 8, 8, 128, 128, 32, True),
+    (2, 4, 1, 64, 128, 16, False), (1, 2, 2, 256, 256, 64, True),
+    (1, 4, 2, 100, 1000, 128, True), (1, 4, 1, 1000, 100, 128, False),
+    (2, 4, 4, 100, 100, 32, True), (1, 8, 2, 300, 77, 64, True),
+    (1, 2, 1, 77, 300, 16, False), (2, 16, 16, 1024, 1024, 128, True)]
+
+
+def _qkv(b, hq, hk, sq, sk, d, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [_card(rng.standard_normal(s).astype(np.float32), dev).to(dtype)
+            for s in ((b, hq, sq, d), (b, hk, sk, d), (b, hk, sk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
+    b, hq, hk, sq, sk, d, causal = shape
+    q, k, v = _qkv(*shape[:6], dtype, cuda_device, seed=sq * 7 + sk)
+    launches = flash_attention_fwd_kernel.launches
+    out = flash_attention_fwd_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.launches == launches + 1
+    ref = attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == ref.shape
+    a, r = out.float(), ref.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5)
+    else:
+        # both compute in float32 and round to bf16 once: at most one bf16
+        # ulp of the larger value apart (frexp: |x| in [2^(e-1), 2^e))
+        e = torch.frexp(torch.maximum(a.abs(), r.abs())).exponent
+        bound = torch.ldexp(torch.ones_like(a), e - 8) + 1e-6
+        assert bool(((a - r).abs() <= bound).all()), \
+            float((a - r).abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects_bad_inputs(cuda_device):
+    q, k, v = _qkv(1, 4, 2, 64, 64, 16, torch.float32, cuda_device, seed=1)
+    launches = flash_attention_fwd_kernel.launches
+    with pytest.raises(ValueError, match="head dim 48"):
+        q48 = torch.zeros(1, 4, 64, 48, device=cuda_device)
+        flash_attention_fwd_kernel(q48, q48[:, :2], q48[:, :2])
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_fwd_kernel(q, q[:, :3], q[:, :3])
+    with pytest.raises(TypeError):
+        flash_attention_fwd_kernel(q, k.bfloat16(), v)
+    with pytest.raises(TypeError):
+        flash_attention_fwd_kernel(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd_kernel(q.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), k, v)
+    assert flash_attention_fwd_kernel.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("bs", [(2, 8), (1, 2048)])
+def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs):
+    c = configs.get(arch, reduced=True)
+    m = model_api.build(c)
+    toks = np.random.default_rng(bs[1]).integers(0, c.vocab_size, bs)
+    params = init_params(m.decls, seed=0, device=cuda_device)
+    launches = flash_attention_fwd_kernel.launches
+    card = m.prefill_fn(params, {"tokens": _card(toks, cuda_device)})
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.launches == launches + c.n_layers
+    cpu = m.prefill_fn(init_params(m.decls, seed=0, device="cpu"),
+                       {"tokens": torch.from_numpy(toks)})
+    a, b = cpu.float().numpy(), card.float().cpu().numpy()
+    assert np.isfinite(b).all()
+    diff = np.abs(a - b).max(axis=-1)
+    assert np.all(diff <= 2.0 ** -5 * np.abs(a).max(axis=-1))

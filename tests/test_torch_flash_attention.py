@@ -1,0 +1,119 @@
+"""The port's flash-attention plain version ≡ the JAX package's, on the CPU.
+
+The same numpy inputs (made from a seed) go through the JAX package's
+``attention_ref`` and the port's, at the shapes of
+``tests/test_kernels.py::test_flash_attention_matches_ref`` and at ragged
+lengths.  The JAX Pallas kernel itself does not run under the installed
+jax (its ``pl.load`` is gone), so its oracle stands in for it; the port's
+CUDA kernel is held against the same plain version on the card
+(``tests/test_torch_cuda.py``).  Tolerances: float32 outputs within 1e-6
+(the two frameworks sum the products in different orders), bf16 outputs
+within one bf16 ulp of the larger of the two plus that 1e-6 (the float32
+results differ by that much, and each rounds by up to half an ulp).
+
+On CPU tensors the port's entry point (``ops.flash_attention``) and the
+kernel wrapper run the plain version itself — equal bit for bit, with no
+launch counted — and the wrapper's shape checks raise before any dispatch.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.kernel import (
+    HEAD_DIMS, flash_attention_fwd_kernel)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.attention import full_attention, repeat_kv
+
+# (b, hq, hk, sq, sk, d, causal): tests/test_kernels.py's shapes, then
+# ragged lengths and the model's head dim
+SHAPES = [(2, 4, 2, 64, 64, 16, True), (1, 8, 8, 128, 128, 32, True),
+          (2, 4, 1, 64, 128, 16, False), (1, 2, 2, 256, 256, 64, True)]
+RAGGED = [(1, 4, 2, 100, 1000, 128, True), (1, 2, 1, 1000, 100, 128, False),
+          (2, 2, 2, 100, 100, 32, True)]
+
+
+def _inputs(b, hq, hk, sq, sk, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, sq, d), (b, hk, sk, d), (b, hk, sk, d))]
+
+
+def _jax(arrs, dtype):
+    return [jnp.asarray(a, jnp.float32 if dtype == "float32" else
+                        jnp.bfloat16) for a in arrs]
+
+
+def _torch(arrs, dtype):
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return [torch.from_numpy(a).to(dt) for a in arrs]
+
+
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    m = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(m)) - 7)
+
+
+def assert_matches(j_out, t_out, dtype):
+    a = np.asarray(j_out.astype(jnp.float32))
+    b = t_out.float().numpy()
+    assert a.shape == b.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(b, a, atol=1e-6, rtol=1e-6)
+    else:
+        bound = bf16_ulp(np.maximum(np.abs(a), np.abs(b))) + 1e-6
+        assert np.all(np.abs(a - b) <= bound)
+
+
+@pytest.mark.parametrize("shape", SHAPES + RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_ref_matches_jax(shape, dtype):
+    b, hq, hk, sq, sk, d, causal = shape
+    arrs = _inputs(b, hq, hk, sq, sk, d, seed=b * sq + sk)
+    j_out = j_attention_ref(*_jax(arrs, dtype), causal=causal)
+    t_out = attention_ref(*_torch(arrs, dtype), causal=causal)
+    assert t_out.dtype == (torch.float32 if dtype == "float32"
+                           else torch.bfloat16)
+    assert_matches(j_out, t_out, dtype)
+
+
+@pytest.mark.parametrize("shape", SHAPES + RAGGED)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_entry_point_on_cpu_is_the_plain_version(shape, dtype):
+    b, hq, hk, sq, sk, d, causal = shape
+    q, k, v = _torch(_inputs(b, hq, hk, sq, sk, d, seed=sq), dtype)
+    launches = flash_attention_fwd_kernel.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(out, attention_ref(q, k, v, causal=causal))
+    assert torch.equal(flash_attention_fwd_kernel(q, k, v, causal=causal),
+                       out)
+    assert flash_attention_fwd_kernel.launches == launches
+
+
+def test_wrapper_rejects_shapes_the_kernel_lacks():
+    q = torch.zeros(1, 4, 8, 24)
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_attention_fwd_kernel(q, q[:, :2], q[:, :2])
+    q = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_fwd_kernel(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError, match="do not match"):
+        flash_attention_fwd_kernel(q, q[:, :2], q[:, :2, :4])
+    assert HEAD_DIMS == (16, 32, 64, 128)
+
+
+def test_plain_version_matches_model_path():
+    """The kernel's plain version agrees with the model's full_attention
+    over interleaved repeated KV heads (tests/test_kernels.py's check,
+    2e-5)."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 32, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 2, 32, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 2, 32, 16)).astype(np.float32))
+    out_m = full_attention(q, repeat_kv(k, 2), repeat_kv(v, 2), causal=True)
+    out_k = attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out_m.numpy(), out_k.numpy(), atol=2e-5,
+                               rtol=2e-5)

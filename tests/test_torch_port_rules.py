@@ -4,7 +4,8 @@
   package ever entering ``sys.modules`` (checked in a fresh interpreter),
   and no source file of the port names either in an import.
 * Without a card, the entry points refuse to build on the CPU silently:
-  ``from_numpy_edges``/``datasets.load`` with no ``device`` raise.
+  ``from_numpy_edges``/``datasets.load``, the language model's
+  ``init_params`` and ``ServeEngine`` with no ``device`` raise.
 """
 import ast
 import os
@@ -18,8 +19,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import configs
 from repro_torch.graph import datasets
 from repro_torch.graph.builders import from_numpy_edges
+from repro_torch.launch.serve import ServeEngine
+from repro_torch.models import api as model_api
+from repro_torch.models.common import init_params
 
 PORT = Path(repro_torch.__file__).resolve().parent
 
@@ -41,7 +46,15 @@ def test_every_module_is_visited():
               "repro_torch.kernels.delta_q.ops",
               "repro_torch.kernels.segment_sum.kernel",
               "repro_torch.kernels.segment_sum.ops",
-              "repro_torch.kernels.segment_sum.ref"):
+              "repro_torch.kernels.segment_sum.ref",
+              "repro_torch.kernels.flash_attention.kernel",
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.flash_attention.ref",
+              "repro_torch.models.arch_config", "repro_torch.models.common",
+              "repro_torch.models.attention",
+              "repro_torch.models.transformer", "repro_torch.models.api",
+              "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.qwen3_8b",
+              "repro_torch.launch.serve"):
         assert m in mods
 
 
@@ -85,3 +98,20 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         datasets.load("ring-of-cliques")
     assert from_numpy_edges(u, v, device="cpu").src.device.type == "cpu"
+
+
+def test_model_entry_points_default_to_the_card():
+    c = configs.get("qwen3-1.7b", reduced=True)
+    decls = model_api.build(c).decls
+    if torch.cuda.is_available():
+        assert init_params(decls)["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(decls)
+    params = init_params(decls, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(c, params)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ServeEngine(c, params, device="meta")
+    assert ServeEngine(c, params, device="cpu").device.type == "cpu"

@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Time one CUDA kernel family of several source trees, interleaved.
+
+    python3 tools/ab_kernels.py KERNEL LABEL=CSRC_DIR LABEL=CSRC_DIR ...
+
+KERNEL is ``local_move`` (the resident ``local_move_plp`` and
+``local_move_louvain`` kernels, on seeded random inputs at the as-skitter
+stand-in's level-0 shapes: tables of 2^21 + 1 entries; W = 16, 64, 1024
+buckets of 810 488, 118 136 and 25 624 rows; 50 launches a timing) or
+``flash_attention_fwd`` (seeded bf16 inputs, causal, at the qwen3-1.7b
+prefill shape of ``chip_smoke.py`` (2, 16, 4096, 128), 20 launches a
+timing, and at one prefill_32k sequence (1, 16, 32768, 128), 3 launches).
+
+Each CSRC_DIR holds the family's ``.cu`` sources and the headers they
+include (``src/repro_torch/kernels/csrc`` of a checkout; an older
+commit's with ``git archive <commit> src/repro_torch/kernels/csrc | tar
+-x -C <dir>``).  Each tree is built with the flags of
+``kernels/build.py`` into ``build/ab/<label>/``, every tree runs the same
+inputs, the outputs of all trees must be equal, and each kernel is timed
+with CUDA events over back-to-back launches in the order A B ... B A.
+Needs one CUDA card and ``nvcc``.
+"""
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels import build  # noqa: E402
+
+SOURCES = {"local_move": ("local_move_plp", "local_move_louvain"),
+           "flash_attention_fwd": ("flash_attention_fwd",)}
+N = 2_097_152
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def compile_trees(trees, sources):
+    procs, libs = [], {}
+    for label, csrc in trees:
+        out_dir = ROOT / "build" / "ab" / label
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for k in sources:
+            out = out_dir / f"lib{k}.so"
+            procs.append((label, k, out, subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                 str(Path(csrc) / f"{k}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for label, k, out, p in procs:
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            sys.exit(f"nvcc failed for {label} {k}:\n{text}")
+        libs[(label, k)] = ctypes.CDLL(str(out))
+    return libs
+
+
+def entry(lib, name, argtypes, args):
+    """A call of ``<name>_launch`` with ``args`` that exits on an error."""
+    f = getattr(lib, f"{name}_launch")
+    f.argtypes, f.restype = argtypes, _I
+
+    def run():
+        err = f(*args)
+        if err:
+            sys.exit(f"{name} launch failed: cudaError {err}")
+    return run
+
+
+def events_ms(fn, reps):
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def ab(labels, launcher, outputs, what, reps):
+    """Runs every tree once and compares ``outputs()``, then times each
+    tree in the order A B ... B A."""
+    outs = []
+    for label in labels:
+        launcher(label)()
+        torch.cuda.synchronize()
+        outs.append([t.clone() for t in outputs])
+    equal = all(torch.equal(x, y) for o in outs for x, y in zip(o, outs[0]))
+    times = {label: [] for label in labels}
+    for label in labels + labels[::-1]:
+        times[label].append(events_ms(launcher(label), reps))
+    print(f"{what}, {reps} launches a timing: outputs equal: {equal}; ms "
+          + ", ".join(f"{lb} {t[0]:.4f} / {t[1]:.4f}"
+                      for lb, t in times.items()), flush=True)
+    if not equal:
+        sys.exit(1)
+
+
+def local_move(libs, labels, dev):
+    rng = np.random.default_rng(0)
+
+    def card(x):
+        return torch.from_numpy(x).to(dev)
+
+    tabs = [card(np.append(rng.integers(0, N // 4, N), N).astype(np.int32)),
+            card(np.append(rng.integers(1, 50, N), 0).astype(np.float32)),
+            card(np.append(rng.integers(1, 3, N), 0).astype(np.int32)),
+            card(np.append(rng.integers(1, 9, N), 0).astype(np.float32))]
+    inv = torch.tensor(1e-7, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for W, R in ((16, 810_488), (64, 118_136), (1024, 25_624)):
+        rows = card(rng.choice(N, R, replace=False).astype(np.int32))
+        nbr_np = rng.integers(0, N, (R, W)).astype(np.int32)
+        nbr_np[rng.random((R, W)) < 0.3] = N
+        nbr = card(nbr_np)
+        w = torch.where(nbr < N, 1.0, 0.0).to(torch.float32)
+        best = torch.empty(R, dtype=torch.int32, device=dev)
+        prop = torch.empty(R, dtype=torch.bool, device=dev)
+        out = (best.data_ptr(), prop.data_ptr(), stream)
+        head = (rows.data_ptr(), nbr.data_ptr(), w.data_ptr())
+
+        def plp(label):
+            return entry(libs[(label, "local_move_plp")], "local_move_plp",
+                         [_P] * 4 + [ctypes.c_uint32, ctypes.c_float, _I,
+                                     ctypes.c_longlong, _I, _P, _P, _P],
+                         (*head, tabs[0].data_ptr(), 7, 1e-10, N, R, W, *out))
+
+        def louvain(label):
+            return entry(libs[(label, "local_move_louvain")],
+                         "local_move_louvain",
+                         [_P] * 8 + [_I, _I, ctypes.c_longlong, _I, _P, _P,
+                                     _P],
+                         (*head, *(t.data_ptr() for t in tabs),
+                          inv.data_ptr(), 1, N, R, W, *out))
+
+        for k, launcher in (("local_move_plp", plp),
+                            ("local_move_louvain", louvain)):
+            ab(labels, launcher, (best, prop), f"{k} W={W} rows={R}", 50)
+
+
+def flash_attention_fwd(libs, labels, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape, reps in (((2, 16, 4096, 128), 20), ((1, 16, 32768, 128), 3)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        o = torch.empty_like(q)
+        b, hq, sq, d = shape
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                hq, k.shape[1], sq, k.shape[2], d, 1, 1,
+                torch.cuda.current_stream().cuda_stream)
+
+        def launcher(label):
+            return entry(libs[(label, "flash_attention_fwd")],
+                         "flash_attention_fwd", [_P] * 4 + [_I] * 8 + [_P],
+                         args)
+
+        ab(labels, launcher, (o,), f"flash_attention_fwd {shape} bf16 causal",
+           reps)
+
+
+def main(argv):
+    if len(argv) < 3 or argv[0] not in SOURCES \
+            or not torch.cuda.is_available():
+        sys.exit(__doc__)
+    trees = [a.split("=", 1) for a in argv[1:]]
+    if any(len(t) != 2 for t in trees):
+        sys.exit(__doc__)
+    libs = compile_trees(trees, SOURCES[argv[0]])
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    run = local_move if argv[0] == "local_move" else flash_attention_fwd
+    run(libs, [t[0] for t in trees], torch.device("cuda"))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
