@@ -10,9 +10,12 @@ Phases, each failing loudly (exit code 1, no result line):
 
 1. Device: the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.  No card → failure.
-2. Build: the nine CUDA kernels from ``src/repro_torch/kernels/csrc``,
+2. Build: the ten CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together; prints what
-   ``-Xptxas -v`` reports for each.
+   ``-Xptxas -v`` reports for each (the wgmma flash kernel must not
+   spill), and the counts of ``HGMMA`` and ``UTMALDG`` instructions in
+   the wgmma flash kernel's SASS (``cuobjdump -sass`` of the toolkit that
+   built it): both must be above 0.
 3. Main path, on two graphs of real size built on the card with
    ``datasets.load(name, scale, device="cuda")``: the R-MAT ``as-skitter``
    stand-in at scale 1.0 (2^21 vertices, ~28 M directed edges), and the
@@ -84,26 +87,35 @@ Phases, each failing loudly (exit code 1, no result line):
    ``prefill_fn`` on (2, 4096) tokens drawn from the seed — 4096 is past
    the JAX package's 1024-key chunk, so the reference there takes its
    chunked path; ``prefill_32k`` (32 x 32 768) is cut to this for the
-   time limit — twice, the flash kernel's launch counter set to 0 before
-   each call and read after it: exactly 28 launches per call, finite
-   logits, wall time.  Layer 0's and layer 27's (q, k, v) of that prefill
-   go through the kernel and ``attention_ref``, in bf16 as the model
-   gives them and cast to float32; so do the shapes of
-   ``tests/test_kernels.py`` plus ragged lengths (100, 1000) at head dim
-   128.  Float32 within rtol = atol = 1e-5; bf16 within one bf16 ulp of
-   the larger value plus 1e-6 (both sides compute in float32 and round
-   once).  Then
+   time limit — twice, both flash kernels' launch counters set to 0
+   before each call and read after it: exactly 28 launches of the wgmma
+   kernel (bf16) per call and none of the float32 kernel, finite logits,
+   wall time.  Then the float32 attention path: the last call's 28
+   layers' (q, k, v) cast to float32 through ``flash_attention`` (the
+   port's attention entry point), the counters set to 0 before and read
+   after: 28 launches of the float32 kernel, none of the wgmma kernel.
+   Layer 0's and layer 27's (q, k, v) of that prefill go through the
+   wrapper and ``attention_ref``, in bf16 as the model gives them (the
+   wgmma kernel) and cast to float32 (the float32 kernel); so do the
+   shapes of ``tests/test_kernels.py`` plus ragged lengths (100, 1000) at
+   head dim 128.  Float32 within rtol = atol = 1e-5; bf16 within one bf16
+   ulp of the larger value plus 1e-6 (both sides keep the probabilities
+   to float32 precision and round once).  Then
    ``ServeEngine(batch_slots=4, max_seq=512)`` answers 8 requests
    (prompts of 16-96 tokens, 16 new tokens each, all from the seed): every
    request returns 16 tokens, and the decode logits after each prompt lie
    within ``LM_LOGIT_REL`` of each row's largest |logit| of ``prefill_fn``'s
    last-position logits for that prompt (tokens/s and latencies logged).
-   Last, the kernel's device time at (2, 16, 4096, 128) and at one
-   ``prefill_32k`` sequence (1, 16, 32768, 128), bf16 causal, beside the
-   plain version (CUDA events; skipped at 32 768, whose float32 scores
-   alone are 64 GiB), ``F.scaled_dot_product_attention(is_causal=True)``
-   (the library call, CUDA events) and the bound max(2·B·Hq·Sq·Sk·D /
-   989 TFLOP/s, bytes of q, k, v, o / 3.35 TB/s).
+   Last, device times at (2, 16, 4096, 128), causal: the wgmma kernel on
+   bf16 inputs and the float32 kernel on the same inputs cast to float32,
+   in turns (wgmma, float32, float32, wgmma); and the wgmma kernel at one
+   ``prefill_32k`` sequence (1, 16, 32768, 128).  Each beside its plain
+   version (CUDA events; skipped at 32 768, whose float32 scores alone
+   are 64 GiB), ``F.scaled_dot_product_attention(is_causal=True)`` on the
+   same inputs (the library call, CUDA events) and its bound max(2·B·Hq·
+   Sq·Sk·D flops at the inputs' peak rate — 989 TFLOP/s for bf16 on the
+   tensor cores, 67 TFLOP/s for float32 on the CUDA cores — , bytes of
+   q, k, v, o / 3.35 TB/s).
 
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
@@ -114,6 +126,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -149,6 +162,9 @@ LM_SERVE = {"batch_slots": 4, "max_seq": 512, "requests": 8,
             "prompt": (16, 96), "max_new": 16}
 LM_LOGIT_REL = 2.0 ** -4
 BF16_TFLOPS = 989e12
+# the two flash kernels (bf16 on the tensor cores, float32 on the CUDA cores)
+WGMMA = "flash_attention_fwd_wgmma"
+F32_FLASH = "flash_attention_fwd"
 
 # device_ms holds the stream with a spin kernel while the host enqueues
 # the timed calls: the spin starts at twice the host's enqueue time (at
@@ -331,10 +347,27 @@ def phase_build(build):
         log(f"[build] {name}: "
             + ("already built" if text is None else "ptxas -v:"))
         for line in (text or "").splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"    {line.strip()}")
     log(f"[build] {len(reports)} kernel(s) built in "
         f"{time.perf_counter() - t:.1f} s")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        reports.get(WGMMA, ""))
+    if any(int(a) or int(b) for a, b in spills):
+        fail(f"{WGMMA} spills registers: {spills}")
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        fail(f"no cuobjdump next to nvcc ({cuobjdump})")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.lib_path(WGMMA))],
+        capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
+    counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[build] {WGMMA} SASS: " + ", ".join(f"{op} {n}"
+                                               for op, n in counts.items()))
+    if not all(counts.values()):
+        fail(f"{WGMMA} SASS lacks tensor-core or TMA instructions: {counts}")
 
 
 PLP_FIELDS = ("labels", "iterations", "delta_n_history", "active_history")
@@ -1134,14 +1167,16 @@ def phase_scored_tiles(args, torch, rt, captured, seg_inputs, launches):
 
 
 def attention_bound(q, k) -> tuple[float, str]:
-    """The flash kernel's least time: the causal half of both products
-    (2·B·Hq·Sq·Sk·D flops) on the bf16 tensor cores, or q, k, v and o
-    moved once each at HBM rate."""
+    """A flash kernel's least time: the causal half of both products
+    (2·B·Hq·Sq·Sk·D flops) at the peak rate of the inputs' type (bf16 on
+    the tensor cores, float32 on the CUDA cores), or q, k, v and o moved
+    once each at HBM rate."""
     b, hq, sq, d = q.shape
     sk = k.shape[2]
     flops = 2.0 * b * hq * sq * sk * d
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_ops = flops / BF16_TFLOPS * 1e3
+    rate = BF16_TFLOPS if q.element_size() == 2 else F32_OPS_PER_S
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1150,15 +1185,17 @@ def check_attention(rt, torch, q, k, v, causal, where) -> float:
     """Kernel against ``attention_ref`` on the same inputs; returns the
     largest absolute difference, or fails past the tolerance: in float32
     rtol = atol = 1e-5; in bf16 one bf16 ulp of the larger of the two
-    values, plus 1e-6 — both sides compute in float32 and round to bf16
-    once, so they differ by that rounding at most."""
+    values, plus 1e-6 — both sides keep the probabilities to float32
+    precision and round to bf16 once, so they differ by that rounding at
+    most."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = rt.fa_kernel.flash_attention_fwd_kernel(q, k, v, causal=causal)
     ref = rt.fa_ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     a, b = out.float(), ref.float()
+    name = rt.fa_kernel.KERNEL_OF[q.dtype]
     if not torch.isfinite(a).all():
-        fail(f"flash_attention_fwd {where}: non-finite output")
+        fail(f"{name} {where}: non-finite output")
     diff = (a - b).abs()
     if q.dtype == torch.float32:
         bad, tol = ~torch.isclose(a, b, rtol=1e-5, atol=1e-5), "1e-5"
@@ -1169,7 +1206,7 @@ def check_attention(rt, torch, q, k, v, causal, where) -> float:
         tol = "1 bf16 ulp + 1e-6"
     err = float(diff.max())
     if bad.any():
-        fail(f"flash_attention_fwd {where}: {int(bad.sum())} of "
+        fail(f"{name} {where}: {int(bad.sum())} of "
              f"{bad.numel()} outputs differ from attention_ref beyond {tol} "
              f"(max |difference| {err})")
     return err
@@ -1177,7 +1214,7 @@ def check_attention(rt, torch, q, k, v, causal, where) -> float:
 
 def phase_lm(args, torch, rt):
     """The dense model's prefill and serving path at full width, with the
-    flash kernel held against its plain version and timed."""
+    flash kernels held against their plain version and timed."""
     import numpy as np
 
     dev = torch.device("cuda")
@@ -1210,7 +1247,7 @@ def phase_lm(args, torch, rt):
         f"scales); init {init_s:.1f} s, peak {out['init_peak_gib']:.2f} GiB")
     log(f"[lm] reduced: {out['reduced']}")
 
-    # prefill, the flash kernel's inputs captured at layers 0 and L-1
+    # prefill, the flash kernel's inputs captured at every layer
     kern = rt.fa_kernel.flash_attention_fwd_kernel
     entry = rt.fa_ops.flash_attention
     captured = []
@@ -1226,35 +1263,50 @@ def phase_lm(args, torch, rt):
     try:
         for _ in range(2):
             captured.clear()
-            kern.launches = 0
+            kern.launches = kern.wgmma_launches = 0
             torch.cuda.synchronize()
             t = time.perf_counter()
             logits = model.prefill_fn(params, {"tokens": toks})
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            if kern.launches != c.n_layers:
-                fail(f"prefill launched flash_attention_fwd {kern.launches} "
-                     f"times, want {c.n_layers}")
-            layers = (captured[0], captured[-1]) if len(captured) == \
-                c.n_layers else None
+            launches = flash_launches(kern)
+            if launches != {WGMMA: c.n_layers, F32_FLASH: 0}:
+                fail(f"prefill launched the flash kernels {launches}, want "
+                     f"{c.n_layers} wgmma and 0 float32 launches")
     finally:
         rt.fa_ops.flash_attention = entry
-    main_launches = kern.launches
-    if layers is None:
+    if len(captured) != c.n_layers:
         fail(f"{len(captured)} attention calls in a prefill")
+    layers = (captured[0], captured[-1])
     if tuple(logits.shape) != (*LM_PREFILL, c.vocab_size) or \
             not torch.isfinite(logits).all():
         fail(f"prefill logits {tuple(logits.shape)} not finite or misshaped")
     n_tok = LM_PREFILL[0] * LM_PREFILL[1]
     out.update({"prefill_shape": list(LM_PREFILL), "prefill_s": times,
                 "prefill_tokens_per_s": n_tok / times[-1],
-                "prefill_launches": main_launches,
+                "prefill_launches": launches,
                 "prefill_peak_gib": torch.cuda.max_memory_allocated() / 2**30})
     log(f"[lm] prefill {LM_PREFILL}: {times[0]:.3f} s first call, "
         f"{times[1]:.3f} s second ({n_tok / times[1]:.0f} tokens/s); "
-        f"flash_attention_fwd launches per call {main_launches}; logits "
-        f"{tuple(logits.shape)} finite; peak {out['prefill_peak_gib']:.2f} GiB")
+        f"flash kernel launches per call {launches}; logits "
+        f"{tuple(logits.shape)} finite; peak "
+        f"{out['prefill_peak_gib']:.2f} GiB")
     del logits
+
+    # the float32 attention path: the prefill's layers in float32 through
+    # the port's attention entry point
+    kern.launches = kern.wgmma_launches = 0
+    for q, k, v, kw in captured:
+        entry(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    f32_launches = flash_launches(kern)
+    if f32_launches != {WGMMA: 0, F32_FLASH: c.n_layers}:
+        fail(f"the float32 attention path launched the flash kernels "
+             f"{f32_launches}, want {c.n_layers} float32 and 0 wgmma launches")
+    log(f"[lm] float32 attention path: the prefill's {c.n_layers} layers' "
+        f"q/k/v in float32 through flash_attention: launches "
+        f"{f32_launches}")
+    del captured[1:-1]
 
     # the kernel against its plain version: inside the model (bf16 as the
     # model gives them, and cast to float32), then at the JAX tests'
@@ -1267,8 +1319,9 @@ def phase_lm(args, torch, rt):
                                 kw.get("causal", True),
                                 f"{name} of the prefill {tuple(q.shape)} {dt}")
             errs[dt] = max(errs[dt], e)
-            log(f"[lm] flash_attention_fwd on {name}'s q/k/v {tuple(q.shape)}"
-                f" {str(dt)[6:]}: max |kernel - attention_ref| {e:.3g}")
+            log(f"[lm] {rt.fa_kernel.KERNEL_OF[dt]} on {name}'s q/k/v "
+                f"{tuple(q.shape)} {str(dt)[6:]}: max |kernel - "
+                f"attention_ref| {e:.3g}")
     gen = np.random.default_rng(1)
     shapes = [(2, 4, 2, 64, 64, 16, True), (1, 8, 8, 128, 128, 32, True),
               (2, 4, 1, 64, 128, 16, False), (1, 2, 2, 256, 256, 64, True),
@@ -1283,58 +1336,82 @@ def phase_lm(args, torch, rt):
             e = check_attention(rt, torch, q, k, v, causal,
                                 f"{(b, hq, hk, sq, sk, d, causal)} {dt}")
             errs[dt] = max(errs[dt], e)
-            log(f"[lm] flash_attention_fwd {(b, hq, hk, sq, sk, d)} causal="
-                f"{causal} {str(dt)[6:]}: max error {e:.3g}")
+            log(f"[lm] {rt.fa_kernel.KERNEL_OF[dt]} "
+                f"{(b, hq, hk, sq, sk, d)} causal={causal} {str(dt)[6:]}: "
+                f"max error {e:.3g}")
 
     out["serve"] = serve_check(torch, rt, c, model, params, dev)
     if args.profile:
         out["profile"] = lm_profile(torch, c, model, params, toks, dev)
 
-    # time and bound the kernel
-    rows = []
+    # time and bound the kernels: at the prefill shape the wgmma kernel
+    # (bf16) and the float32 kernel (the same inputs in float32) in turns,
+    # then the wgmma kernel at one prefill_32k sequence
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {bf16: [], f32: []}
     for (b, s) in (LM_PREFILL, LM_LONG):
-        q = torch.randn(b, c.n_heads, s, c.hd, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn(b, c.kv_eff, s, c.hd, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn_like(k)
-        reps = args.reps if s <= 4096 else max(3, args.reps // 4)
-        k_ms = device_ms(lambda: kern(q, k, v, causal=True), reps, torch)
-        if s <= 4096:
-            p_ms = loop_ms(lambda: rt.fa_ref.attention_ref(q, k, v,
-                                                           causal=True),
-                           reps, torch)
-        else:
-            p_ms = None
-            log(f"[lm] plain attention_ref not timed at {(b, s)}: its float32 "
-                f"scores alone would take {b * c.n_heads * s * s * 4 / 2**30:.0f}"
-                f" GiB")
-        sdpa = rt.torch.nn.functional.scaled_dot_product_attention
-        gqa = k.shape[1] != q.shape[1]
-        lib_ms = loop_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                      enable_gqa=gqa), reps, torch)
-        b_ms, kind = attention_bound(q, k)
-        rows.append({"shape": [b, c.n_heads, s, c.hd], "ms": k_ms,
-                     "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                     "bound_by": kind})
-        log(f"[lm] flash_attention_fwd {(b, c.n_heads, s, c.hd)} bf16 causal:"
-            f" kernel {k_ms:.3f} ms, plain "
-            f"{'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, SDPA "
-            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({kind}); kernel at "
-            f"{b_ms / k_ms:.1%} of its bound")
-    main = rows[0]
-    kernels = [{"name": "flash_attention_fwd", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-                "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
-                "launches": main_launches,
-                "max_abs_err": errs[torch.bfloat16],
-                "f32_max_abs_err": errs[torch.float32],
-                "ms": main["ms"], "plain_ms": main["plain_ms"],
-                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                "library_ms": main["library_ms"],
-                "per_shape": rows}]
-    out["kernel_times"] = rows
+        prefill = (b, s) == LM_PREFILL
+        qkv = [torch.randn(b, h, s, c.hd, device=dev, dtype=bf16)
+               for h in (c.n_heads, c.kv_eff, c.kv_eff)]
+        reps = args.reps if prefill else max(3, args.reps // 4)
+        inputs = {bf16: qkv, f32: [x.float() for x in qkv] if prefill
+                  else None}
+        times = {bf16: [], f32: []}
+        for dt in (bf16, f32, f32, bf16) if prefill else (bf16,):
+            q, k, v = inputs[dt]
+            times[dt].append(device_ms(lambda: kern(q, k, v, causal=True),
+                                       reps, torch))
+        for dt in (bf16, f32) if prefill else (bf16,):
+            rows[dt].append(time_attention(rt, torch, *inputs[dt],
+                                           times[dt], reps, prefill))
+    kernels = []
+    for dt, path_launches in ((bf16, launches), (f32, f32_launches)):
+        name, main = rt.fa_kernel.KERNEL_OF[dt], rows[dt][0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+            "dtype": str(dt)[6:], "launches": path_launches[name],
+            "max_abs_err": errs[dt],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "per_shape": rows[dt]})
+    out["kernel_times"] = {str(dt)[6:]: r for dt, r in rows.items()}
     return out, kernels
+
+
+def flash_launches(kern) -> dict:
+    """Launches of each flash kernel since the counters were set to 0."""
+    return {WGMMA: kern.wgmma_launches,
+            F32_FLASH: kern.launches - kern.wgmma_launches}
+
+
+def time_attention(rt, torch, q, k, v, k_times, reps, plain: bool) -> dict:
+    """One flash kernel's timing row: its device times (``k_times``, taken
+    in turns with the other kernel's), the plain version (if ``plain``) and
+    SDPA on the same inputs, and the bound."""
+    b, hq, s, d = q.shape
+    k_ms = sum(k_times) / len(k_times)
+    if plain:
+        p_ms = loop_ms(lambda: rt.fa_ref.attention_ref(q, k, v, causal=True),
+                       reps, torch)
+    else:
+        p_ms = None
+        log(f"[lm] plain attention_ref not timed at {(b, s)}: its float32 "
+            f"scores alone would take {b * hq * s * s * 4 / 2**30:.0f} GiB")
+    sdpa = rt.torch.nn.functional.scaled_dot_product_attention
+    gqa = k.shape[1] != q.shape[1]
+    lib_ms = loop_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=gqa),
+                     reps, torch)
+    b_ms, kind = attention_bound(q, k)
+    log(f"[lm] {rt.fa_kernel.KERNEL_OF[q.dtype]} {(b, hq, s, d)} {str(q.dtype)[6:]} causal: kernel "
+        + " / ".join(f"{t:.4f}" for t in k_times) + f" ms (mean {k_ms:.4f}),"
+        f" plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, SDPA "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({kind}); kernel at "
+        f"{b_ms / k_ms:.1%} of its bound")
+    return {"shape": [b, hq, s, d], "ms": k_ms, "ms_each": k_times,
+            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": kind}
 
 
 def lm_profile(torch, c, model, params, toks, dev):

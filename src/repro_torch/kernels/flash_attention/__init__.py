@@ -1,2 +1,3 @@
-"""Causal GQA flash attention: the CUDA kernel, its plain version and the
-dispatch between them."""
+"""Causal GQA flash attention: the two CUDA kernels (bf16 on the tensor
+cores, float32 on the CUDA cores), their plain version and the dispatch
+between them."""

@@ -1,16 +1,23 @@
-"""Wrapper of the CUDA ``flash_attention_fwd`` kernel
-(``csrc/flash_attention_fwd.cu``): causal GQA attention forward with an
-online softmax, float32 inside.
+"""Wrapper of the two CUDA flash-attention kernels: causal GQA attention
+forward with an online softmax whose probabilities keep float32 precision.
 
-The plain version (``ref.attention_ref``) serves tensors on the CPU;
-tensors on the card launch the kernel, with no fallback between the two.
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output, launches on PyTorch's current stream, raises ``KernelError`` on a
-failed build or launch, and counts its launches in
-``flash_attention_fwd_kernel.launches``; no output rows, no launch.
+* bf16 tensors launch ``csrc/flash_attention_fwd_wgmma.cu``: both
+  products on Hopper's tensor cores (wgmma, TMA-fed K/V stages), P split
+  into three bf16 terms for the P.V product.
+* float32 tensors launch ``csrc/flash_attention_fwd.cu``: float32
+  throughout on the CUDA cores, the only way to its 1e-5 contract.
 
-Any ``Sq`` and ``Sk`` are taken: the kernel masks the ragged edges of its
-tiles itself.  A head dim outside ``HEAD_DIMS`` or ``Hq % Hkv != 0``
+The choice is by dtype alone, with no fallback from one kernel to the
+other.  The plain version (``ref.attention_ref``) serves tensors on the
+CPU; tensors on the card launch a kernel or raise.  The wrapper checks
+device, dtype, shape, contiguity and (bf16: the TMA's) 16-byte alignment,
+allocates the output, launches on PyTorch's current stream, raises
+``KernelError`` on a failed build or launch, and counts every launch in
+``flash_attention_fwd_kernel.launches`` and the wgmma kernel's alone in
+``flash_attention_fwd_kernel.wgmma_launches``; no output rows, no launch.
+
+Any ``Sq`` and ``Sk`` are taken: the kernels mask the ragged edges of their
+tiles themselves.  A head dim outside ``HEAD_DIMS`` or ``Hq % Hkv != 0``
 raises ``ValueError``.
 """
 from __future__ import annotations
@@ -24,10 +31,9 @@ from repro_torch.kernels.common import check_tensor
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Query rows per CUDA block and keys per shared-memory tile.
-BLOCK_Q = 64
-BLOCK_K = 64
+# the kernel each dtype launches; flash_attention_fwd takes a dtype code
+KERNEL_OF = {torch.float32: "flash_attention_fwd",
+             torch.bfloat16: "flash_attention_fwd_wgmma"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,23 +64,33 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dev = q.device
-    if q.dtype not in DTYPES:
-        raise TypeError(f"q has dtype {q.dtype}, want one of {list(DTYPES)}")
+    name = KERNEL_OF.get(q.dtype)
+    if name is None:
+        raise TypeError(f"q has dtype {q.dtype}, want one of "
+                        f"{list(KERNEL_OF)}")
     check_tensor(q, "q", q.dtype, (b, hq, sq, d), dev)
     check_tensor(k, "k", q.dtype, (b, hk, sk, d), dev)
     check_tensor(v, "v", q.dtype, (b, hk, sk, d), dev)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = build.entry("flash_attention_fwd",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, hq, hk, sq, sk, d, DTYPES[q.dtype], int(causal),
-             torch.cuda.current_stream(dev).cuda_stream)
-    build.check_launch("flash_attention_fwd", err)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    if name == "flash_attention_fwd":
+        fn = build.entry(name, [_P] * 4 + [_I] * 8 + [_P])
+        err = fn(*ptrs, b, hq, hk, sq, sk, d, 0, int(causal), stream)
+    else:
+        if any(p % 16 for p in ptrs[:3]):
+            raise ValueError("bf16 q, k and v must start at 16-byte aligned "
+                             "addresses (the TMA copies them)")
+        fn = build.entry(name, [_P] * 4 + [_I] * 7 + [_P])
+        err = fn(*ptrs, b, hq, hk, sq, sk, d, int(causal), stream)
+    build.check_launch(name, err)
     flash_attention_fwd_kernel.launches += 1
+    if name == "flash_attention_fwd_wgmma":
+        flash_attention_fwd_kernel.wgmma_launches += 1
     return out
 
 
 flash_attention_fwd_kernel.launches = 0
-
+flash_attention_fwd_kernel.wgmma_launches = 0

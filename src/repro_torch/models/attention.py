@@ -2,12 +2,14 @@
 ``repro.models.attention``).
 
 * ``flash_attention``: on CUDA tensors, the hand-written flash-attention
-  kernel (``kernels/flash_attention``), float32 inside.  On CPU tensors,
-  the mirror of the JAX package's jnp online softmax over KV chunks (its
-  ``lax.scan`` a Python loop), with that path's bf16 rounding points: the
-  scores are the bf16 product cast to float32, and the probabilities are
-  cast to ``q.dtype`` before the P.V product.  On the card the model's
-  attention therefore differs from the CPU mirror by bf16 rounding.
+  kernels (``kernels/flash_attention``; the model's bf16 goes to the
+  tensor-core one), whose probabilities keep float32 precision.  On CPU
+  tensors, the mirror of the JAX package's jnp online softmax over KV
+  chunks (its ``lax.scan`` a Python loop), with that path's bf16 rounding
+  points: the scores are the bf16 product cast to float32, and the
+  probabilities are cast to ``q.dtype`` before the P.V product.  On the
+  card the model's attention therefore differs from the CPU mirror by bf16
+  rounding.
 * GQA: KV heads are repeated to ``kv_eff`` at projection time,
   interleaved (``h_eff = h * reps + r``); queries are grouped per
   effective KV head.

@@ -17,14 +17,17 @@ score them) must equal the fused kernels bit for bit on float32 weights
 too; ``sorted_segment_sum`` runs with runs longer than two blocks and
 lengths that are not a block multiple.
 
-The flash-attention kernel runs against its plain version at every head
-dim it takes, GQA groups 1, 2 and 4, causal and not, Sq != Sk and ragged
-lengths, within the JAX kernel test's tolerances (1e-5 in float32, 3e-2
-in bf16: the kernel keeps float32 throughout and rounds once); and the
-dense model's ``prefill_fn`` at its REDUCED size on the card, attention
-through that kernel, against the same model on the CPU within 2^-5 of
-each logit row's largest magnitude (bf16 matmuls on the card sum in
-another order, and the CPU path rounds its probabilities to bf16).
+The flash-attention kernels run against their plain version at every head
+dim they take, GQA groups 1, 2 and 4, causal and not, Sq != Sk and ragged
+lengths: float32 inputs through the CUDA-core kernel within 1e-5, bf16
+inputs through the wgmma kernel within one bf16 ulp of the larger value
+plus 1e-6 (both keep the probabilities to float32 precision and round
+once), each launch counted by its own kernel; the wgmma kernel also at the
+model's head dim and lengths; and the dense model's ``prefill_fn`` at its
+REDUCED size on the card, every layer's attention through the wgmma kernel,
+against the same model on the CPU within 2^-5 of each logit row's largest
+magnitude (bf16 matmuls on the card sum in another order, and the CPU path
+rounds its probabilities to bf16).
 """
 import numpy as np
 import pytest
@@ -512,10 +515,18 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
     b, hq, hk, sq, sk, d, causal = shape
     q, k, v = _qkv(*shape[:6], dtype, cuda_device, seed=sq * 7 + sk)
     launches = flash_attention_fwd_kernel.launches
+    wgmma = flash_attention_fwd_kernel.wgmma_launches
     out = flash_attention_fwd_kernel(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_fwd_kernel.launches == launches + 1
-    ref = attention_ref(q, k, v, causal=causal)
+    # bf16 goes to the wgmma kernel, float32 to the CUDA-core one
+    assert flash_attention_fwd_kernel.wgmma_launches == \
+        wgmma + (dtype == torch.bfloat16)
+    _assert_attention_close(out, attention_ref(q, k, v, causal=causal),
+                            dtype)
+
+
+def _assert_attention_close(out, ref, dtype):
     assert out.dtype == dtype and out.shape == ref.shape
     a, r = out.float(), ref.float()
     if dtype == torch.float32:
@@ -527,6 +538,22 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
         bound = torch.ldexp(torch.ones_like(a), e - 8) + 1e-6
         assert bool(((a - r).abs() <= bound).all()), \
             float((a - r).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 16, 16, 1024, 1024, 128, True),
+                                   (1, 16, 8, 1000, 1300, 128, True)])
+def test_wgmma_flash_kernel_at_the_model_head_dim(cuda_device, shape):
+    """The wgmma kernel at qwen3's head dim and 16 query heads: a full
+    1024-token square, and a ragged GQA case (8 KV heads, Sq != Sk, neither
+    a multiple of the 128-row query tile or the 64-key tile)."""
+    q, k, v = _qkv(*shape[:6], torch.bfloat16, cuda_device, seed=shape[3])
+    wgmma = flash_attention_fwd_kernel.wgmma_launches
+    out = flash_attention_fwd_kernel(q, k, v, causal=shape[6])
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.wgmma_launches == wgmma + 1
+    _assert_attention_close(out, attention_ref(q, k, v, causal=shape[6]),
+                            torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -557,8 +584,11 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs):
     toks = np.random.default_rng(bs[1]).integers(0, c.vocab_size, bs)
     params = init_params(m.decls, seed=0, device=cuda_device)
     launches = flash_attention_fwd_kernel.launches
+    wgmma = flash_attention_fwd_kernel.wgmma_launches
     card = m.prefill_fn(params, {"tokens": _card(toks, cuda_device)})
     torch.cuda.synchronize()
+    # every layer through the wgmma kernel, none through the float32 one
+    assert flash_attention_fwd_kernel.wgmma_launches == wgmma + c.n_layers
     assert flash_attention_fwd_kernel.launches == launches + c.n_layers
     cpu = m.prefill_fn(init_params(m.decls, seed=0, device="cpu"),
                        {"tokens": torch.from_numpy(toks)})

@@ -14,7 +14,17 @@ results differ by that much, and each rounds by up to half an ulp).
 On CPU tensors the port's entry point (``ops.flash_attention``) and the
 kernel wrapper run the plain version itself — equal bit for bit, with no
 launch counted — and the wrapper's shape checks raise before any dispatch.
+
+The bf16 kernel (``csrc/flash_attention_fwd_wgmma.cu``) cannot run here, so
+its arithmetic is emulated in float32 (``wgmma_recipe``: the f32 product of
+bf16 q and k, scaled after it, an online softmax over 64-key tiles, P split
+into bf16 terms for the P.V product, one rounding to bf16) and held against
+the JAX package's ``attention_ref`` at the card tests' shapes and seeds,
+within the card tests' bound.  Three terms (P's 24 bits) keep to it; two
+(16 bits) do not.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +43,13 @@ SHAPES = [(2, 4, 2, 64, 64, 16, True), (1, 8, 8, 128, 128, 32, True),
           (2, 4, 1, 64, 128, 16, False), (1, 2, 2, 256, 256, 64, True)]
 RAGGED = [(1, 4, 2, 100, 1000, 128, True), (1, 2, 1, 1000, 100, 128, False),
           (2, 2, 2, 100, 100, 32, True)]
+# tests/test_torch_cuda.py's FLASH_SHAPES up to (1, 4, 2, 300, 300, 128)
+CARD_SHAPES = [
+    (2, 4, 2, 64, 64, 16, True), (1, 8, 8, 128, 128, 32, True),
+    (2, 4, 1, 64, 128, 16, False), (1, 2, 2, 256, 256, 64, True),
+    (1, 4, 2, 100, 1000, 128, True), (1, 4, 1, 1000, 100, 128, False),
+    (2, 4, 4, 100, 100, 32, True), (1, 8, 2, 300, 77, 64, True),
+    (1, 2, 1, 77, 300, 16, False), (1, 4, 2, 300, 300, 128, True)]
 
 
 def _inputs(b, hq, hk, sq, sk, d, seed):
@@ -117,3 +134,66 @@ def test_plain_version_matches_model_path():
     out_k = attention_ref(q, k, v, causal=True)
     np.testing.assert_allclose(out_m.numpy(), out_k.numpy(), atol=2e-5,
                                rtol=2e-5)
+
+
+def wgmma_recipe(q, k, v, causal, terms=3, block_k=64):
+    """The bf16 kernel's arithmetic in float32 on the CPU: S = q.k^T of the
+    bf16 values summed in f32 and scaled by 1/sqrt(D) afterwards; an online
+    softmax over ``block_k``-key tiles (m and l in f32, l summed from the
+    f32 probabilities); P split into ``terms`` bf16 terms, each multiplied
+    by V, the tile's products summed smallest term first and added to
+    O * alpha in f32; O / max(l, 1e-30) rounded to bf16 once."""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    scale = torch.tensor(1.0, dtype=torch.float32) / math.sqrt(d)
+    m = torch.full((b, hq, sq, 1), -math.inf)
+    l = torch.zeros(b, hq, sq, 1)
+    acc = torch.zeros(b, hq, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[2], block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (q.float() @ kt.transpose(-1, -2)) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(keys <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        parts, rest = [], p
+        for _ in range(terms):
+            parts.append(rest.bfloat16().float())
+            rest = rest - parts[-1]
+        pv = torch.zeros_like(acc)
+        for part in reversed(parts):
+            pv = pv + part @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).bfloat16()
+
+
+def _beyond_bound(shape, terms):
+    """How far the recipe lands from the JAX package's attention_ref on
+    the card test's inputs: the largest |difference| over its bound, one
+    bf16 ulp of the larger value plus 1e-6."""
+    b, hq, hk, sq, sk, d, causal = shape
+    arrs = _inputs(b, hq, hk, sq, sk, d, seed=sq * 7 + sk)
+    j_out = np.asarray(j_attention_ref(*_jax(arrs, "bfloat16"),
+                                       causal=causal).astype(jnp.float32))
+    out = wgmma_recipe(*_torch(arrs, "bfloat16"), causal,
+                       terms=terms).float().numpy()
+    bound = bf16_ulp(np.maximum(np.abs(j_out), np.abs(out))) + 1e-6
+    return float((np.abs(out - j_out) / bound).max())
+
+
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+def test_wgmma_recipe_matches_jax(shape):
+    assert _beyond_bound(shape, terms=3) <= 1.0
+
+
+def test_two_bf16_terms_of_p_miss_the_bound():
+    """Why the kernel splits P into three terms: with two, an output near 0
+    of this shape lands past one ulp + 1e-6 of attention_ref."""
+    assert _beyond_bound((1, 8, 8, 128, 128, 32, True), terms=2) > 1.0

@@ -6,10 +6,12 @@
 KERNEL is ``local_move`` (the resident ``local_move_plp`` and
 ``local_move_louvain`` kernels, on seeded random inputs at the as-skitter
 stand-in's level-0 shapes: tables of 2^21 + 1 entries; W = 16, 64, 1024
-buckets of 810 488, 118 136 and 25 624 rows; 50 launches a timing) or
-``flash_attention_fwd`` (seeded bf16 inputs, causal, at the qwen3-1.7b
-prefill shape of ``chip_smoke.py`` (2, 16, 4096, 128), 20 launches a
-timing, and at one prefill_32k sequence (1, 16, 32768, 128), 3 launches).
+buckets of 810 488, 118 136 and 25 624 rows; 50 launches a timing),
+``flash_attention_fwd`` (the float32 CUDA-core kernel, on seeded bf16
+inputs, causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py``
+(2, 16, 4096, 128), 20 launches a timing, and at one prefill_32k sequence
+(1, 16, 32768, 128), 3 launches) or ``flash_attention_fwd_wgmma`` (the
+bf16 tensor-core kernel, the same inputs and shapes).
 
 Each CSRC_DIR holds the family's ``.cu`` sources and the headers they
 include (``src/repro_torch/kernels/csrc`` of a checkout; an older
@@ -18,7 +20,10 @@ commit's with ``git archive <commit> src/repro_torch/kernels/csrc | tar
 ``kernels/build.py`` into ``build/ab/<label>/``, every tree runs the same
 inputs, the outputs of all trees must be equal, and each kernel is timed
 with CUDA events over back-to-back launches in the order A B ... B A.
-Needs one CUDA card and ``nvcc``.
+The wgmma kernel's contract is a tolerance, so its trees' outputs are each
+held to ``attention_ref`` instead (one bf16 ulp of the larger value plus
+1e-6, at the prefill shape) and may differ from each other.  Needs one
+CUDA card and ``nvcc``.
 """
 import ctypes
 import subprocess
@@ -33,7 +38,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels import build  # noqa: E402
 
 SOURCES = {"local_move": ("local_move_plp", "local_move_louvain"),
-           "flash_attention_fwd": ("flash_attention_fwd",)}
+           "flash_attention_fwd": ("flash_attention_fwd",),
+           "flash_attention_fwd_wgmma": ("flash_attention_fwd_wgmma",)}
 N = 2_097_152
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -46,7 +52,7 @@ def compile_trees(trees, sources):
         for k in sources:
             out = out_dir / f"lib{k}.so"
             procs.append((label, k, out, subprocess.Popen(
-                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                [build.nvcc(), *build.flags(k), "-o", str(out),
                  str(Path(csrc) / f"{k}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     for label, k, out, p in procs:
@@ -82,22 +88,28 @@ def events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def ab(labels, launcher, outputs, what, reps):
-    """Runs every tree once and compares ``outputs()``, then times each
-    tree in the order A B ... B A."""
+def ab(labels, launcher, outputs, what, reps, check=None):
+    """Runs every tree once and checks ``outputs`` — equal across the
+    trees, or each passing ``check(outputs)`` where one is given — then
+    times each tree in the order A B ... B A."""
     outs = []
     for label in labels:
         launcher(label)()
         torch.cuda.synchronize()
         outs.append([t.clone() for t in outputs])
-    equal = all(torch.equal(x, y) for o in outs for x, y in zip(o, outs[0]))
+    if check is None:
+        ok = all(torch.equal(x, y) for o in outs for x, y in zip(o, outs[0]))
+        verdict = f"outputs equal: {ok}"
+    else:
+        ok = all(check(o) for o in outs)
+        verdict = f"outputs within tolerance: {ok}"
     times = {label: [] for label in labels}
     for label in labels + labels[::-1]:
         times[label].append(events_ms(launcher(label), reps))
-    print(f"{what}, {reps} launches a timing: outputs equal: {equal}; ms "
+    print(f"{what}, {reps} launches a timing: {verdict}; ms "
           + ", ".join(f"{lb} {t[0]:.4f} / {t[1]:.4f}"
                       for lb, t in times.items()), flush=True)
-    if not equal:
+    if not ok:
         sys.exit(1)
 
 
@@ -143,24 +155,44 @@ def local_move(libs, labels, dev):
             ab(labels, launcher, (best, prop), f"{k} W={W} rows={R}", 50)
 
 
-def flash_attention_fwd(libs, labels, dev):
+def within_bf16_ulp(a, r) -> bool:
+    """|a - r| within one bf16 ulp of the larger of the two plus 1e-6
+    everywhere (``chip_smoke.py``'s bound for the bf16 kernel)."""
+    a, r = a.float(), r.float()
+    e = torch.frexp(torch.maximum(a.abs(), r.abs())).exponent
+    return bool(((a - r).abs()
+                 <= torch.ldexp(torch.ones_like(a), e - 8) + 1e-6).all())
+
+
+def flash_attention_fwd(libs, labels, dev, name="flash_attention_fwd"):
+    """The float32 kernel (its dtype argument 1: bf16 in and out), or with
+    ``name="flash_attention_fwd_wgmma"`` the bf16 tensor-core kernel."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    wgmma = name == "flash_attention_fwd_wgmma"
     gen = torch.Generator(device=dev).manual_seed(0)
     for shape, reps in (((2, 16, 4096, 128), 20), ((1, 16, 32768, 128), 3)):
         q, k, v = (torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.bfloat16) for _ in range(3))
         o = torch.empty_like(q)
         b, hq, sq, d = shape
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
-                hq, k.shape[1], sq, k.shape[2], d, 1, 1,
-                torch.cuda.current_stream().cuda_stream)
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                hq, k.shape[1], sq, k.shape[2], d)
+        tail = (1, torch.cuda.current_stream().cuda_stream)
+        args = head + tail if wgmma else head + (1,) + tail
+        argtypes = [_P] * 4 + [_I] * (len(args) - 5) + [_P]
+        check = None
+        if wgmma and sq <= 4096:
+            ref = attention_ref(q, k, v, causal=True)
+            check = (lambda out, ref=ref: within_bf16_ulp(out[0], ref))
+        elif wgmma:      # no reference: its float32 scores take 64 GiB
+            check = (lambda out: bool(torch.isfinite(out[0]).all()))
 
         def launcher(label):
-            return entry(libs[(label, "flash_attention_fwd")],
-                         "flash_attention_fwd", [_P] * 4 + [_I] * 8 + [_P],
-                         args)
+            return entry(libs[(label, name)], name, argtypes, args)
 
-        ab(labels, launcher, (o,), f"flash_attention_fwd {shape} bf16 causal",
-           reps)
+        ab(labels, launcher, (o,), f"{name} {shape} bf16 causal", reps,
+           check)
 
 
 def main(argv):
@@ -174,8 +206,11 @@ def main(argv):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    run = local_move if argv[0] == "local_move" else flash_attention_fwd
-    run(libs, [t[0] for t in trees], torch.device("cuda"))
+    labels, dev = [t[0] for t in trees], torch.device("cuda")
+    if argv[0] == "local_move":
+        local_move(libs, labels, dev)
+    else:
+        flash_attention_fwd(libs, labels, dev, argv[0])
 
 
 if __name__ == "__main__":
