@@ -28,13 +28,21 @@ Phases, each failing loudly (exit code 1, no result line):
    R-MAT graph's windows span its tables, so it stays resident; com-dblp's
    W = 16 bucket has narrow windows past half the shared-memory budget, so
    it takes the streamed kernels.  The mode each bucket took is logged.
+   ``louvain()`` runs its default capacity cascade: the stages entered
+   are logged, and its coarse levels score through the resident
+   ``local_move`` kernel on the traced per-level tiles.
    Every launch counter of the five main-path kernels is set to 0 just
    before the ``pallas`` runs and read just after them; each must have
-   launched, no streamed kernel may have launched on the R-MAT graph, and
-   the run reports must show no degradation.  Then ``backend="ell"``
-   (plain PyTorch on the card) on both graphs, and
+   launched, no streamed kernel may have launched on the R-MAT graph, the
+   coarse levels of each graph must have launched ``local_move_louvain``
+   (the resident ``local_move`` kernels' counters are read before and
+   after each local-moving phase, tagged with its level, so their
+   launches are logged per level and must add up to the run's), and the
+   run reports must show no degradation.
+   Then ``backend="ell"`` (plain PyTorch on the card) on both graphs, and
    ``table_mode="resident"`` on com-dblp: every run of a graph must agree
-   on labels, iterations, levels, Q and every per-level history.
+   on labels, iterations, levels, Q, every per-level history and the
+   cascade's stages.
 3b. Two-step scoring, the path the fused local_move kernels replaced: on
    every non-empty level-0 bucket of both graphs, the first and the last
    recorded sweep of PLP and Louvain, the (rows, W) tiles are gathered
@@ -53,9 +61,10 @@ Phases, each failing loudly (exit code 1, no result line):
    (CUDA events) and scoring kernel (device time), as the JAX package's
    ``gather_fusion`` mode prints them (``fused_s``, ``two_step_s``).
 4. Kernels: each kernel against its plain version on the inputs the main
-   path gave it (every level-0 ELL bucket of both graphs, first and last
-   sweep; the first level whose bin gate passed), with the graph's unit
-   weights and with integer weights 1..8 — bit for bit — then timed:
+   path gave it (every level-0 ELL bucket and every coarse level's traced
+   tile of both graphs, first and last sweep; the first level whose bin
+   gate passed), with the graph's own weights and with integer weights
+   1..8 — bit for bit — then timed:
    each kernel by device time (``device_ms``: CUDA events around
    ``--reps`` launches after warm-up, enqueued while a spin kernel holds
    the stream, so the wrapper's host work between launches is not in
@@ -76,7 +85,9 @@ Phases, each failing loudly (exit code 1, no result line):
    far smaller), labels equal wherever the plain version's top two scores
    differ by more than twice that, and segment sums within rtol = atol =
    1e-5.  The ``kernels`` line sums the R-MAT graph's four buckets (one
-   level-0 sweep) for the resident and scored-tile kernels, com-dblp's
+   level-0 sweep) for the resident and scored-tile kernels (the resident
+   kernels' ``coarse_levels`` sum one sweep of each of its coarse levels,
+   their ``launches`` read from the kernel's counter), com-dblp's
    streamed buckets for the streamed ones, and the R-MAT graph's 28 M
    sorted edge sources for ``block_segment_sums``.  The card's clocks,
    temperature and power draw are printed before and after this phase.
@@ -193,14 +204,16 @@ class Recorder:
     """Wraps a kernel wrapper during the main path and keeps the arguments
     of the first and the last call per key, so phase 4 compares and times
     each kernel on inputs the main path really gave it.  The tensors are
-    kept by reference: the main path never writes them after the call."""
+    kept by reference: the main path never writes them after the call.
+    Launches are read from the kernels' own counters, not counted here."""
 
     def __init__(self, fn, key):
         self.fn, self.key, self.calls = fn, key, {}
         self.tag = None          # the graph being run, set by phase_main
+        self.level = 0           # the level being run, set by phase_main
 
     def __call__(self, *args, **kw):
-        k = self.key(*args, **kw)
+        k = self.key(self, *args, **kw)
         first = self.calls.get(k, (None, None))[0]
         self.calls[k] = (first or (args, kw), (args, kw))
         return self.fn(*args, **kw)
@@ -373,7 +386,8 @@ def phase_build(build):
 PLP_FIELDS = ("labels", "iterations", "delta_n_history", "active_history")
 LOUVAIN_FIELDS = ("labels", "n_communities", "levels", "modularity",
                   "modularity_history", "sweeps_per_level", "n_comm_per_level",
-                  "delta_n_per_level", "aggregation_per_level")
+                  "delta_n_per_level", "aggregation_per_level",
+                  "cascade_stages")
 
 
 def compare_runs(a, b, fields, what):
@@ -411,6 +425,7 @@ def _summary(plp_res, lv_res, g):
         "sweeps_per_level": lv_res.sweeps_per_level,
         "n_comm_per_level": lv_res.n_comm_per_level,
         "aggregation_per_level": lv_res.aggregation_per_level,
+        "cascade_stages": lv_res.cascade_stages,
         "warnings": lv_res.run_report.warnings,
         "louvain_timer_s": lv_res.timer.totals,
         "plp_timer_s": plp_res.timer.totals}
@@ -446,23 +461,45 @@ def phase_main(torch, rt):
             f" tail vertices {info['tail_vertices']}; streamed-layout "
             f"windows per width {info['windows']}")
 
-    # capture the kernels' main-path inputs, per graph and ELL width
-    rec_plp = Recorder(rt.lm_kernel.local_move_plp_kernel,
-                       lambda rows, nbr, *a, **k: (rec_plp.tag, nbr.shape[1]))
-    rec_lv = Recorder(rt.lm_kernel.local_move_louvain_kernel,
-                      lambda rows, nbr, *a, **k: (rec_lv.tag, nbr.shape[1]))
+    # capture the kernels' main-path inputs, per graph, level and ELL
+    # width: level 0's host-built buckets and the coarse levels' traced
+    # tiles are kept apart
+    def by_width(rec, rows, nbr, *a, **k):
+        return rec.tag, rec.level, nbr.shape[1]
+
+    rec_plp = Recorder(rt.lm_kernel.local_move_plp_kernel, by_width)
+    rec_lv = Recorder(rt.lm_kernel.local_move_louvain_kernel, by_width)
     rec_bin = Recorder(rt.agg_kernel.bin_rank_kernel,
-                       lambda *a, **k: rec_bin.tag)
+                       lambda rec, *a, **k: rec.tag)
     rec_plp_s = Recorder(rt.lm_kernel.local_move_plp_streamed_kernel,
-                         lambda rows, nbr, *a, **k: (rec_plp_s.tag,
-                                                     nbr.shape[1]))
+                         by_width)
     rec_lv_s = Recorder(rt.lm_kernel.local_move_louvain_streamed_kernel,
-                        lambda rows, nbr, *a, **k: (rec_lv_s.tag,
-                                                    nbr.shape[1]))
+                        by_width)
     recs = (rec_plp, rec_lv, rec_bin, rec_plp_s, rec_lv_s)
     streamed = (rec_plp_s.fn, rec_lv_s.fn)
     for r in recs:
         setattr(rt.agg_ops if r is rec_bin else rt.lm_ops, r.fn.__name__, r)
+    # the level of each local-moving phase: its sweep counter starts at
+    # level · LEVEL_IT_STRIDE (PLP runs level 0 only); the resident
+    # local_move kernels' launch counters are read before and after each
+    # phase, so their launches are known per graph and level
+    run_phase = rt.SweepEngine.run_phase
+    lm_counters = (rec_plp.fn, rec_lv.fn)
+    per_level = {}           # graph -> kernel -> level -> launches
+
+    def tagged_run_phase(self, labels, active, *, it0=0, **kw):
+        level = it0 // rt.LEVEL_IT_STRIDE
+        for r in recs:
+            r.level = level
+        before = [c.launches for c in lm_counters]
+        out = run_phase(self, labels, active, it0=it0, **kw)
+        for c, b in zip(lm_counters, before):
+            k = c.__name__.replace("_kernel", "")
+            by_level = per_level.setdefault(recs[0].tag, {}).setdefault(k, {})
+            by_level[level] = by_level.get(level, 0) + c.launches - b
+        return out
+
+    rt.SweepEngine.run_phase = tagged_run_phase
 
     counters = tuple(r.fn for r in recs)
     for c in counters:
@@ -497,11 +534,34 @@ def phase_main(torch, rt):
     peak = torch.cuda.max_memory_allocated() / 2**30
     for r in recs:
         setattr(rt.agg_ops if r is rec_bin else rt.lm_ops, r.fn.__name__, r.fn)
+    rt.SweepEngine.run_phase = run_phase
     log(f"[main] pallas runs done; peak memory {peak:.2f} GiB; launches "
         f"{launches}")
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was launched no time on the main path")
+    for c in lm_counters:
+        k = c.__name__.replace("_kernel", "")
+        phased = sum(v.get(k, {}).get(lvl, 0) for v in per_level.values()
+                     for lvl in v.get(k, {}))
+        if phased != launches[k]:
+            fail(f"{k}: {launches[k]} launches, {phased} of them inside a "
+                 f"local-moving phase")
+    coarse = {}
+    for name, (plp_res, lv_res) in runs.items():
+        mine = per_level.get(name, {})
+        widths = {r.fn.__name__.replace("_kernel", ""): sorted(
+            {(lvl, w) for (g, lvl, w) in r.calls if g == name})
+            for r in (rec_plp, rec_lv)}
+        coarse[name] = {k: sum(c for lvl, c in v.items() if lvl)
+                        for k, v in mine.items()}
+        graphs[name][2]["launches_per_level"] = mine
+        graphs[name][2]["coarse_launches"] = coarse[name]
+        log(f"[main] {name}: Louvain cascade stages {lv_res.cascade_stages}; "
+            f"local_move launches per level {mine} ((level, width) pairs "
+            f"{widths}); on the coarse levels {coarse[name]}")
+        if coarse[name].get("local_move_louvain", 0) <= 0:
+            fail(f"{name}'s coarse levels launched no local_move kernel")
 
     for name, (g, ell, info) in graphs.items():
         plp_k, lv_k = runs[name]
@@ -539,13 +599,15 @@ def phase_main(torch, rt):
             f"{lv_k.levels} levels, {lv_k.n_communities} communities"
             f"{resident}; every run agrees in labels, iterations, levels, Q "
             f"and every history")
-        log(f"[main] {name}: per level communities {lv_k.n_comm_per_level}, "
+        log(f"[main] {name}: cascade stages {lv_k.cascade_stages}; per "
+            f"level communities {lv_k.n_comm_per_level}, "
             f"sweeps {lv_k.sweeps_per_level}, aggregation {paths} (binned "
             f"{paths.count('binned')}, sort fallback "
             f"{paths.count('sort_fallback')}); Louvain timer "
             f"{ {k: round(v, 3) for k, v in lv_k.timer.totals.items()} }")
     out = {"graphs": {k: v[2] for k, v in graphs.items()},
-           "launches": launches, "peak_mem_gib": peak}
+           "launches": launches, "coarse_launches": coarse,
+           "peak_mem_gib": peak}
     return out, recs, graphs
 
 
@@ -654,7 +716,10 @@ def phase_two_step(args, torch, rt, recs, graphs):
     for algo, algo_recs in (("plp", (rec_plp, rec_plp_s)),
                             ("louvain", (rec_lv, rec_lv_s))):
         for rec in algo_recs:
-            for (graph, width), (first, last) in sorted(rec.calls.items()):
+            for (graph, level, width), (first, last) in sorted(
+                    rec.calls.items()):
+                if level:
+                    continue          # level-0 buckets only
                 g = graphs[graph][0]
                 n = g.n_max
                 for tag, (a, kw) in (("first", first), ("last", last)):
@@ -781,20 +846,23 @@ def check_equal(kernel, plain, a, kw, name, graph, width, tag, torch):
     return err
 
 
-def phase_kernels(args, torch, rt, recs, launches):
+def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
     rec_plp, rec_lv, rec_bin, rec_plp_s, rec_lv_s = recs
     reps = args.reps
     rows_out = []
 
     def local_move(rec, name, kernel, plain, n_tables):
-        """Compare on every recorded (graph, width) input; the totals sum
-        the R-MAT graph's level-0 buckets (one main-path sweep)."""
+        """Compare on every recorded (graph, level, width) input and time
+        the last call of each.  The totals sum the R-MAT graph's level-0
+        buckets (one main-path sweep); the ``coarse`` totals sum its
+        coarse levels' traced tiles (one sweep of each level)."""
         total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        coarse = dict(total)
         err, bound_kinds, detail = 0.0, {"bytes": 0.0, "operations": 0.0}, []
-        for graph, width in sorted(rec.calls):
-            first, last = rec.calls[(graph, width)]
+        for (graph, level, width), (first, last) in sorted(rec.calls.items()):
+            where = f"{graph} L{level}"
             for tag, (a, kw) in (("first", first), ("last", last)):
-                err = max(err, check_equal(kernel, plain, a, kw, name, graph,
+                err = max(err, check_equal(kernel, plain, a, kw, name, where,
                                            width, tag, torch))
             rows, nbr, w, *rest = last[0]
             kw = last[1]
@@ -803,18 +871,23 @@ def phase_kernels(args, torch, rt, recs, launches):
             p_ms = loop_ms(lambda: plain(rows, nbr, w, *rest, **kw), reps,
                            torch)
             R, W = nbr.shape
-            b_ms, kind = local_move_bound(nbr, rest[0].shape[0], n_tables)
+            n1 = rest[0].shape[0]
+            b_ms, kind = local_move_bound(nbr, n1, n_tables)
             if graph == MAIN_GRAPH[0]:
-                bound_kinds[kind] += b_ms
-                total["ms"] += k_ms
-                total["plain_ms"] += p_ms
-                total["bound_ms"] += b_ms
-            detail.append({"graph": graph, "width": W, "rows": R,
+                into = total if level == 0 else coarse
+                if level == 0:
+                    bound_kinds[kind] += b_ms
+                into["ms"] += k_ms
+                into["plain_ms"] += p_ms
+                into["bound_ms"] += b_ms
+            detail.append({"graph": graph, "level": level, "width": W,
+                           "rows": R, "rows_real": int((rows < n1 - 1).sum()),
                            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                            "bound_by": kind})
-            log(f"[kernels] {name} {graph} W={W} rows={R}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({kind})")
+            log(f"[kernels] {name} {graph} level {level} W={W} rows={R}: "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({kind})")
+        total["coarse"] = coarse
         return total, err, bound_kinds, detail
 
     def streamed_local_move(rec, name, kernel, plain, resident, n_tables):
@@ -826,8 +899,7 @@ def phase_kernels(args, torch, rt, recs, launches):
         err, bound_kinds, detail = 0.0, {"bytes": 0.0, "operations": 0.0}, []
         if not rec.calls:
             fail(f"{name} recorded no main-path call")
-        for graph, width in sorted(rec.calls):
-            first, last = rec.calls[(graph, width)]
+        for (graph, _, width), (first, last) in sorted(rec.calls.items()):
             for tag, (a, kw) in (("first", first), ("last", last)):
                 err = max(err, check_equal(kernel, plain, a, kw, name, graph,
                                            width, tag, torch))
@@ -934,6 +1006,12 @@ def phase_kernels(args, torch, rt, recs, launches):
                "library_ms": None, "equal": err == 0.0, "per_width": detail}
         if "resident_ms" in tot:
             out["resident_ms"] = tot["resident_ms"]
+        if "coarse" in tot:
+            # the same kernel on the R-MAT graph's coarse levels (traced
+            # tiles, one sweep of each level), a sub-row of its own
+            out["coarse_levels"] = dict(
+                tot["coarse"],
+                launches=coarse_launches[MAIN_GRAPH[0]].get(name, 0))
         return out
 
     rows_out.append(row(
@@ -1563,7 +1641,9 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch.graph.datasets as datasets
-        from repro_torch.core.louvain import LouvainConfig, louvain
+        from repro_torch.core.engine import SweepEngine
+        from repro_torch.core.louvain import (LEVEL_IT_STRIDE, LouvainConfig,
+                                              louvain)
         from repro_torch.core.plp import PLPConfig, plp
         from repro_torch.graph.ell import build_ell, compute_windows
         from repro_torch.core import moves
@@ -1595,6 +1675,7 @@ def main(argv) -> int:
         fail(f"the repro_torch package is not next to this script ({err})")
     rt = argparse.Namespace(
         datasets=datasets, LouvainConfig=LouvainConfig, louvain=louvain,
+        SweepEngine=SweepEngine, LEVEL_IT_STRIDE=LEVEL_IT_STRIDE,
         PLPConfig=PLPConfig, plp=plp, build_ell=build_ell,
         compute_windows=compute_windows,
         agg_kernel=agg_kernel, agg_ops=agg_ops, agg_ref=agg_ref,
@@ -1613,7 +1694,8 @@ def main(argv) -> int:
     main_out["two_step"], captured, seg_inputs = phase_two_step(
         args, torch, rt, recs, graphs)
     clocks("before phase 4")
-    kernels = phase_kernels(args, torch, rt, recs, main_out["launches"])
+    kernels = phase_kernels(args, torch, rt, recs, main_out["launches"],
+                            main_out["coarse_launches"])
     kernels += phase_scored_tiles(args, torch, rt, captured, seg_inputs,
                                   main_out["two_step"]["launches"])
     clocks("after phase 4")

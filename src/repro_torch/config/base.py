@@ -62,11 +62,14 @@ def _coerce(tp: Any, value: Any) -> Any:
             return [_coerce(args[0], v) for v in value]
         if origin in (dict,):
             return {k: _coerce(args[1], v) for k, v in value.items()}
-        # Union / Optional: try each arm
+        # Union / Optional: try each arm; a ``str`` arm takes only strings,
+        # so a list (a capacity schedule from to_dict()) reaches its tuple arm
         for arm in get_args(tp):
             if arm is type(None):
                 if value is None:
                     return None
+                continue
+            if arm is str and not isinstance(value, str):
                 continue
             try:
                 return _coerce(arm, value)

@@ -15,8 +15,13 @@ with masks.  Two coarsening paths, bit-for-bit identical:
   overflows the bin width;
 * ``remap_and_coarsen`` (``aggregation="sort"``): remap and merge fused into
   ONE sort over the combined (m edges + n vertices) entry list — the
-  oracle.  ``remap_communities`` + ``coarsen_graph`` is the two-step
+  oracle.  ``remap_communities`` (or its sorted oracle
+  ``remap_communities_sorted``) + ``coarsen_graph`` is the two-step
   reference.
+
+Coarsening output is front-compacted and src-sorted, so ``shrink_graph``
+moves a coarse graph into smaller static capacities — the capacity
+cascade's stage boundary — with a slice and a sentinel rewrite.
 """
 from __future__ import annotations
 
@@ -40,6 +45,41 @@ def remap_communities(com: torch.Tensor, vertex_mask: torch.Tensor
     table, n_comm = seg.contiguize_ids(com, vertex_mask, n)
     new_com = torch.where(vertex_mask, table[torch.clamp(com, 0, n - 1)], n)
     return new_com.to(torch.int32), int(n_comm)
+
+
+def remap_communities_sorted(com: torch.Tensor, vertex_mask: torch.Tensor
+                             ) -> Tuple[torch.Tensor, int]:
+    """The sorted contiguize oracle of ``remap_communities``: one n-sort,
+    run detection and a scatter (Arkouda ``GroupBy`` keys); the two agree
+    bit for bit."""
+    n = com.shape[0]
+    key = torch.where(vertex_mask, com.long(), n)
+    sk, pidx = torch.sort(key, stable=True)
+    starts = seg.run_starts(sk)
+    n_comm = int((starts & (sk < n)).sum())
+    new_com = torch.zeros(n, dtype=torch.long, device=com.device)
+    new_com[pidx] = seg.run_ids(starts)
+    return torch.where(vertex_mask, new_com, n).to(torch.int32), n_comm
+
+
+def shrink_graph(g: Graph, n_max: int, m_max: int) -> Graph:
+    """Compact a coarsened graph into smaller static capacities, on its
+    device.  Requires ``n_valid <= n_max``, ``m_valid <= m_max`` and the
+    valid edges front-compacted (coarsening output is; the cascade checks
+    the counts before it descends).  Vertex ids are already contiguous in
+    [0, n_valid), so only the padding sentinel changes with the
+    capacity."""
+    em = g.edge_mask[:m_max]
+    return Graph(
+        src=torch.where(em, g.src[:m_max], n_max).to(torch.int32),
+        dst=torch.where(em, g.dst[:m_max], n_max).to(torch.int32),
+        w=torch.where(em, g.w[:m_max], 0.0),
+        edge_mask=em,
+        n_valid=g.n_valid,
+        m_valid=g.m_valid,
+        n_max=int(n_max),
+        m_max=int(m_max),
+        sorted_by=g.sorted_by)
 
 
 def remap_and_coarsen(g: Graph, com: torch.Tensor

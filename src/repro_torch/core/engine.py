@@ -10,6 +10,11 @@ An evaluator proposes moves — ``(proposal[n], propose[n])`` per vertex — and
 the engine owns everything around it: the Luby move-probability coin, the
 adopt/changed bookkeeping, ΔN accounting and active-frontier propagation.
 
+The ``ell``/``pallas`` backends read a host-built degree-bucketed layout
+(``graph.ell.build_ell``, level 0), or with ``EngineSpec.ell_width > 0``
+one vertex-aligned tile rebuilt per level on the device
+(``graph.ell.traced_ell_tile``, the cascade's coarse levels).
+
 The JAX package runs a whole phase as one jitted ``lax.while_loop``
 (``fused=True``) or one jitted call per sweep (``fused=False``).  Here both
 are the same Python loop over eager tensor ops with one ΔN readback per
@@ -26,7 +31,7 @@ import torch
 from repro_torch.config import ConfigBase
 from repro_torch.core import moves
 from repro_torch.core.common import luby_move_gate, neighbor_or_self_changed
-from repro_torch.graph.ell import build_ell, grid_view
+from repro_torch.graph.ell import build_ell, grid_view, traced_ell_tile
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.local_move import ops as lm_ops
 
@@ -52,6 +57,10 @@ class EngineSpec(ConfigBase):
     reshuffle_ties: bool = False # PLP: re-draw tie noise each sweep
     singleton_rule: bool = True  # Louvain: Lu et al. swap suppression
     table_mode: str = "auto"     # auto | resident | streamed (ell, pallas)
+    # ell/pallas with no host-built layout: rebuild one vertex-aligned ELL
+    # tile of this width per level on the device (the cascade's coarse
+    # levels, ``graph.ell.traced_ell_tile``).  0 = host-built layout.
+    ell_width: int = 0
 
     def __post_init__(self):
         if self.evaluator not in EVALUATORS:
@@ -60,6 +69,12 @@ class EngineSpec(ConfigBase):
             raise ValueError(f"unknown backend {self.backend!r}, want one of "
                              f"{BACKENDS}")
         lm_ops.check_table_mode(self.table_mode)
+        if self.ell_width < 0:
+            raise ValueError(f"ell_width must be >= 0, got {self.ell_width}")
+        if self.ell_width > 0 and self.backend not in ("ell", "pallas"):
+            raise ValueError(
+                "ell_width (traced re-bucketing) requires the ell or pallas "
+                f"backend, not {self.backend!r}")
 
 
 @dataclasses.dataclass
@@ -96,13 +111,14 @@ def _evaluate_segment(spec: EngineSpec, g: Graph, level, labels, active,
 
 
 def _ell_evaluators(spec: EngineSpec, g: Graph, level, labels, it: int,
-                    seed: int, use_pallas: bool):
+                    seed: int, use_pallas: bool, table_mode: str):
     """Per-sweep closures ``(eval_bucket, eval_tail)``: the per-vertex
     tables are built ONCE here per sweep; ``eval_bucket(rows, nbr, w,
     windows)`` hands them to the local_move family (gathers fused into the
     kernel; ``windows`` is the bucket's metadata for the streamed layout),
     ``eval_tail(src, dst, w, valid)`` scores an edge list off the same
-    extended tables."""
+    extended tables.  Shared by the host-built bucket evaluator and the
+    traced coarse-level one."""
     n = g.n_max
     ext = moves.extend
 
@@ -115,7 +131,7 @@ def _ell_evaluators(spec: EngineSpec, g: Graph, level, labels, it: int,
             return lm_ops.local_move_plp(
                 rows, nbr, w, labels_ext, noise_seed, tie_eps=spec.tie_eps,
                 sentinel=n, use_pallas=use_pallas, windows=windows,
-                table_mode=spec.table_mode)
+                table_mode=table_mode)
 
         def eval_tail(src, dst, w, valid):
             best_score, best_lab, cur_score = moves.plp_best_labels_tables(
@@ -137,7 +153,7 @@ def _ell_evaluators(spec: EngineSpec, g: Graph, level, labels, it: int,
             rows, nbr, w, com_ext, vol_ext, size_ext, deg_ext, vol_v,
             sentinel=n, singleton_rule=spec.singleton_rule,
             use_pallas=use_pallas, windows=windows,
-            table_mode=spec.table_mode, composed=composed)
+            table_mode=table_mode, composed=composed)
 
     def eval_tail(src, dst, w, valid):
         best_gain, best_cand = moves.louvain_best_moves_tables(
@@ -157,7 +173,8 @@ def _evaluate_ell(spec: EngineSpec, g: Graph, level, ell, labels, active,
     n = g.n_max
     dev = labels.device
     eval_bucket, eval_tail = _ell_evaluators(
-        spec, g, level, labels, it, seed, use_pallas=spec.backend == "pallas")
+        spec, g, level, labels, it, seed, use_pallas=spec.backend == "pallas",
+        table_mode=spec.table_mode)
     proposal = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
     propose = torch.zeros(n + 1, dtype=torch.bool, device=dev)
     for b in ell.buckets:
@@ -181,6 +198,48 @@ def _evaluate_ell(spec: EngineSpec, g: Graph, level, ell, labels, active,
     return proposal, propose
 
 
+def _evaluate_ell_traced(spec: EngineSpec, g: Graph, level, tile, labels,
+                         active, it: int, seed: int):
+    """Coarse-level evaluator with no host-built layout: the per-level
+    tile of ``traced_ell_tile`` goes through the SAME local_move family as
+    level 0, with the tables resident (coarse tables are small, and
+    streaming needs per-block window metadata).  Rows are vertex-aligned,
+    so the bucket scatter reduces to a ``where``.  Vertices wider than the
+    tile take the tables tail evaluator over their edges, only when the
+    level has any (``_traced_tile``)."""
+    n = g.n_max
+    rows, nbr, w_t, is_tail, tail = tile
+    eval_bucket, eval_tail = _ell_evaluators(
+        spec, g, level, labels, it, seed, use_pallas=spec.backend == "pallas",
+        table_mode="resident")
+    best, good = eval_bucket(rows, nbr, w_t, None)
+    propose = (rows < n) & active & good
+    proposal = torch.where(propose, best, -1)
+    if tail is not None:
+        src_t, dst_t, w_tail = tail
+        best_t, good_t = eval_tail(src_t, dst_t, w_tail,
+                                   active[dst_t.long()])
+        tail_prop = is_tail & active & good_t
+        proposal = torch.where(tail_prop, best_t, proposal)
+        propose = propose | tail_prop
+    return proposal, propose
+
+
+def _traced_tile(g: Graph, width: int):
+    """One level's traced tile ``(rows, nbr, w, is_tail, tail)``, built
+    once per phase and shared by its sweeps.  ``tail`` holds the edges
+    whose destination is a tail vertex, in edge order — what the tail
+    evaluator scores: the JAX package masks the full edge list every
+    sweep, which keeps the same edges in the same order — or None when
+    the level has no tail vertex (one read-back per level)."""
+    rows, nbr, w_t, is_tail = traced_ell_tile(g, width)
+    tail = None
+    if bool(is_tail.any()):
+        keep = g.edge_mask & is_tail[torch.clamp(g.dst, 0, g.n_max - 1)]
+        tail = (g.src[keep], g.dst[keep], g.w[keep])
+    return rows, nbr, w_t, is_tail, tail
+
+
 # ----------------------------------------------------------------- step / loop
 
 
@@ -194,11 +253,18 @@ def make_step(spec: EngineSpec, g: Graph, ell):
     # vol(V), computed once per phase instead of once per sweep
     level = ((vmask, g.weighted_degrees(), g.total_volume())
              if spec.evaluator == "louvain" else None)
+    tile = None
+    if spec.backend != "segment" and ell is None and spec.ell_width > 0:
+        # loop-invariant within a level too: one tile build per phase
+        tile = _traced_tile(g, spec.ell_width)
 
     def step(labels, active, it: int, seed: int):
         if spec.backend == "segment":
             proposal, propose = _evaluate_segment(spec, g, level, labels,
                                                   active, it, seed)
+        elif tile is not None:
+            proposal, propose = _evaluate_ell_traced(spec, g, level, tile,
+                                                     labels, active, it, seed)
         else:
             proposal, propose = _evaluate_ell(spec, g, level, ell, labels,
                                               active, it, seed)
@@ -219,13 +285,14 @@ def make_step(spec: EngineSpec, g: Graph, ell):
 class SweepEngine:
     """Local-moving sweep engine for one graph (one coarsening level).
     The ``ell``/``pallas`` backends build the ELL layout on the graph's
-    device at construction."""
+    device at construction, unless ``spec.ell_width`` asks for the traced
+    per-level tile instead."""
 
     def __init__(self, g: Graph, spec: EngineSpec, ell=None):
         self.g = g
         self.spec = spec
         self.ell = None
-        if spec.backend in ("ell", "pallas"):
+        if spec.backend in ("ell", "pallas") and spec.ell_width == 0:
             self.ell = ell if ell is not None else build_ell(g)
         self._step = make_step(spec, g, self.ell)
 

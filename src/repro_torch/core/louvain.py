@@ -6,22 +6,37 @@
     needCheck frontier (l.11, l.21, l.25)
   * level loop: local-moving then aggregation until |C| == |V| (Alg. 3)
 
-This slice ports the JAX package's per-level driver (``_louvain_per_level``)
-and runs it whatever ``pipeline_fused`` says: the JAX package's own
-contracts make its fused pipeline bit-identical to that driver in labels,
-levels, Q and every per-level history.  Level 0 runs the configured backend
-(``pallas`` = the CUDA kernels); coarse levels run the segment evaluator,
-as in the JAX per-level driver.  Aggregation's ``bin_rank`` pass uses its
-CUDA kernel when the backend is ``pallas`` and its plain version otherwise.
+Two drivers, as in the JAX package, bit-identical to each other:
 
-``table_mode`` (``auto``/``resident``/``streamed``) picks the level-0 ELL
-table layout on the ``ell`` and ``pallas`` backends.
+* ``pipeline_fused=True`` with ``fused=True`` (the default) runs the
+  capacity cascade (``_louvain_pipeline``): the level loop runs in stages,
+  and once the carried coarse graph fits a smaller capacity of the
+  schedule (``capacity_schedule``: ``"auto"`` derives a bounded one from
+  the graph, ``"none"`` pins one stage, or an explicit tuple) the stage
+  ends, the graph is compacted into that capacity on the device
+  (``aggregation.shrink_graph``) and the loop resumes there.  Inside a
+  cascade the ``ell``/``pallas`` backends also run the coarse levels,
+  through one vertex-aligned ELL tile rebuilt per level on the device
+  (``graph.ell.traced_ell_tile``) at the stage's width; outside one, and
+  in the per-level driver, coarse levels run the segment evaluator.
+  ``LouvainResult.cascade_stages`` lists the capacities entered.
+* otherwise the per-level driver (``_louvain_per_level``) runs, with
+  ``cascade_stages == []``.
+
+The JAX package fuses a stage into one compiled program; here a stage is
+a Python loop over eager levels that reads back per sweep and per level.
+Level 0 runs the configured backend (``pallas`` = the CUDA kernels) on the
+host-built ELL layout, whose ``table_mode`` (``auto``/``resident``/
+``streamed``) picks the table layout.  Aggregation's ``bin_rank`` pass
+uses its CUDA kernel when the backend is ``pallas`` and its plain version
+otherwise.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): Leiden refinement (``refine=True``), explicit cascade capacity
-schedules and stage-boundary checkpointing.  The backend-descent ladder is
-left out too: a kernel failure raises ``KernelError`` instead of quietly
-running another backend.
+item): Leiden refinement (``refine=True``) and stage-boundary
+checkpointing.  The backend-descent ladder is left out too: a kernel
+failure raises ``KernelError`` instead of quietly running another backend.
+A ``CapacityError`` from the cascade is retried once on
+``capacity_schedule="none"``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,16 +52,47 @@ from repro_torch.config import ConfigBase
 from repro_torch.core import aggregation
 from repro_torch.core.engine import EngineSpec, SweepEngine
 from repro_torch.core.modularity import modularity
+from repro_torch.graph.ell import build_ell
 from repro_torch.graph.structure import Graph
-from repro_torch.kernels.common import accum_needs_promotion
+from repro_torch.kernels.common import accum_needs_promotion, pick_ell_width
 from repro_torch.utils import telemetry
-from repro_torch.utils.errors import (CommunityDetectionError, NumericError,
-                                      RunReport)
+from repro_torch.utils.errors import (CapacityError, CommunityDetectionError,
+                                      NumericError, RunReport)
 from repro_torch.utils.timing import Timer
 
 # Sweep-counter stride per level: level L's local-moving phase hashes tie
 # noise / Luby gates from it0 = L·LEVEL_IT_STRIDE (the JAX package's value).
 LEVEL_IT_STRIDE = 1000
+
+
+# ------------------------------------------------------------ capacity schedule
+
+
+def auto_capacity_schedule(
+    n_max: int,
+    m_max: int,
+    *,
+    max_stages: int = 4,
+    shrink: int = 4,
+    n_floor: int = 256,
+    m_floor: int = 2048,
+    min_n: int = 4096,
+) -> Tuple[Tuple[int, int], ...]:
+    """Bounded capacity schedule of the cascade (the JAX package's):
+    quarter steps from the full capacity down to the floors, at most
+    ``max_stages`` entries.  Graphs below ``min_n`` vertices keep one
+    capacity.  The floors are clamped to the previous capacity, so a
+    capacity-padded sparse graph is never scheduled to grow."""
+    caps = [(int(n_max), int(m_max))]
+    if n_max < min_n:
+        return tuple(caps)
+    while len(caps) < max_stages:
+        nc = min(caps[-1][0], max(n_floor, -(-caps[-1][0] // shrink)))
+        mc = min(caps[-1][1], max(m_floor, -(-caps[-1][1] // shrink)))
+        if (nc, mc) == caps[-1]:
+            break
+        caps.append((nc, mc))
+    return tuple(caps)
 
 
 def _validate_schedule(sched) -> None:
@@ -89,9 +135,10 @@ class LouvainConfig(ConfigBase):
     seed: int = 0
     track_modularity: bool = True
     fused: bool = True          # accepted for config parity; same loop
-    pipeline_fused: bool = True  # accepted; the per-level driver always runs
-    # "auto"/"none" both run the per-level driver (no cascade in this slice);
-    # an explicit schedule raises
+    # with fused=True: the capacity cascade; otherwise the per-level driver
+    pipeline_fused: bool = True
+    # the cascade's schedule: "auto" (bounded, from (n_max, m_max)), "none"
+    # (one capacity) or a tuple of descending (n_cap, m_cap) pairs
     capacity_schedule: "str | Tuple[Tuple[int, int], ...]" = "auto"
     refine: bool = False        # Leiden refinement: not ported
     refine_sweeps: int = 8
@@ -126,14 +173,16 @@ class LouvainResult:
     timer: Timer
     n_comm_per_level: list = dataclasses.field(default_factory=list)
     delta_n_per_level: list = dataclasses.field(default_factory=list)
-    # the per-level driver runs no cascade, so this stays empty
+    # (n_cap, m_cap) of each cascade stage entered, in order; empty from the
+    # per-level driver
     cascade_stages: list = dataclasses.field(default_factory=list)
     run_report: RunReport = dataclasses.field(default_factory=RunReport)
     # per level: "binned", "sort_fallback" (the bin gate overflowed) or "sort"
     aggregation_per_level: list = dataclasses.field(default_factory=list)
 
 
-def engine_spec(cfg: LouvainConfig, backend: Optional[str] = None) -> EngineSpec:
+def engine_spec(cfg: LouvainConfig, backend: Optional[str] = None
+                ) -> EngineSpec:
     return EngineSpec(
         evaluator="louvain",
         backend=backend or cfg.backend,
@@ -147,24 +196,49 @@ def engine_spec(cfg: LouvainConfig, backend: Optional[str] = None) -> EngineSpec
 
 
 def _coarse_backend(backend: str) -> str:
-    """The ELL layout covers the finest graph only: every coarse level runs
-    the segment evaluator, as in the JAX per-level driver."""
+    """The host-built ELL layout covers the finest graph only: outside a
+    cascade every coarse level runs the segment evaluator."""
     return "segment" if backend in ("ell", "pallas") else backend
+
+
+def _resolve_schedule(cfg: LouvainConfig, g: Graph
+                      ) -> Tuple[Tuple[int, int], ...]:
+    """This graph's schedule: the full capacity first, then the entries of
+    an explicit schedule that fit under it and shrink it."""
+    sched = cfg.capacity_schedule
+    full = (g.n_max, g.m_max)
+    if sched == "none":
+        return (full,)
+    if sched == "auto":
+        return auto_capacity_schedule(g.n_max, g.m_max)
+    caps = [full]
+    for c in sched:
+        c = (int(c[0]), int(c[1]))
+        if (c[0] <= full[0] and c[1] <= full[1]
+                and (c[0] < caps[-1][0] or c[1] < caps[-1][1])):
+            caps.append(c)
+    return tuple(caps)
+
+
+def _cascade_coarse_spec(cfg: LouvainConfig, cascade: bool, width: int
+                         ) -> EngineSpec:
+    """Coarse-level spec of one stage: inside a cascade the ``ell``/
+    ``pallas`` backends keep the local_move family on the traced tile of
+    the stage's ``width``; outside one the segment evaluator runs."""
+    if cascade and cfg.backend in ("ell", "pallas"):
+        return engine_spec(cfg).replace(ell_width=width)
+    return engine_spec(cfg, backend=_coarse_backend(cfg.backend))
 
 
 def _check_supported(cfg: LouvainConfig) -> None:
     if cfg.refine:
         raise NotImplementedError(
             "Leiden refinement (refine=True) is not ported yet: ROADMAP "
-            "Queue 1 #6.4")
+            "Queue 1 #2")
     if cfg.checkpoint_dir is not None:
         raise NotImplementedError(
             "stage-boundary checkpointing is not ported yet: ROADMAP "
-            "Queue 1 #6.6")
-    if not isinstance(cfg.capacity_schedule, str):
-        raise NotImplementedError(
-            "explicit capacity schedules (the coarse-level cascade) are not "
-            "ported yet: ROADMAP Queue 1 #6.3")
+            "Queue 1 #3")
 
 
 def _trivial_result(report: RunReport) -> LouvainResult:
@@ -192,9 +266,12 @@ def _finalize_report(res: LouvainResult, cfg: LouvainConfig,
 
 def louvain(g: Graph, cfg: LouvainConfig = LouvainConfig(),
             g_original: Optional[Graph] = None) -> LouvainResult:
-    """Run Louvain on the device of ``g``: the per-level driver, with the
-    float32-accumulation warning and watchdog accounting of the JAX
-    package's hardened driver in ``result.run_report``."""
+    """Run Louvain on the device of ``g``: the capacity cascade
+    (``pipeline_fused`` and ``fused``) or the per-level driver.  A
+    ``CapacityError`` from the cascade is retried once on the single
+    capacity (``capacity_schedule="none"``) and recorded in
+    ``result.run_report.retries``; the float32-accumulation warning and
+    the watchdog accounting land there too, as in the JAX package."""
     _check_supported(cfg)
     report = RunReport()
     if g.n_max == 0:
@@ -202,12 +279,28 @@ def louvain(g: Graph, cfg: LouvainConfig = LouvainConfig(),
     promote = accum_needs_promotion(g.m_max)
     if promote:
         report.warnings.append("precision:f32_accum_risk")
-    try:
-        res = _louvain_per_level(g, cfg, g_original, promote)
-    except CommunityDetectionError as err:
-        err.report = report
-        raise
-    return _finalize_report(res, cfg, report)
+    cfg_try = cfg
+    while True:
+        try:
+            if cfg_try.pipeline_fused and cfg_try.fused:
+                res = _louvain_pipeline(g, cfg_try, g_original, promote)
+            else:
+                res = _louvain_per_level(g, cfg_try, g_original, promote)
+            break
+        except CapacityError as err:
+            if cfg_try.capacity_schedule == "none":
+                err.report = report
+                raise
+            telemetry.bump("ladder.capacity_retry")
+            report.retries.append({
+                "kind": "capacity",
+                "from": repr(cfg_try.capacity_schedule), "to": "none",
+                "error": str(err)})
+            cfg_try = cfg_try.replace(capacity_schedule="none")
+        except CommunityDetectionError as err:
+            err.report = report
+            raise
+    return _finalize_report(res, cfg_try, report)
 
 
 def _tphase(timer: Timer, name: str, level: int, per_level: bool):
@@ -220,81 +313,219 @@ def _tphase(timer: Timer, name: str, level: int, per_level: bool):
     return stack
 
 
-def _louvain_per_level(g: Graph, cfg: LouvainConfig,
-                       g_original: Optional[Graph],
-                       promote: bool = False) -> LouvainResult:
-    """Per-level driver: one local-moving phase per level, then aggregation
-    and the Alg. 3 convergence check on the host."""
-    timer = Timer()
-    g0 = g_original if g_original is not None else g
-    n, dev = g.n_max, g.device
-    # the pallas backend ranks bins with the bin_rank wrapper, which
-    # launches its kernel on the card; every other backend stays plain
-    impl = "kernel" if cfg.backend == "pallas" else "ref"
+@dataclasses.dataclass
+class _Levels:
+    """Per-level histories, one entry per level run, in level order — the
+    cascade's stages add to the same lists, as the JAX package writes its
+    history buffers at absolute level indices."""
 
-    assign = torch.arange(n, dtype=torch.int32, device=dev)
-    cur = g
-    mod_hist: list = []
-    sweeps_per_level: list = []
-    n_comm_per_level: list = []
-    delta_n_per_level: list = []
-    agg_paths: list = []
-    levels = 0
+    modularity: list = dataclasses.field(default_factory=list)
+    sweeps: list = dataclasses.field(default_factory=list)
+    n_comm: list = dataclasses.field(default_factory=list)
+    delta_n: list = dataclasses.field(default_factory=list)
+    aggregation: list = dataclasses.field(default_factory=list)
 
-    for level in range(cfg.max_levels):
-        spec = engine_spec(cfg, backend=cfg.backend if level == 0
-                           else _coarse_backend(cfg.backend))
-        # numeric guard rail: non-finite weights poison every sum silently
-        if bool(torch.any(cur.edge_mask & ~torch.isfinite(cur.w))):
-            raise NumericError(
-                f"non-finite edge weight detected at level {level}")
-        with timer.phase("ell_build") if spec.backend in ("ell", "pallas") \
-                else contextlib.nullcontext():
-            engine = SweepEngine(cur, spec)
-        com = torch.arange(n, dtype=torch.int32, device=dev)
-        need = cur.vertex_mask()
 
-        with _tphase(timer, "local_moving", level, cfg.per_level_timing):
-            res = engine.run_phase(com, need, it0=level * LEVEL_IT_STRIDE,
-                                   seed=cfg.seed, fused=cfg.fused)
-        com = res.labels
-        sweeps_per_level.append(res.sweeps)
-        delta_n_per_level.append(res.delta_n_history)
+@dataclasses.dataclass
+class _Run:
+    """What one Louvain run shares across its levels."""
 
-        with _tphase(timer, "aggregation", level, cfg.per_level_timing):
-            fallbacks = telemetry.get("agg.sort_fallback")
-            new_com, n_comm, coarse = aggregation.remap_and_coarsen_by(
-                cfg.aggregation, cur, com, impl=impl)
-            agg_paths.append(
-                "sort" if cfg.aggregation == "sort"
+    cfg: LouvainConfig
+    g0: Graph
+    impl: str                 # bin_rank pass: "kernel" (pallas) or "ref"
+    promote: bool
+    timer: Timer
+    hist: _Levels
+
+
+def _run_level(run: _Run, cur: Graph, assign, init_com, level: int,
+               spec: EngineSpec, ell=None):
+    """One level: local moving from ``init_com`` → remap + coarsen →
+    modularity.  Returns ``(next_graph, next_assign, next_init,
+    macro_assign, done)``; when done the graph, assignment and seed stay
+    (Alg. 3 l.6), as the JAX package's ``stay`` branch keeps them."""
+    cfg, timer = run.cfg, run.timer
+    n = cur.n_max
+    # numeric guard rail: non-finite weights poison every sum silently
+    if bool(torch.any(cur.edge_mask & ~torch.isfinite(cur.w))):
+        raise NumericError(
+            f"non-finite edge weight detected at level {level}")
+    with timer.phase("ell_build") if ell is None and spec.ell_width == 0 \
+            and spec.backend in ("ell", "pallas") \
+            else contextlib.nullcontext():
+        engine = SweepEngine(cur, spec, ell)
+    with _tphase(timer, "local_moving", level, cfg.per_level_timing):
+        res = engine.run_phase(init_com, cur.vertex_mask(),
+                               it0=level * LEVEL_IT_STRIDE, seed=cfg.seed,
+                               fused=cfg.fused)
+    with _tphase(timer, "aggregation", level, cfg.per_level_timing):
+        fallbacks = telemetry.get("agg.sort_fallback")
+        new_com, n_comm, coarse = aggregation.remap_and_coarsen_by(
+            cfg.aggregation, cur, res.labels, impl=run.impl)
+        path = ("sort" if cfg.aggregation == "sort"
                 else "sort_fallback"
                 if telemetry.get("agg.sort_fallback") > fallbacks
                 else "binned")
-            macro_assign = new_com[torch.clamp(assign, 0, n - 1)]
-            n_comm_per_level.append(n_comm)
-            done = n_comm == cur.n_valid          # Alg. 3 l.6 convergence
-            if not done:
-                assign = macro_assign
-                cur = coarse
-        levels = level + 1
-        if cfg.track_modularity:
-            mod_hist.append(float(modularity(g0, macro_assign,
-                                             promote=promote)))
-        if done:
-            break
+        macro_assign = new_com[torch.clamp(assign, 0, n - 1)]
+    done = n_comm == cur.n_valid              # Alg. 3 l.6 convergence
+    hist = run.hist
+    hist.sweeps.append(res.sweeps)
+    hist.delta_n.append(res.delta_n_history)
+    hist.n_comm.append(n_comm)
+    hist.aggregation.append(path)
+    if cfg.track_modularity:
+        hist.modularity.append(float(modularity(run.g0, macro_assign,
+                                                promote=run.promote)))
+    if done:
+        return cur, assign, init_com, macro_assign, True
+    arange_n = torch.arange(n, dtype=torch.int32, device=cur.device)
+    return coarse, macro_assign, arange_n, macro_assign, False
 
+
+def _new_run(g: Graph, cfg: LouvainConfig, g_original: Optional[Graph],
+             promote: bool) -> _Run:
+    # the pallas backend ranks bins with the bin_rank wrapper, which
+    # launches its kernel on the card; every other backend stays plain
+    return _Run(cfg=cfg, g0=g_original if g_original is not None else g,
+                impl="kernel" if cfg.backend == "pallas" else "ref",
+                promote=promote, timer=Timer(), hist=_Levels())
+
+
+def _result(run: _Run, macro, levels: int, stages: list) -> LouvainResult:
+    """The final remap on the original vertices, Q and the histories."""
+    g0 = run.g0
     final_assign, n_final = aggregation.remap_communities(
-        macro_assign, g0.vertex_mask())
-    q = float(modularity(g0, final_assign, promote=promote))
+        macro, g0.vertex_mask())
+    h = run.hist
     return LouvainResult(
         labels=final_assign.cpu().numpy(),
         n_communities=n_final,
         levels=levels,
-        modularity=q,
-        modularity_history=mod_hist,
-        sweeps_per_level=sweeps_per_level,
-        timer=timer,
-        n_comm_per_level=n_comm_per_level,
-        delta_n_per_level=delta_n_per_level,
-        aggregation_per_level=agg_paths,
+        modularity=float(modularity(g0, final_assign, promote=run.promote)),
+        modularity_history=h.modularity,
+        sweeps_per_level=h.sweeps,
+        timer=run.timer,
+        n_comm_per_level=h.n_comm,
+        delta_n_per_level=h.delta_n,
+        cascade_stages=stages,
+        aggregation_per_level=h.aggregation,
     )
+
+
+def _louvain_per_level(g: Graph, cfg: LouvainConfig,
+                       g_original: Optional[Graph],
+                       promote: bool = False) -> LouvainResult:
+    """Per-level driver: one local-moving phase per level, then aggregation
+    and the Alg. 3 convergence check; level 0 on the configured backend,
+    coarse levels on the segment evaluator."""
+    run = _new_run(g, cfg, g_original, promote)
+    assign = torch.arange(g.n_max, dtype=torch.int32, device=g.device)
+    init_com, cur = assign, g
+    for level in range(cfg.max_levels):
+        spec = engine_spec(cfg, backend=cfg.backend if level == 0
+                           else _coarse_backend(cfg.backend))
+        cur, assign, init_com, macro, done = _run_level(
+            run, cur, assign, init_com, level, spec)
+        if done:
+            break
+    return _result(run, macro, level + 1, [])
+
+
+# ------------------------------------------------------------ the cascade
+
+
+@dataclasses.dataclass
+class _Stage:
+    """What one cascade stage hands back to the scheduler."""
+
+    graph: Graph              # the carried graph, at the stage's capacity
+    assign: torch.Tensor      # original vertex -> current super-vertex
+    init_com: torch.Tensor    # the next level's seed partition
+    macro: torch.Tensor       # the last level's partition of the original
+    level: int                # levels run so far
+    done: bool
+    max_deg: int              # carried graph's largest degree, loops incl.
+
+
+def _run_stage(run: _Run, spec0: Optional[EngineSpec],
+               spec_coarse: EngineSpec,
+               next_caps: Optional[Tuple[int, int]], g: Graph, ell, assign,
+               init_com, macro, level: int) -> _Stage:
+    """One stage of the cascade at ``g``'s capacity (the JAX package's
+    ``_build_stage``).  ``spec0`` marks stage 0: level 0 is peeled out —
+    the only level that may use the host-built ELL ``ell``.  The level
+    loop then runs ``spec_coarse`` until the run is done, the level budget
+    is spent, or the carried graph fits ``next_caps`` (the next capacity),
+    and hands control back to the scheduler."""
+    cur, done = g, False
+    if spec0 is not None:
+        cur, assign, init_com, macro, done = _run_level(
+            run, g, assign, init_com, 0, spec0, ell)
+        level = 1
+
+    def fits():
+        return (next_caps is not None and cur.n_valid <= next_caps[0]
+                and cur.m_valid <= next_caps[1])
+
+    while level < run.cfg.max_levels and not done and not fits():
+        cur, assign, init_com, macro, done = _run_level(
+            run, cur, assign, init_com, level, spec_coarse)
+        level += 1
+    max_deg = 0
+    if next_caps is not None:
+        # only a stage that can descend pays for the degree count: the
+        # next stage's tile width is picked from it
+        deg = torch.bincount(cur.src[cur.edge_mask].long(),
+                             minlength=cur.n_max)
+        max_deg = int(deg[:cur.n_valid].max()) if cur.n_valid else 0
+    return _Stage(cur, assign, init_com, macro, level, done, max_deg)
+
+
+def _louvain_pipeline(g: Graph, cfg: LouvainConfig,
+                      g_original: Optional[Graph],
+                      promote: bool = False) -> LouvainResult:
+    """The capacity cascade (the JAX package's ``_louvain_pipeline``): at
+    most ``len(schedule)`` stages, each descending to the SMALLEST
+    capacity the carried graph fits, with the next stage's traced-tile
+    width re-picked from the carried graph's largest degree.  A one-entry
+    schedule is the single-capacity pipeline, ≡ the per-level driver."""
+    run = _new_run(g, cfg, g_original, promote)
+    caps = _resolve_schedule(cfg, g)
+    cascade = len(caps) > 1
+    spec0 = engine_spec(cfg)
+    arange0 = torch.arange(g.n_max, dtype=torch.int32, device=g.device)
+    assign = init_com = macro = arange0
+    k, level, g_k, ell_k = 0, 0, g, None
+    width = pick_ell_width(None, *caps[0])
+    stage_idxs: list = []
+    if cfg.backend in ("ell", "pallas"):
+        with run.timer.phase("ell_build"):
+            ell_k = build_ell(g)
+    with run.timer.phase("pipeline"):
+        while True:
+            st = _run_stage(run, spec0 if k == 0 else None,
+                            _cascade_coarse_spec(cfg, cascade, width),
+                            caps[k + 1] if k + 1 < len(caps) else None,
+                            g_k, ell_k, assign, init_com, macro, level)
+            assign, init_com, macro, level = (st.assign, st.init_com,
+                                              st.macro, st.level)
+            stage_idxs.append(k)
+            if k + 1 >= len(caps) or st.done or level >= cfg.max_levels:
+                break
+            nv, mv = st.graph.n_valid, st.graph.m_valid
+            k2 = k
+            for j in range(k + 1, len(caps)):
+                if nv <= caps[j][0] and mv <= caps[j][1]:
+                    k2 = j
+            if k2 == k:
+                # unreachable by the stage's exit predicate (done, budget
+                # or fits-next); typed so louvain() retries on one capacity
+                raise CapacityError(
+                    "cascade invariant violated: stage exited without "
+                    f"done/budget and ({nv}, {mv}) fits no capacity in "
+                    f"{caps[k + 1:]}")
+            g_k = aggregation.shrink_graph(st.graph, *caps[k2])
+            init_com = init_com[:caps[k2][0]]
+            ell_k, k = None, k2
+            width = pick_ell_width(st.max_deg, *caps[k])
+    return _result(run, macro, level, [caps[j] for j in stage_idxs])

@@ -15,6 +15,11 @@ are identical to the JAX package's ``build_ell``.  The JAX package's
 ``(n_chunks, rows, W)`` stacking serves the TPU grid and has no counterpart:
 a bucket stays one flat tile.  Each bucket carries the window metadata of
 the streamed table layout (``TableWindows``), computed on the device.
+
+``traced_ell_tile`` is the layout of the capacity cascade's coarse
+levels: one vertex-aligned ``(n_max, W)`` tile per level, built on the
+device from the coarse graph's CSR row pointers, with the vertices wider
+than W left to the tail evaluator.
 """
 from __future__ import annotations
 
@@ -199,6 +204,41 @@ def build_ell(g: Graph, widths: Tuple[int, ...] = BUCKET_WIDTHS,
         tail_w=w[tail],
         is_tail=is_tail,
     )
+
+
+def traced_ell_tile(g: Graph, width: int) -> Tuple[torch.Tensor, ...]:
+    """Single-bucket ELL view of a src-sorted coarse graph: the layout of
+    the cascade's coarse levels, rebuilt per level on the device from CSR
+    row pointers with no host-side row ordering (the JAX package's
+    ``traced_ell_tile``).
+
+    One vertex-aligned ``(n_max, width)`` tile: row v holds vertex v's
+    out-edges in edge order — by the directed-symmetric convention these
+    are its in-neighbourhood — with its self-loop masked to the sink.
+    Vertices whose degree (loop included) exceeds ``width`` are flagged
+    ``is_tail`` and their row is pure padding; the engine scores them
+    through the tables tail evaluator over the full edge list.
+
+    Returns ``(rows[n], nbr[n, W], w[n, W], is_tail[n])`` with the
+    sentinels of ``EllBucket`` (row and neighbour id ``n_max``, weight 0).
+    """
+    n, m, dev = g.n_max, g.m_max, g.device
+    if g.sorted_by != "src":
+        raise ValueError("traced_ell_tile requires a src-sorted graph")
+    rp = g.row_ptr()
+    deg = rp[1:] - rp[:-1]
+    vmask = g.vertex_mask()
+    is_tail = vmask & (deg > width)
+    arange_n = torch.arange(n, dtype=torch.int32, device=dev)
+    rows = torch.where(vmask & ~is_tail, arange_n, n).to(torch.int32)
+    j = torch.arange(width, dtype=torch.int32, device=dev)
+    idx = torch.clamp(rp[:-1, None] + j[None, :], 0, max(m - 1, 0))
+    take = (j[None, :] < deg[:, None]) & (rows < n)[:, None]
+    nbr = torch.where(take, g.dst[idx], n).to(torch.int32)
+    wt = torch.where(take, g.w[idx], 0.0)
+    loop = nbr == arange_n[:, None]
+    return (rows, torch.where(loop, n, nbr).to(torch.int32),
+            torch.where(loop, 0.0, wt), is_tail)
 
 
 def grid_view(b: EllBucket) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -81,6 +81,15 @@ class Graph:
         """vol_w(V) = 2W (sum of all directed weights incl. doubled loops)."""
         return torch.sum(torch.where(self.edge_mask, self.w, 0.0))
 
+    def row_ptr(self) -> torch.Tensor:
+        """CSR row pointers, int32[n_max + 1] — requires ``sorted_by ==
+        'src'`` (padding holds the ``n_max`` sentinel, so it sorts last)."""
+        if self.sorted_by != "src":
+            raise ValueError("row_ptr requires the graph sorted by src")
+        bounds = torch.arange(self.n_max + 1, dtype=self.src.dtype,
+                              device=self.device)
+        return torch.searchsorted(self.src, bounds).to(torch.int32)
+
     def to_numpy_edges(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(src, dst, w) of valid directed edges, as host numpy."""
         mask = self.edge_mask

@@ -124,10 +124,11 @@ struct LouvainGain {
   }
 };
 
-// Scores rows first + (threadIdx.x / T) of the flat tiles, those below
-// `end`; every thread of the block calls it (it synchronises the block).
+// The W*W scan: thread 0 sums S_A in one pass over the row, then each
+// thread scores candidates k = t, t + T, ... by summing the row's matching
+// weights with j ascending.
 template <int W, class Row, class Out>
-__device__ __forceinline__ void louvain_score_rows(
+__device__ __forceinline__ void louvain_score_rows_scan(
     const Row& src, float inv_vol, int singleton_rule, int sentinel,
     long long first, long long end, const Out& out) {
   constexpr int T = RowGroup<W>::T;
@@ -203,6 +204,133 @@ __device__ __forceinline__ void louvain_score_rows(
     best = s_best[sub][0];
     out(r, best > -INFINITY ? s_id[sub][0] : -1, best);
   }
+}
+
+// Sort-and-run: the row's slots are sorted by (candidate, position); the
+// thread that holds a run's first slot sums the run once and writes the
+// sum over the run's weights (each slot's weight is then its candidate's
+// S), and the current community's run gives S_A.  Every valid slot then
+// scores its own gain from its own volume and size, as the scan does.
+// Only the prefix of the row up to its last valid slot, rounded up to a
+// power of two, is sorted.
+template <int W, class Row, class Out>
+__device__ __forceinline__ void louvain_score_rows_sorted(
+    const Row& src, float inv_vol, int singleton_rule, int sentinel,
+    long long first, long long end, const Out& out) {
+  constexpr int T = RowGroup<W>::T;
+  constexpr int RPB = RowGroup<W>::RPB;
+  __shared__ int s_cand[RPB][W];
+  __shared__ unsigned short s_pos[RPB][W];
+  __shared__ float s_w[RPB][W];
+  __shared__ float s_vol[RPB][W];
+  __shared__ int s_size[RPB][W];
+  __shared__ float s_best[RPB][T];
+  __shared__ int s_id[RPB][T];
+  __shared__ float s_sa[RPB];
+  __shared__ int s_len[RPB];       // 1 + the row's last valid slot
+  __shared__ int s_len_block;
+
+  const int sub = threadIdx.x / T;
+  const int t = threadIdx.x % T;
+  const long long r = first + sub;
+  const bool live = r < end;
+  if (t == 0) {
+    s_len[sub] = 0;
+    s_sa[sub] = 0.0f;
+  }
+  if (threadIdx.x == 0) s_len_block = 0;
+
+  int last = -1;
+  if (live) {
+    for (int k = t; k < W; k += T) {
+      src.stage(r, k, W, s_cand[sub][k], s_w[sub][k], s_vol[sub][k],
+                s_size[sub][k]);
+      s_pos[sub][k] = static_cast<unsigned short>(k);
+      if (s_cand[sub][k] != sentinel) last = k;
+    }
+  }
+  const LouvainRowTerms a =
+      live ? src.row(r) : LouvainRowTerms{sentinel, 0.0f, 0.0f, 0};
+  const int cur = a.cur;
+  __syncthreads();
+  if (last >= 0) {
+    atomicMax(&s_len[sub], last + 1);
+    atomicMax(&s_len_block, last + 1);
+  }
+  __syncthreads();
+  const int P = pow2_ceil(s_len[sub]);
+  sort_row<W, T>(s_cand[sub], s_pos[sub], s_w[sub], P,
+                 pow2_ceil(s_len_block), t, sentinel);
+
+  if (live) {
+    for (int p = t; p < P; p += T) {
+      const int ck = s_cand[sub][p];
+      if (ck == sentinel) break;                 // sentinels sort last
+      if (p > 0 && s_cand[sub][p - 1] == ck) continue;  // not a run's head
+      const int end = run_end(s_cand[sub], p, P, ck);
+      float s_k = 0.0f;
+#pragma unroll 4
+      for (int q = p; q < end; ++q) s_k = __fadd_rn(s_k, s_w[sub][q]);
+      for (int q = p; q < end; ++q) s_w[sub][q] = s_k;
+      if (ck == cur) s_sa[sub] = s_k;
+    }
+  }
+  __syncthreads();
+
+  float best = -INFINITY;
+  int best_id = INT_MAX;
+  if (live) {
+    const float sa = s_sa[sub];
+    const float vol_a_minus = __fsub_rn(a.vol_cur, a.deg);
+    for (int p = t; p < P; p += T) {
+      const int ck = s_cand[sub][p];
+      if (ck == sentinel) break;
+      if (ck == cur) continue;                   // is_A
+      const int k = s_pos[sub][p];
+      if (singleton_rule && a.size_cur == 1 && s_size[sub][k] == 1 && ck > cur)
+        continue;                                  // gain = -inf
+      // ck != cur, so vol(B-) = vol_k - 0
+      const float vol_b_minus = __fsub_rn(s_vol[sub][k], 0.0f);
+      const float gain = __fsub_rn(
+          __fsub_rn(s_w[sub][p], sa),
+          __fmul_rn(a.deg, __fmul_rn(__fsub_rn(vol_b_minus, vol_a_minus), inv_vol)));
+      argmax_combine(best, best_id, gain, ck);
+    }
+  }
+  s_best[sub][t] = best;
+  s_id[sub][t] = best_id;
+  __syncthreads();
+  for (int s = T / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      float b = s_best[sub][t];
+      int id = s_id[sub][t];
+      argmax_combine(b, id, s_best[sub][t + s], s_id[sub][t + s]);
+      s_best[sub][t] = b;
+      s_id[sub][t] = id;
+    }
+    __syncthreads();
+  }
+
+  if (live && t == 0) {
+    best = s_best[sub][0];
+    out(r, best > -INFINITY ? s_id[sub][0] : -1, best);
+  }
+}
+
+// Scores rows first + (threadIdx.x / T) of the flat tiles, those below
+// `end`; every thread of the block calls it (it synchronises the block).
+// Narrow rows take the scan, wider ones the sort (kScanMaxWidth); both give
+// the same bits.
+template <int W, class Row, class Out>
+__device__ __forceinline__ void louvain_score_rows(
+    const Row& src, float inv_vol, int singleton_rule, int sentinel,
+    long long first, long long end, const Out& out) {
+  if constexpr (W <= kScanMaxWidth)
+    louvain_score_rows_scan<W>(src, inv_vol, singleton_rule, sentinel, first,
+                               end, out);
+  else
+    louvain_score_rows_sorted<W>(src, inv_vol, singleton_rule, sentinel,
+                                 first, end, out);
 }
 
 }  // namespace repro_torch

@@ -101,10 +101,10 @@ struct PlpScores {
   }
 };
 
-// Scores rows first + (threadIdx.x / T) of the flat tiles, those below
-// `end`; every thread of the block calls it (it synchronises the block).
+// The W*W scan: each thread scores candidates k = t, t + T, ... by
+// summing the row's matching weights with j ascending.
 template <int W, class Row, class Out>
-__device__ __forceinline__ void plp_score_rows(const Row& src, uint32_t seed,
+__device__ __forceinline__ void plp_score_rows_scan(const Row& src, uint32_t seed,
                                                float scale, int sentinel,
                                                long long first, long long end,
                                                const Out& out) {
@@ -175,6 +175,124 @@ __device__ __forceinline__ void plp_score_rows(const Row& src, uint32_t seed,
                 : 0.0f;
     out(r, best > -INFINITY ? best_id : -1, best, cur_score);
   }
+}
+
+// Sort-and-run: the row's slots are sorted by (label, position) and each
+// label's run is summed once, by the thread that holds its first slot,
+// which also adds the tie noise and offers the label to the argmax; the
+// run of the current label gives its sum.  Only the prefix of the row up
+// to its last valid slot, rounded up to a power of two, is sorted.
+template <int W, class Row, class Out>
+__device__ __forceinline__ void plp_score_rows_sorted(
+    const Row& src, uint32_t seed, float scale, int sentinel,
+    long long first, long long end, const Out& out) {
+  constexpr int T = RowGroup<W>::T;
+  constexpr int RPB = RowGroup<W>::RPB;
+  __shared__ int s_lab[RPB][W];
+  __shared__ unsigned short s_pos[RPB][W];
+  __shared__ float s_w[RPB][W];
+  __shared__ float s_best[RPB][T];
+  __shared__ int s_id[RPB][T];
+  __shared__ int s_len[RPB];       // 1 + the row's last valid slot
+  __shared__ int s_cur[RPB];       // the row's current label
+  __shared__ float s_cur_sum[RPB];
+  __shared__ int s_present[RPB];
+  __shared__ int s_len_block;
+
+  const int sub = threadIdx.x / T;
+  const int t = threadIdx.x % T;
+  const long long r = first + sub;
+  const bool live = r < end;
+  if (t == 0) {
+    s_len[sub] = 0;
+    s_present[sub] = 0;
+  }
+  if (threadIdx.x == 0) s_len_block = 0;
+
+  // the row's key is loaded before the staging, so its latency overlaps it
+  const int key = live ? src.key(r) : sentinel;
+  int last = -1;
+  if (live) {
+    for (int k = t; k < W; k += T) {
+      src.stage(r, k, W, s_lab[sub][k], s_w[sub][k]);
+      s_pos[sub][k] = static_cast<unsigned short>(k);
+      if (s_lab[sub][k] != sentinel) last = k;
+    }
+    if (t == 0) s_cur[sub] = src.cur(r, key);
+  }
+  __syncthreads();
+  if (last >= 0) {
+    atomicMax(&s_len[sub], last + 1);
+    atomicMax(&s_len_block, last + 1);
+  }
+  __syncthreads();
+  const int P = pow2_ceil(s_len[sub]);
+  sort_row<W, T>(s_lab[sub], s_pos[sub], s_w[sub], P,
+                 pow2_ceil(s_len_block), t, sentinel);
+
+  const uint32_t row_n = static_cast<uint32_t>(key);
+  float best = -INFINITY;
+  int best_id = INT_MAX;
+  if (live) {
+    const int cur = s_cur[sub];
+    for (int p = t; p < P; p += T) {
+      const int lk = s_lab[sub][p];
+      if (lk == sentinel) break;                 // sentinels sort last
+      if (p > 0 && s_lab[sub][p - 1] == lk) continue;  // not a run's head
+      const int end = run_end(s_lab[sub], p, P, lk);
+      float score = 0.0f;
+#pragma unroll 4
+      for (int q = p; q < end; ++q) score = __fadd_rn(score, s_w[sub][q]);
+      const float eff = __fadd_rn(
+          score, tie_noise(row_n, static_cast<uint32_t>(lk), seed, scale));
+      argmax_combine(best, best_id, eff, lk);
+      if (lk == cur) {
+        s_cur_sum[sub] = score;
+        s_present[sub] = 1;
+      }
+    }
+  }
+  s_best[sub][t] = best;
+  s_id[sub][t] = best_id;
+  __syncthreads();
+  for (int s = T / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      float b = s_best[sub][t];
+      int id = s_id[sub][t];
+      argmax_combine(b, id, s_best[sub][t + s], s_id[sub][t + s]);
+      s_best[sub][t] = b;
+      s_id[sub][t] = id;
+    }
+    __syncthreads();
+  }
+
+  if (live && t == 0) {
+    best = s_best[sub][0];
+    best_id = s_id[sub][0];
+    const int cur = s_cur[sub];
+    const float cur_score =
+        s_present[sub]
+            ? __fadd_rn(s_cur_sum[sub],
+                        tie_noise(row_n, static_cast<uint32_t>(cur), seed,
+                                  scale))
+            : 0.0f;
+    out(r, best > -INFINITY ? best_id : -1, best, cur_score);
+  }
+}
+
+// Scores rows first + (threadIdx.x / T) of the flat tiles, those below
+// `end`; every thread of the block calls it (it synchronises the block).
+// Narrow rows take the scan, wider ones the sort (kScanMaxWidth); both give
+// the same bits.
+template <int W, class Row, class Out>
+__device__ __forceinline__ void plp_score_rows(const Row& src, uint32_t seed,
+                                               float scale, int sentinel,
+                                               long long first, long long end,
+                                               const Out& out) {
+  if constexpr (W <= kScanMaxWidth)
+    plp_score_rows_scan<W>(src, seed, scale, sentinel, first, end, out);
+  else
+    plp_score_rows_sorted<W>(src, seed, scale, sentinel, first, end, out);
 }
 
 }  // namespace repro_torch

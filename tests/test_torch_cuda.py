@@ -17,6 +17,13 @@ score them) must equal the fused kernels bit for bit on float32 weights
 too; ``sorted_segment_sum`` runs with runs longer than two blocks and
 lengths that are not a block multiple.
 
+The sort-and-run scoring of the wide rows meets adversarial rows — one
+run of W, W runs of one, mostly padding, exact ties — at every width and
+at the scored-tile kernels' widest (4096, 2048): bit for bit on integer
+weights, the weight-mass contract on uniform(0.5, 1.5) weights.  A
+``pallas`` cascade on a 6144-vertex graph equals the ``ell`` and
+``segment`` runs, ``cascade_stages`` included.
+
 The flash-attention kernels run against their plain version at every head
 dim they take, GQA groups 1, 2 and 4, causal and not, Sq != Sk and ragged
 lengths: float32 inputs through the CUDA-core kernel within 1e-5, bf16
@@ -356,6 +363,233 @@ def test_two_step_equals_fused_on_f32_weights(cuda_device, width):
     torch.cuda.synchronize()
     assert torch.equal(best, fused[0])
     assert torch.equal((best >= 0) & (gain > 0.0), fused[1])
+
+
+ADVERSARIAL = ("one_label", "distinct", "sentinels", "ties")
+
+
+def _adversarial(kind, rows, width, n, seed, weights, dev):
+    """Rows that stress the sort-and-run scoring: ``one_label`` — every
+    slot valid and one label (a single run of W); ``distinct`` — every
+    slot a different label (runs of one); ``sentinels`` — 95 % padding
+    slots anywhere in the row; ``ties`` — two labels on alternating slots
+    with equal weight sums (exact score ties, broken by the smaller id).
+    Neighbour ids lie in [0, n/2), row ids in [n/2, n), so a row's own
+    label is never its neighbours' and moves are proposed.  ``weights``:
+    ``int`` (1..4; 1 for ``ties``) or ``f32`` (uniform(0.5, 1.5)).
+    Returns the (rows, nbr, w) tiles and the four per-vertex tables."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    r_ids = rng.choice(np.arange(half, n), rows, replace=False).astype(
+        np.int32)
+    if kind == "distinct":
+        nbr = np.stack([rng.permutation(half)[:width] for _ in range(rows)])
+    else:
+        nbr = rng.integers(0, half, (rows, width))
+    nbr = nbr.astype(np.int32)
+    if kind == "sentinels":
+        nbr[rng.random((rows, width)) < 0.95] = n
+    labels = np.arange(n)
+    if kind == "one_label":
+        labels[:half] = 7
+    elif kind == "ties":
+        labels[:half] = 11
+        nbr[:, 1::2] = nbr[:, 1::2] % 2 * 2 + 1     # odd ids 1, 3 ...
+        nbr[:, 0::2] = nbr[:, 0::2] % 2 * 2         # ... even ids 0, 2
+        labels[[0, 2]] = 5
+        labels[[1, 3]] = 3
+    if weights == "f32":
+        w = rng.uniform(0.5, 1.5, (rows, width))
+    else:
+        w = np.ones((rows, width)) if kind == "ties" \
+            else rng.integers(1, 5, (rows, width))
+    w = np.where(nbr < n, w, 0.0).astype(np.float32)
+    tabs = [np.concatenate([labels, [n]]).astype(np.int32),
+            np.concatenate([rng.integers(1, 40, n), [0]]).astype(np.float32),
+            np.concatenate([rng.integers(1, 3, n), [0]]).astype(np.int32),
+            np.concatenate([rng.integers(1, 9, n), [0]]).astype(np.float32)]
+    if kind == "ties":      # equal candidate volumes: equal gains
+        tabs[1][:half] = 20.0
+    return [_card(x, dev) for x in (r_ids, nbr, w)], [_card(t, dev)
+                                                      for t in tabs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie_eps", [0.25, 0.0])
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("width", WIDTHS)
+def test_local_move_kernels_on_adversarial_rows(cuda_device, width, kind,
+                                                tie_eps):
+    """The fused kernels ≡ their plain versions, bit for bit, on rows of
+    one run, of W runs, mostly padding, and of exact ties (tie_eps = 0
+    leaves PLP's ties to the smaller label), integer weights."""
+    n = 4096
+    tiles, tabs = _adversarial(kind, 40, width, n, width + 7, "int",
+                               cuda_device)
+    kw = dict(tie_eps=tie_eps, sentinel=n)
+    k = local_move_plp_kernel(*tiles, tabs[0], 5, **kw)
+    p = local_move_plp_ref(*tiles, tabs[0], 5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert bool(k[1].any())
+    composed = compose_louvain_tables(*tabs, n)
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32, device=cuda_device)
+    for rule in (True, False):
+        k = local_move_louvain_kernel(*tiles, *composed, inv, sentinel=n,
+                                      singleton_rule=rule)
+        p = local_move_louvain_tables_ref(*tiles, *composed, inv, sentinel=n,
+                                          singleton_rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["distinct", "sentinels"])
+@pytest.mark.parametrize("width", [256, 1024])
+def test_local_move_kernels_with_wide_sort_keys(cuda_device, width, kind):
+    """A sentinel past 2^(32 - log2 W) (a graph of 16 M vertices) puts the
+    sort on its 64-bit keys: bit for bit against the plain versions."""
+    n = (1 << 24) + 5
+    tiles, tabs = _adversarial(kind, 40, width, n, width, "int", cuda_device)
+    k = local_move_plp_kernel(*tiles, tabs[0], 5, tie_eps=0.25, sentinel=n)
+    p = local_move_plp_ref(*tiles, tabs[0], 5, tie_eps=0.25, sentinel=n)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert int(k[0].max()) >= 1 << 22      # past the 32-bit keys' labels
+    composed = compose_louvain_tables(*tabs, n)
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32, device=cuda_device)
+    k = local_move_louvain_kernel(*tiles, *composed, inv, sentinel=n,
+                                  singleton_rule=True)
+    p = local_move_louvain_tables_ref(*tiles, *composed, inv, sentinel=n,
+                                      singleton_rule=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def _mass_contract(kernel_out, plain_out, plain, args, sentinel, mass,
+                   keep_cur=None):
+    """The float32 contract of the scored-tile kernels (chip_smoke.py,
+    ``check_tiles_f32``): scores within 1e-5 of the row's weight mass M,
+    labels equal wherever the plain version's top two scores are more than
+    2e-5·M apart (the runner-up: the plain best with the best label's
+    slots masked out)."""
+    for a, b in zip(kernel_out[1:], plain_out[1:]):
+        diff = torch.where(a == b, 0.0, (a - b).abs())
+        assert bool((diff <= 1e-5 * mass).all())
+    best = plain_out[0]
+    masked = torch.where(args[0] == best[:, None], sentinel, args[0])
+    second = plain(masked, *args[1:])[1]
+    decided = (best < 0) | ((plain_out[1] - second).abs() > 2e-5 * mass)
+    assert torch.equal(kernel_out[0][decided], best[decided])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("width", WIDTHS)
+def test_sort_and_run_on_f32_weights(cuda_device, width, kind):
+    """uniform(0.5, 1.5) weights on the adversarial rows: the scored-tile
+    kernels hold the weight-mass contract against their plain versions,
+    and the fused kernels equal the two-step path bit for bit."""
+    n = 4096
+    tiles, tabs = _adversarial(kind, 40, width, n, width + 9, "f32",
+                               cuda_device)
+    mass = tiles[2].abs().sum(dim=1).clamp_min(1.0)
+    lab, cur, keys = _plp_tiles(tiles, tabs, n)
+    args = (lab, tiles[2], cur, keys, 5)
+    k = label_argmax_kernel(*args, tie_eps=0.25, sentinel=n)
+    p = label_argmax_chunked(*args, 0.25, n)
+    _mass_contract(k, p, lambda *a: label_argmax_chunked(*a, 0.25, n), args,
+                   n, mass)
+    fused = local_move_plp_kernel(*tiles, tabs[0], 5, tie_eps=0.25,
+                                  sentinel=n)
+    assert torch.equal(k[0], fused[0])
+    assert torch.equal((k[0] >= 0) & (k[1] > k[2]), fused[1])
+
+    composed = compose_louvain_tables(*tabs, n)
+    vol_total = torch.tensor(977.0, device=cuda_device)
+    tiles_q = _louvain_tiles(tiles, composed, n)
+    best, gain = delta_q_argmax(*tiles_q[:1], tiles[2], *tiles_q[1:],
+                                vol_total, sentinel=n, singleton_rule=True,
+                                use_pallas=True)
+    fused = local_move_louvain_kernel(*tiles, *composed,
+                                      (1.0 / vol_total).to(torch.float32),
+                                      sentinel=n, singleton_rule=True)
+    torch.cuda.synchronize()
+    assert torch.equal(best, fused[0])
+    assert torch.equal((best >= 0) & (gain > 0.0), fused[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("weights", ["int", "f32"])
+def test_scored_tiles_at_their_widest_widths(cuda_device, weights, kind):
+    """label_argmax at 4096 and delta_q at 2048 (their widest rows, past
+    every ELL width) on the adversarial rows: bit for bit on integer
+    weights, the weight-mass contract on float32 weights."""
+    n = 2 * 4096 + 64
+    for name, width in (("label_argmax", 4096), ("delta_q", 2048)):
+        tiles, tabs = _adversarial(kind, 6, width, n, width, weights,
+                                   cuda_device)
+        if name == "label_argmax":
+            lab, cur, keys = _plp_tiles(tiles, tabs, n)
+            args = (lab, tiles[2], cur, keys, 3)
+            k = label_argmax_kernel(*args, tie_eps=0.25, sentinel=n)
+
+            def plain(*a):
+                return label_argmax_chunked(*a, 0.25, n)
+        else:
+            cand, cur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
+                tiles, compose_louvain_tables(*tabs, n), n)
+            inv = torch.tensor(1.0 / 977.0, dtype=torch.float32,
+                               device=cuda_device)
+            args = (cand, tiles[2], cur, deg, volc, volcur, sizec, sizecur,
+                    inv)
+            k = delta_q_kernel(*args, sentinel=n, singleton_rule=True)
+
+            def plain(*a):
+                return delta_q_chunked(*a, n, True)
+        p = plain(*args)
+        torch.cuda.synchronize()
+        if weights == "int":
+            assert all(torch.equal(a, b) for a, b in zip(k, p)), name
+        else:
+            _mass_contract(k, p, plain, args, n,
+                           tiles[2].abs().sum(dim=1).clamp_min(1.0))
+
+
+@pytest.mark.cuda
+def test_cascade_on_the_card_agrees_across_backends(cuda_device):
+    """Louvain's default config on a 6144-vertex banded graph on the card:
+    the cascade descends >= 2 capacities, its coarse levels launch the
+    resident local_move kernel on the traced tiles (more launches than
+    the single-capacity run, whose coarse levels run the segment
+    evaluator), and the ``pallas``, ``ell`` and ``segment`` runs and the
+    single-capacity run agree in every field, stages apart for the last."""
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.graph.builders import from_numpy_edges
+
+    rng = np.random.default_rng(5)
+    u = np.repeat(np.arange(6144), 6)
+    v = np.clip(u + rng.integers(1, 40, size=u.size), 0, 6143)
+    g = from_numpy_edges(u[u != v], v[u != v], device=cuda_device)
+    launches = {}
+    runs = {}
+    for b, sched in (("pallas", "auto"), ("pallas", "none"), ("ell", "auto"),
+                     ("segment", "auto")):
+        before = local_move_louvain_kernel.launches
+        runs[b, sched] = louvain(g, LouvainConfig(backend=b,
+                                                  capacity_schedule=sched))
+        launches[b, sched] = local_move_louvain_kernel.launches - before
+    ref = runs["pallas", "auto"]
+    assert len(ref.cascade_stages) >= 2
+    assert launches["pallas", "auto"] > launches["pallas", "none"] > 0
+    assert launches["ell", "auto"] == launches["segment", "auto"] == 0
+    fields = ("n_communities", "levels", "modularity", "modularity_history",
+              "sweeps_per_level", "n_comm_per_level", "delta_n_per_level")
+    for key, res in runs.items():
+        np.testing.assert_array_equal(res.labels, ref.labels)
+        for f in fields + (("cascade_stages",) if key[1] == "auto" else ()):
+            assert getattr(res, f) == getattr(ref, f), (key, f)
 
 
 @pytest.mark.cuda

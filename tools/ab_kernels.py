@@ -5,8 +5,16 @@
 
 KERNEL is ``local_move`` (the resident ``local_move_plp`` and
 ``local_move_louvain`` kernels, on seeded random inputs at the as-skitter
-stand-in's level-0 shapes: tables of 2^21 + 1 entries; W = 16, 64, 1024
-buckets of 810 488, 118 136 and 25 624 rows; 50 launches a timing),
+stand-in's level-0 shapes: tables of 2^21 + 1 entries; W = 16, 64, 256,
+1024 buckets of 810 488, 118 136, 54 888 and 25 624 rows; 50 launches a
+timing; three input sets per width: ``scattered`` — 30 % padding slots
+anywhere in the row, labels from 2^19 ids (runs of one), unit weights;
+``prefix`` — each row's valid slots a prefix of W/4 < d <= W slots, as a
+level-0 bucket holds them, labels from 2^19 ids, uniform(0.5, 1.5)
+weights; ``long_runs`` — the same prefixes with labels from 8 ids, so
+each row holds a few long runs, uniform(0.5, 1.5) weights; ``one_run``
+— the same prefixes all of one label, a single run of d slots, as rows
+of a converged PLP sweep nearly are),
 ``flash_attention_fwd`` (the float32 CUDA-core kernel, on seeded bf16
 inputs, causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py``
 (2, 16, 4096, 128), 20 launches a timing, and at one prefill_32k sequence
@@ -26,6 +34,7 @@ held to ``attention_ref`` instead (one bf16 ulp of the larger value plus
 CUDA card and ``nvcc``.
 """
 import ctypes
+import itertools
 import subprocess
 import sys
 from pathlib import Path
@@ -113,6 +122,19 @@ def ab(labels, launcher, outputs, what, reps, check=None):
         sys.exit(1)
 
 
+def local_move_inputs(rng, W, R, kind):
+    """(nbr, w) of one input set (module docstring)."""
+    if kind == "scattered":
+        nbr = rng.integers(0, N, (R, W)).astype(np.int32)
+        nbr[rng.random((R, W)) < 0.3] = N
+        return nbr, (nbr < N).astype(np.float32)
+    deg = rng.integers(W // 4 + 1, W + 1, R)
+    nbr = rng.integers(0, N, (R, W)).astype(np.int32)
+    nbr[np.arange(W)[None, :] >= deg[:, None]] = N
+    w = np.where(nbr < N, rng.uniform(0.5, 1.5, (R, W)), 0.0)
+    return nbr, w.astype(np.float32)
+
+
 def local_move(libs, labels, dev):
     rng = np.random.default_rng(0)
 
@@ -123,14 +145,19 @@ def local_move(libs, labels, dev):
             card(np.append(rng.integers(1, 50, N), 0).astype(np.float32)),
             card(np.append(rng.integers(1, 3, N), 0).astype(np.int32)),
             card(np.append(rng.integers(1, 9, N), 0).astype(np.float32))]
+    # the label / community tables of the long-run inputs: 8 ids, 1 id
+    tables = {"long_runs": card(np.append(rng.integers(0, 8, N), N).astype(
+                  np.int32)),
+              "one_run": card(np.append(np.full(N, 3), N).astype(np.int32))}
     inv = torch.tensor(1e-7, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for W, R in ((16, 810_488), (64, 118_136), (1024, 25_624)):
+    for (W, R), kind in itertools.product(
+            ((16, 810_488), (64, 118_136), (256, 54_888), (1024, 25_624)),
+            ("scattered", "prefix", "long_runs", "one_run")):
         rows = card(rng.choice(N, R, replace=False).astype(np.int32))
-        nbr_np = rng.integers(0, N, (R, W)).astype(np.int32)
-        nbr_np[rng.random((R, W)) < 0.3] = N
-        nbr = card(nbr_np)
-        w = torch.where(nbr < N, 1.0, 0.0).to(torch.float32)
+        nbr_np, w_np = local_move_inputs(rng, W, R, kind)
+        nbr, w = card(nbr_np), card(w_np)
+        lab = tables.get(kind, tabs[0])
         best = torch.empty(R, dtype=torch.int32, device=dev)
         prop = torch.empty(R, dtype=torch.bool, device=dev)
         out = (best.data_ptr(), prop.data_ptr(), stream)
@@ -140,19 +167,21 @@ def local_move(libs, labels, dev):
             return entry(libs[(label, "local_move_plp")], "local_move_plp",
                          [_P] * 4 + [ctypes.c_uint32, ctypes.c_float, _I,
                                      ctypes.c_longlong, _I, _P, _P, _P],
-                         (*head, tabs[0].data_ptr(), 7, 1e-10, N, R, W, *out))
+                         (*head, lab.data_ptr(), 7, 1e-10, N, R, W, *out))
 
         def louvain(label):
             return entry(libs[(label, "local_move_louvain")],
                          "local_move_louvain",
                          [_P] * 8 + [_I, _I, ctypes.c_longlong, _I, _P, _P,
                                      _P],
-                         (*head, *(t.data_ptr() for t in tabs),
+                         (*head, lab.data_ptr(),
+                          *(t.data_ptr() for t in tabs[1:]),
                           inv.data_ptr(), 1, N, R, W, *out))
 
         for k, launcher in (("local_move_plp", plp),
                             ("local_move_louvain", louvain)):
-            ab(labels, launcher, (best, prop), f"{k} W={W} rows={R}", 50)
+            ab(labels, launcher, (best, prop),
+               f"{k} W={W} rows={R} {kind}", 50)
 
 
 def within_bf16_ulp(a, r) -> bool:
