@@ -70,7 +70,16 @@ Phases, each failing loudly (exit code 1, no result line):
    the stream, so the wrapper's host work between launches is not in
    it), each plain
    version by ``loop_ms`` (CUDA events around back-to-back calls), beside
-   the least time the card could take (``bound_ms``).  Each streamed
+   the least time the card could take (``bound_ms``).  Every local_move
+   tile is first checked against the tile contract (``graph/ell.py
+   tile_contract``: sentinel rows hold only sentinels of weight 0), and
+   its live rows, real slots, slots up to each live row's last real one,
+   rows with more than one sentinel before their last real slot (which
+   the builders' layout never makes: logged, not failed) and distinct
+   table ids gathered are logged; the local_move bound (the contract
+   bound) counts those slots and the table entries at those ids, and the
+   log gives the full-tile bound (every slot, every table) beside it.
+   Each streamed
    bucket is also timed through the resident kernel, and the bytes the
    streamed layout reads (tiles, one window per block per table, outputs)
    are printed beside the bound.  ``label_argmax`` and ``delta_q`` run on
@@ -811,22 +820,51 @@ def phase_two_step(args, torch, rt, recs, graphs):
     return {"launches": launches, "gather_fusion": out}, captured, seg_inputs
 
 
-def local_move_bytes(R: int, W: int, n1: int, n_tables: int) -> int:
-    """Bytes a local_move function must move: rows, the (R, W) ids and
-    weights and every table read once; the (R,) label/candidate and flag
-    outputs written once."""
-    return 4 * R + 8 * R * W + 4 * n_tables * n1 + 5 * R
+def local_move_bytes(R: int, slots: int, entries: int) -> int:
+    """Bytes a local_move function moves: the R row ids, the ids and
+    weights of ``slots`` tile slots, ``entries`` 4-byte table entries,
+    and the (R,) label/candidate and flag outputs once."""
+    return 4 * R + 8 * slots + 4 * entries + 5 * R
 
 
-def local_move_bound(nbr, n1: int, n_tables: int):
-    """(bound ms, bound_by) of one local_move call.  Operations: a weighted
-    mode or gain argmax over a row's valid entries needs no more than a
-    sort (log2 W compares per entry) and a scan (one add and one compare
-    per entry)."""
+def local_move_bound(rt, rows, nbr, w, n1: int, tables: tuple[int, int]):
+    """(bound ms, bound_by, full-tile bound ms, tile counts) of one
+    local_move call, after checking the tile contract
+    (``graph/ell.py tile_contract``) on its tile.  Bytes: under the
+    contract the function reads each row id, each live row's slots up to
+    its last real one (``prefix_slots``), and the table entries it
+    gathers, and writes its outputs.  ``tables = (a, b)``: a tables are
+    read at the row ids and the neighbour ids, b at the row ids alone, in
+    each case only at the distinct ids of the live rows that hold a real
+    slot (a row with none moves nowhere, whatever the tables hold) and of
+    their real neighbours (``table_ids``).  The full-tile bound counts
+    every slot of every row and every table in full.  Operations: a
+    weighted mode or gain argmax over a row's real entries needs no more
+    than a sort (log2 W compares per entry) and a scan (one add and one
+    compare per entry)."""
     R, W = nbr.shape
-    valid = int((nbr < n1 - 1).sum())
-    return bound_ms(local_move_bytes(R, W, n1, n_tables),
-                    valid * (math.log2(W) + 2.0))
+    sentinel = n1 - 1
+    try:
+        live, real, prefix, crowded = rt.tile_contract(rows, nbr, w,
+                                                       sentinel)
+    except ValueError as err:
+        fail(f"a main-path tile ({R} x {W}) breaks the tile contract: {err}")
+    real_slot = nbr < sentinel
+    row_ids = rows[real_slot.any(dim=1)]
+    seen = rows.new_zeros(n1).bool()
+    seen[row_ids.long()] = True
+    seen[nbr[real_slot].long()] = True
+    ids = int(seen.sum())
+    at_both, at_row = tables
+    entries = at_both * ids + at_row * int(row_ids.numel())
+    ops = real * (math.log2(W) + 2.0)
+    nbytes = local_move_bytes(R, prefix, entries)
+    b_ms, kind = bound_ms(nbytes, ops)
+    full_ms, _ = bound_ms(local_move_bytes(R, R * W, sum(tables) * n1), ops)
+    return b_ms, kind, full_ms, {"live_rows": live, "real_slots": real,
+                                 "prefix_slots": prefix,
+                                 "crowded_rows": crowded, "table_ids": ids,
+                                 "bound_bytes": nbytes}
 
 
 def check_equal(kernel, plain, a, kw, name, graph, width, tag, torch):
@@ -851,13 +889,15 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
     reps = args.reps
     rows_out = []
 
-    def local_move(rec, name, kernel, plain, n_tables):
+    def local_move(rec, name, kernel, plain, tables):
         """Compare on every recorded (graph, level, width) input and time
         the last call of each.  The totals sum the R-MAT graph's level-0
         buckets (one main-path sweep); the ``coarse`` totals sum its
-        coarse levels' traced tiles (one sweep of each level)."""
+        coarse levels' traced tiles (one sweep of each level); the
+        full-tile bounds of both are logged."""
         total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
         coarse = dict(total)
+        full_tile = {0: 0.0, 1: 0.0}            # level 0, coarse levels
         err, bound_kinds, detail = 0.0, {"bytes": 0.0, "operations": 0.0}, []
         for (graph, level, width), (first, last) in sorted(rec.calls.items()):
             where = f"{graph} L{level}"
@@ -872,7 +912,8 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
                            torch)
             R, W = nbr.shape
             n1 = rest[0].shape[0]
-            b_ms, kind = local_move_bound(nbr, n1, n_tables)
+            b_ms, kind, full_ms, counts = local_move_bound(
+                rt, rows, nbr, w, n1, tables)
             if graph == MAIN_GRAPH[0]:
                 into = total if level == 0 else coarse
                 if level == 0:
@@ -880,17 +921,29 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
                 into["ms"] += k_ms
                 into["plain_ms"] += p_ms
                 into["bound_ms"] += b_ms
+                full_tile[min(level, 1)] += full_ms
             detail.append({"graph": graph, "level": level, "width": W,
-                           "rows": R, "rows_real": int((rows < n1 - 1).sum()),
-                           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                           "bound_by": kind})
+                           "rows": R, **counts, "ms": k_ms,
+                           "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": kind})
             log(f"[kernels] {name} {graph} level {level} W={W} rows={R}: "
-                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({kind})")
+                f"live rows {counts['live_rows']}, real slots "
+                f"{counts['real_slots']}, slots up to each live row's last "
+                f"real one {counts['prefix_slots']} (of {R * W}), crowded "
+                f"rows {counts['crowded_rows']}, table ids "
+                f"{counts['table_ids']} (of {n1 - 1}); kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({kind}, {counts['bound_bytes']} B; full tile "
+                f"{full_ms:.4f} ms)")
+        log(f"[kernels] {name} {MAIN_GRAPH[0]} totals: level 0 kernel "
+            f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, full "
+            f"tile {full_tile[0]:.4f} ms; coarse levels kernel "
+            f"{coarse['ms']:.4f} ms, bound {coarse['bound_ms']:.4f} ms, "
+            f"full tile {full_tile[1]:.4f} ms")
         total["coarse"] = coarse
         return total, err, bound_kinds, detail
 
-    def streamed_local_move(rec, name, kernel, plain, resident, n_tables):
+    def streamed_local_move(rec, name, kernel, plain, resident, tables):
         """Compare on every recorded (graph, width) input; time the streamed
         kernel, the resident kernel on the same bucket and the plain
         version; the totals sum every streamed bucket (com-dblp's)."""
@@ -915,7 +968,8 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
                            torch)
             R, W = nbr.shape
             n1 = rest[0].shape[0]
-            b_ms, kind = local_move_bound(nbr, n1, n_tables)
+            b_ms, kind, full_ms, counts = local_move_bound(
+                rt, rows, nbr, w, n1, tables)
             nb = int(win.win_blk.numel())
             # the same bucket re-blocked: how the block size trades blocks
             # against window bytes (the main path runs win.block_rows)
@@ -935,8 +989,8 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
             log(f"[kernels] {name} {graph} W={W} by rows per block: "
                 + ", ".join(f"{br}: {v['ms']:.4f} ms (slot {v['slot']})"
                             for br, v in sweep.items()))
-            read = (local_move_bytes(R, W, n1, n_tables) - 4 * n_tables * n1
-                    + nb * 2 * win.slot * 4 * n_tables)
+            read = (local_move_bytes(R, R * W, 0)
+                    + nb * 2 * win.slot * 4 * sum(tables))
             bound_kinds[kind] += b_ms
             total["ms"] += k_ms
             total["resident_ms"] += r_ms
@@ -946,29 +1000,31 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
                            "blocks": nb, "block_rows": win.block_rows,
                            "slot": win.slot, "ms": k_ms, "resident_ms": r_ms,
                            "plain_ms": p_ms, "bound_ms": b_ms,
-                           "bound_by": kind,
-                           "bound_bytes": local_move_bytes(R, W, n1, n_tables),
+                           "bound_by": kind, **counts,
                            "streamed_bytes": read, "by_block_rows": sweep})
             log(f"[kernels] {name} {graph} W={W} rows={R} blocks={nb} "
                 f"slot={win.slot}: streamed kernel {k_ms:.4f} ms, resident "
                 f"kernel {r_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                f"{b_ms:.4f} ms ({kind}); bytes: the function's "
-                f"{local_move_bytes(R, W, n1, n_tables)}, the streamed "
+                f"{b_ms:.4f} ms ({kind}; full tile {full_ms:.4f} ms); bytes: "
+                f"the function's {detail[-1]['bound_bytes']}, the streamed "
                 f"layout reads {read}")
         return total, err, bound_kinds, detail
 
+    # tables read at the row and neighbour ids, and at the row ids alone:
+    # PLP's labels; Louvain's com_v, volcom_v, sizecom_v, and deg_v
+    plp_tables, lv_tables = (1, 0), (3, 1)
     plp_tot, plp_err, plp_kinds, plp_det = local_move(
         rec_plp, "local_move_plp", rec_plp.fn,
-        rt.lm_ref.local_move_plp_ref, 1)
+        rt.lm_ref.local_move_plp_ref, plp_tables)
     lv_tot, lv_err, lv_kinds, lv_det = local_move(
         rec_lv, "local_move_louvain", rec_lv.fn,
-        rt.lm_ref.local_move_louvain_tables_ref, 4)
+        rt.lm_ref.local_move_louvain_tables_ref, lv_tables)
     plp_s_tot, plp_s_err, plp_s_kinds, plp_s_det = streamed_local_move(
         rec_plp_s, "local_move_plp_streamed", rec_plp_s.fn,
-        rt.lm_ref.local_move_plp_windowed_ref, rec_plp.fn, 1)
+        rt.lm_ref.local_move_plp_windowed_ref, rec_plp.fn, plp_tables)
     lv_s_tot, lv_s_err, lv_s_kinds, lv_s_det = streamed_local_move(
         rec_lv_s, "local_move_louvain_streamed", rec_lv_s.fn,
-        rt.lm_ref.local_move_louvain_windowed_ref, rec_lv.fn, 4)
+        rt.lm_ref.local_move_louvain_windowed_ref, rec_lv.fn, lv_tables)
 
     if not rec_bin.calls:
         fail("bin_rank recorded no main-path call")
@@ -1645,7 +1701,8 @@ def main(argv) -> int:
         from repro_torch.core.louvain import (LEVEL_IT_STRIDE, LouvainConfig,
                                               louvain)
         from repro_torch.core.plp import PLPConfig, plp
-        from repro_torch.graph.ell import build_ell, compute_windows
+        from repro_torch.graph.ell import (build_ell, compute_windows,
+                                           tile_contract)
         from repro_torch.core import moves
         from repro_torch.kernels import build
         from repro_torch.kernels.aggregation import kernel as agg_kernel
@@ -1677,7 +1734,7 @@ def main(argv) -> int:
         datasets=datasets, LouvainConfig=LouvainConfig, louvain=louvain,
         SweepEngine=SweepEngine, LEVEL_IT_STRIDE=LEVEL_IT_STRIDE,
         PLPConfig=PLPConfig, plp=plp, build_ell=build_ell,
-        compute_windows=compute_windows,
+        compute_windows=compute_windows, tile_contract=tile_contract,
         agg_kernel=agg_kernel, agg_ops=agg_ops, agg_ref=agg_ref,
         lm_kernel=lm_kernel, lm_ops=lm_ops, lm_ref=lm_ref, moves=moves,
         la_kernel=la_kernel, la_ops=la_ops, la_ref=la_ref,

@@ -20,6 +20,22 @@ the streamed table layout (``TableWindows``), computed on the device.
 levels: one vertex-aligned ``(n_max, W)`` tile per level, built on the
 device from the coarse graph's CSR row pointers, with the vertices wider
 than W left to the tail evaluator.
+
+Tile contract — what ``build_ell`` and ``traced_ell_tile`` both guarantee
+and the local_move kernels may rely on (``tile_contract`` checks it):
+
+1. a row whose id is the sentinel (``n_max``) holds only sentinel slots,
+   of weight 0, so its move is (-1, none) whatever the tables hold; the
+   resident Louvain kernel settles such a row from its id alone;
+2. every sentinel slot has weight 0.
+
+Both builders also lay a live row's real slots out in ``[0, deg)``, in
+edge order, with at most one sentinel among them: none in a ``build_ell``
+bucket (self-loops stay out), the masked self-loop in a traced tile of a
+graph with one self-loop a vertex at most, as every coarse graph has (its
+parallel edges merged).  No kernel relies on this layout: they stay exact
+with padding anywhere in a row.  ``tile_contract`` counts the rows that
+break it, and the tests hold both builders to none.
 """
 from __future__ import annotations
 
@@ -105,7 +121,9 @@ def compute_windows(rows: torch.Tensor, nbr: torch.Tensor, n_max: int,
 class EllBucket:
     """One degree bucket: ``rows`` int32[R] (vertex id, ``n_max`` for
     padding rows), ``nbr`` int32[R, W] (``n_max`` padding), ``w``
-    float32[R, W] (0 padding); ``n_rows_valid`` real rows lead.
+    float32[R, W] (0 padding); ``n_rows_valid`` real rows lead.  The tiles
+    keep the module's tile contract (padding rows are sentinels only), and
+    a real row's ``deg`` neighbours fill ``[0, deg)``.
     ``windows`` enables the streamed table layout; a bucket built by hand
     without it supports the resident layout only."""
 
@@ -146,7 +164,10 @@ def build_ell(g: Graph, widths: Tuple[int, ...] = BUCKET_WIDTHS,
     rows are ordered by (min neighbor id, mean neighbor id, vertex id), the
     JAX package's locality order.  ``block_rows`` sets the rows per
     streamed block of every bucket (default ``stream_block_rows(W)``,
-    capped at the bucket's rows)."""
+    capped at the bucket's rows).  The buckets keep the tile contract
+    (module docstring): padding rows (id ``n_max``) hold only sentinel
+    slots of weight 0.  A row of degree d holds its neighbours in slots
+    ``[0, d)`` with no sentinel among them."""
     n, dev = g.n_max, g.device
     mask = g.edge_mask
     src, dst, w = g.src[mask].long(), g.dst[mask].long(), g.w[mask]
@@ -221,6 +242,12 @@ def traced_ell_tile(g: Graph, width: int) -> Tuple[torch.Tensor, ...]:
 
     Returns ``(rows[n], nbr[n, W], w[n, W], is_tail[n])`` with the
     sentinels of ``EllBucket`` (row and neighbour id ``n_max``, weight 0).
+    The tile keeps the tile contract (module docstring): the row of a
+    padding vertex slot or of a tail vertex has id ``n_max`` and only
+    sentinel slots of weight 0.  A live row of degree d (self-loop
+    included) holds its edges in slots ``[0, d)``, its masked self-loop,
+    of weight 0, the only sentinel among them where the graph holds one
+    self-loop a vertex at most (a coarse graph does).
     """
     n, m, dev = g.n_max, g.m_max, g.device
     if g.sorted_by != "src":
@@ -239,6 +266,30 @@ def traced_ell_tile(g: Graph, width: int) -> Tuple[torch.Tensor, ...]:
     loop = nbr == arange_n[:, None]
     return (rows, torch.where(loop, n, nbr).to(torch.int32),
             torch.where(loop, 0.0, wt), is_tail)
+
+
+def tile_contract(rows: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
+                  n_max: int) -> Tuple[int, int, int, int]:
+    """Checks the tile contract (module docstring) on a ``(rows[R],
+    nbr[R, W], w[R, W])`` tile and returns ``(live rows, real slots, valid
+    prefix slots, crowded rows)``: the valid prefix slots are the sum over
+    live rows of 1 + the row's last real slot; a crowded row is a live row
+    with more than one sentinel before its last real slot, which the
+    builders' layout never makes.  Raises ``ValueError`` where the tile
+    breaks the contract.  Reads back to the host: a check, not a step of
+    the sweep."""
+    real = nbr < n_max
+    live = rows < n_max
+    if bool((real & ~live[:, None]).any()):
+        raise ValueError("tile contract: a sentinel row holds a real slot")
+    if bool(((w != 0) & ~real).any()):
+        raise ValueError("tile contract: a sentinel slot has weight != 0")
+    W = nbr.shape[1]
+    pos = torch.arange(1, W + 1, device=nbr.device)
+    prefix = torch.where(real, pos, 0).amax(dim=1)
+    holes = (pos[None, :] <= prefix[:, None]) & ~real
+    return (int(live.sum()), int(real.sum()), int(prefix.sum()),
+            int((holes.sum(dim=1) > 1).sum()))
 
 
 def grid_view(b: EllBucket) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

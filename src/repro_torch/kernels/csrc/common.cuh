@@ -93,7 +93,7 @@ struct SlotKey {
 };
 
 template <int W>
-__device__ __forceinline__ bool narrow_keys(int sentinel) {
+__host__ __device__ __forceinline__ bool narrow_keys(int sentinel) {
   return sentinel < (1LL << (32 - log2_of(W)));
 }
 
@@ -208,6 +208,48 @@ __device__ __forceinline__ void sort_row(int* lab, unsigned short* pos,
     sort_row_keys<uint32_t, W, T>(lab, pos, w, P, p_block, t);
   else
     sort_row_keys<unsigned long long, W, T>(lab, pos, w, P, p_block, t);
+}
+
+// Sorts one row's W = 32·E keys held by one warp, entirely in registers:
+// element i = 32·e + lane is `key[e]` of that lane, so the exchanges at
+// distance j < 32 are shuffles and those at j >= 32 stay within a lane;
+// no shared memory and no barrier.  Only the network up to P (a power of
+// two, or 0; warp-uniform) runs, as in sort_row_keys: elements from P on
+// are the row's trailing sentinels, already after every valid key, and
+// the merges leave [0, P) ascending.
+template <class K, int W>
+__device__ __forceinline__ void warp_sort_keys(K (&key)[W / 32], int P,
+                                               int lane) {
+  constexpr int E = W / 32;
+#pragma unroll
+  for (int lk = 1; lk <= log2_of(W); ++lk) {
+    const int k = 1 << lk;
+    if (k > P) break;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      if (j >= 32) {                         // within a lane
+        const int je = j / 32;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if ((e & je) == 0 && 32 * e < P) {
+            const int i = 32 * e + lane;
+            const K a = key[e], b = key[e | je];
+            key[e] = bitonic_keep(a, b, i, j, k);
+            key[e | je] = bitonic_keep(b, a, i | j, j, k);
+          }
+        }
+      } else {                               // across lanes
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (32 * e < P) {
+            const K other = __shfl_xor_sync(0xffffffffu, key[e], j);
+            key[e] = bitonic_keep(key[e], other, 32 * e + lane, j, k);
+          }
+        }
+      }
+    }
+  }
 }
 
 // The end of the run of label `lk` that starts at sorted slot p (< P):

@@ -15,8 +15,9 @@
 //   singleton rule: -inf when size(A) == size_k == 1 and cand_k > A
 //   out = (argmax over valid k with cand_k != A, ties to the smaller id, or
 //          -1; the best gain or -inf)
-// The gain keeps exactly this association with every operation rounded
-// separately (__fsub_rn/__fmul_rn, built with -fmad=false), as
+// The gain (louvain_gain, below) keeps exactly this association with every
+// operation rounded separately (__fsub_rn/__fmul_rn, built with
+// -fmad=false), as
 // src/repro/kernels/delta_q/ref.py and eager PyTorch compute it.
 //
 // Candidates, weights, volumes and sizes of a row are staged once in shared
@@ -36,6 +37,31 @@ struct LouvainRowTerms {
   float vol_cur;
   int size_cur;
 };
+
+// The singleton rule: a row alone in A may not move to a candidate ck > A
+// that is itself alone.
+__device__ __forceinline__ bool singleton_blocked(const LouvainRowTerms& a,
+                                                  int ck, int size_k,
+                                                  int singleton_rule) {
+  return singleton_rule && a.size_cur == 1 && size_k == 1 && ck > a.cur;
+}
+
+// gain_k of a candidate ck != A (its weight sum s_k, volume vol_k and size
+// size_k; S_A = sa), or -inf under the singleton rule.  Every scoring path
+// calls it, so the rounding sequence is written here once.
+__device__ __forceinline__ float louvain_gain(const LouvainRowTerms& a,
+                                              int ck, float s_k, float sa,
+                                              float vol_k, int size_k,
+                                              float inv_vol,
+                                              int singleton_rule) {
+  if (singleton_blocked(a, ck, size_k, singleton_rule)) return -INFINITY;
+  const float vol_a_minus = __fsub_rn(a.vol_cur, a.deg);
+  const float vol_b_minus = __fsub_rn(vol_k, 0.0f);  // ck != A: vol_k - 0
+  return __fsub_rn(
+      __fsub_rn(s_k, sa),
+      __fmul_rn(a.deg, __fmul_rn(__fsub_rn(vol_b_minus, vol_a_minus),
+                                 inv_vol)));
+}
 
 // Row source of the fused kernels: candidates and their terms gathered from
 // the per-VERTEX composed tables (com_v, volcom_v, sizecom_v, deg_v;
@@ -169,21 +195,18 @@ __device__ __forceinline__ void louvain_score_rows_scan(
   int best_id = INT_MAX;
   if (live) {
     const float sa = s_sa[sub];
-    const float vol_a_minus = __fsub_rn(a.vol_cur, a.deg);
     for (int k = t; k < W; k += T) {
       const int ck = s_cand[sub][k];
       if (ck == sentinel || ck == cur) continue;  // invalid or is_A
-      if (singleton_rule && a.size_cur == 1 && s_size[sub][k] == 1 && ck > cur)
-        continue;                                  // gain = -inf
+      if (singleton_blocked(a, ck, s_size[sub][k], singleton_rule))
+        continue;                                 // -inf: skip the sum
       float s_k = 0.0f;
       for (int j = 0; j < W; ++j)
         if (s_cand[sub][j] == ck) s_k = __fadd_rn(s_k, s_w[sub][j]);
-      // ck != cur, so vol(B-) = vol_k - 0
-      const float vol_b_minus = __fsub_rn(s_vol[sub][k], 0.0f);
-      const float gain = __fsub_rn(
-          __fsub_rn(s_k, sa),
-          __fmul_rn(a.deg, __fmul_rn(__fsub_rn(vol_b_minus, vol_a_minus), inv_vol)));
-      argmax_combine(best, best_id, gain, ck);
+      argmax_combine(best, best_id,
+                     louvain_gain(a, ck, s_k, sa, s_vol[sub][k],
+                                  s_size[sub][k], inv_vol, singleton_rule),
+                     ck);
     }
   }
   s_best[sub][t] = best;
@@ -281,20 +304,15 @@ __device__ __forceinline__ void louvain_score_rows_sorted(
   int best_id = INT_MAX;
   if (live) {
     const float sa = s_sa[sub];
-    const float vol_a_minus = __fsub_rn(a.vol_cur, a.deg);
     for (int p = t; p < P; p += T) {
       const int ck = s_cand[sub][p];
       if (ck == sentinel) break;
       if (ck == cur) continue;                   // is_A
       const int k = s_pos[sub][p];
-      if (singleton_rule && a.size_cur == 1 && s_size[sub][k] == 1 && ck > cur)
-        continue;                                  // gain = -inf
-      // ck != cur, so vol(B-) = vol_k - 0
-      const float vol_b_minus = __fsub_rn(s_vol[sub][k], 0.0f);
-      const float gain = __fsub_rn(
-          __fsub_rn(s_w[sub][p], sa),
-          __fmul_rn(a.deg, __fmul_rn(__fsub_rn(vol_b_minus, vol_a_minus), inv_vol)));
-      argmax_combine(best, best_id, gain, ck);
+      argmax_combine(best, best_id,
+                     louvain_gain(a, ck, s_w[sub][p], sa, s_vol[sub][k],
+                                  s_size[sub][k], inv_vol, singleton_rule),
+                     ck);
     }
   }
   s_best[sub][t] = best;
@@ -331,6 +349,210 @@ __device__ __forceinline__ void louvain_score_rows(
   else
     louvain_score_rows_sorted<W>(src, inv_vol, singleton_rule, sentinel,
                                  first, end, out);
+}
+
+// ------------------------------------------------------------ one warp a row
+//
+// The resident kernel's path at the widths local_move_louvain.cu picks
+// (W = 32·E, E <= 8): one warp scores one row at a time, with no block
+// barrier, so no row waits on another row's staging or sort.
+//
+// Tile contract (graph/ell.py: build_ell and traced_ell_tile both
+// guarantee it): a row whose id is the sentinel holds only sentinel slots
+// of weight 0, so the plain version gives it (-1, no move).  This path
+// writes that from the row id alone and never reads such a row's slots.
+//
+// A warp takes G consecutive rows: one coalesced read of their row ids and
+// the dead rows written at once; then the slot ids of all its live rows,
+// loaded together, and the live rows with no real slot (a late coarse
+// level's rows mostly hold their masked loop alone) written at once; then
+// the other live rows one after another.  Per such row:
+//  - the W ids again in E coalesced 32-slot loads (mostly cache hits); a
+//    slot's weight and its three table entries are read only where its id
+//    is real (a padding slot's weight takes no part in any sum).  Every id
+//    of a live row is read: stopping at its second sentinel (the builders'
+//    layout, graph/ell.py) took a late coarse tile from 0.138 to 0.109 ms
+//    on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), but would
+//    give wrong moves on a tile whose padding lies anywhere in a row,
+//    which the kernels take;
+//  - the keys (candidate, slot) sorted in registers (common.cuh
+//    warp_sort_keys) up to the row's last valid slot;
+//  - run heads by ballot; each run is summed by the lane that holds its
+//    head, one __fadd_rn at a time in position order from 0.0f — the very
+//    additions of louvain_score_rows_sorted and of the scan — and S_A is
+//    the current community's run;
+//  - every valid slot's gain from its own volume and size by
+//    louvain_gain, as in the block path, and the argmax by shuffles (ties
+//    to the smaller id).
+// Shared memory holds only the warp's own row (weights by slot and by
+// sorted index, volumes, sizes: 16·W bytes a warp); __syncwarp orders it.
+
+// The sorted index where the run that starts at head h ends: the next
+// head, or n_valid.
+template <int E>
+__device__ __forceinline__ int next_head(const unsigned (&head)[E], int h,
+                                         int n_valid) {
+  const int eh = h >> 5;
+  const unsigned above = (h & 31) == 31 ? 0u : ~0u << ((h & 31) + 1);
+#pragma unroll
+  for (int f = 0; f < E; ++f) {
+    if (f < eh) continue;
+    const unsigned m = f == eh ? head[f] & above : head[f];
+    if (m) return 32 * f + __ffs(m) - 1;
+  }
+  return n_valid;
+}
+
+// The head of the run that holds sorted index i (< n_valid).
+template <int E>
+__device__ __forceinline__ int head_of(const unsigned (&head)[E], int i) {
+  const int ei = i >> 5;
+  const unsigned upto = 0xffffffffu >> (31 - (i & 31));
+  int h = 0;
+#pragma unroll
+  for (int f = 0; f < E; ++f) {
+    if (f > ei) continue;
+    const unsigned m = f == ei ? head[f] & upto : head[f];
+    if (m) h = 32 * f + 31 - __clz(m);
+  }
+  return h;
+}
+
+// Scores rows [first, first + G) below `end`, one warp; every lane of the
+// warp calls it.  K is the sort key type (32-bit while the sentinel is
+// below 2^(32 - log2 W), common.cuh narrow_keys).
+template <class K, int W, int G, class Ints, class Floats>
+__device__ __forceinline__ void louvain_rows_by_warp(
+    const LouvainGathered<Ints, Floats>& src, float inv_vol,
+    int singleton_rule, long long first, long long end,
+    const LouvainProposal& out) {
+  static_assert(W % 32 == 0 && W <= 256, "W = 32·E, E <= 8");
+  static_assert(G >= 1 && G <= 32, "a warp takes 1..32 rows");
+  using Key = SlotKey<K, W>;
+  constexpr int E = W / 32;
+  constexpr int kWarps = kLocalMoveThreads / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ float s_w[kWarps][W];     // weight by slot
+  __shared__ float s_ws[kWarps][W];    // by sorted index; a head: its run's S
+  __shared__ float s_vol[kWarps][W];
+  __shared__ int s_size[kWarps][W];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  float* w_slot = s_w[wid];
+  float* w_sorted = s_ws[wid];
+  float* vol_slot = s_vol[wid];
+  int* size_slot = s_size[wid];
+  const int sentinel = src.sentinel;
+
+  const long long r_mine = first + lane;
+  const bool mine = lane < G && r_mine < end;
+  const int v_mine = mine ? __ldg(src.rows + r_mine) : sentinel;
+  if (mine && v_mine >= sentinel) out(r_mine, -1, -INFINITY);  // dead row
+  const unsigned live = __ballot_sync(kAll, mine && v_mine < sentinel);
+  // The live rows' ids, all loaded at once: a row with no real id has no
+  // candidate and is settled here; the others are scored one at a time.
+  unsigned busy = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    bool real = false;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      real |= ((live >> g) & 1u) &&
+              __ldg(src.nbr + (first + g) * W + 32 * e + lane) < sentinel;
+    busy |= __ballot_sync(kAll, real) ? 1u << g : 0u;
+  }
+  if (lane < G && ((live & ~busy) >> lane) & 1u) out(r_mine, -1, -INFINITY);
+  while (busy) {
+    const int j = __ffs(busy) - 1;
+    busy &= busy - 1;
+    const long long r = first + j;
+    const int v = __shfl_sync(kAll, v_mine, j);
+    const long long off = r * W;
+    int id[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) id[e] = __ldg(src.nbr + off + 32 * e + lane);
+    const LouvainRowTerms a{src.com_v(v), src.deg_v(v), src.volcom_v(v),
+                            src.sizecom_v(v)};
+    K key[E];
+    int n_valid = 0, last = -1;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int k = 32 * e + lane;
+      const bool real = id[e] < sentinel;
+      const int cand = real ? src.com_v(id[e]) : sentinel;
+      w_slot[k] = real ? __ldg(src.w + off + k) : 0.0f;
+      vol_slot[k] = real ? src.volcom_v(id[e]) : 0.0f;
+      size_slot[k] = real ? src.sizecom_v(id[e]) : 0;
+      key[e] = Key::make(cand, k);
+      const unsigned valid = __ballot_sync(kAll, cand != sentinel);
+      n_valid += __popc(valid);
+      if (valid) last = 32 * e + 31 - __clz(valid);
+    }
+    if (n_valid == 0) {                      // no candidate: (-1, no move)
+      if (lane == 0) out(r, -1, -INFINITY);
+      __syncwarp();
+      continue;
+    }
+    __syncwarp();                            // the slot arrays are written
+    warp_sort_keys<K, W>(key, pow2_ceil(last + 1), lane);
+
+    // sorted index i = 32·e + lane: valid keys lie in [0, n_valid)
+    int lab[E];
+    unsigned head[E];
+    int carry = 0;                           // the label at index 32·e - 1
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = 32 * e + lane;
+      lab[e] = Key::label(key[e]);
+      if (i < n_valid) w_sorted[i] = w_slot[Key::pos(key[e])];
+      int prev = __shfl_up_sync(kAll, lab[e], 1);
+      if (lane == 0) prev = carry;
+      carry = __shfl_sync(kAll, lab[e], 31);
+      head[e] = __ballot_sync(kAll, i < n_valid && (i == 0 || lab[e] != prev));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((head[e] >> lane) & 1u) {          // this lane holds a run's head
+        const int h = 32 * e + lane;
+        const int stop = next_head(head, h, n_valid);
+        float s = 0.0f;
+        for (int q = h; q < stop; ++q) s = __fadd_rn(s, w_sorted[q]);
+        w_sorted[h] = s;                     // no other run reads index h
+      }
+    }
+    __syncwarp();
+    float sa = 0.0f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const unsigned m =
+          __ballot_sync(kAll, ((head[e] >> lane) & 1u) && lab[e] == a.cur);
+      if (m) sa = w_sorted[32 * e + __ffs(m) - 1];
+    }
+
+    float best = -INFINITY;
+    int best_id = INT_MAX;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = 32 * e + lane;
+      const int ck = lab[e];
+      if (i >= n_valid || ck == a.cur) continue;     // invalid or is_A
+      const int k = Key::pos(key[e]);
+      argmax_combine(best, best_id,
+                     louvain_gain(a, ck, w_sorted[head_of(head, i)], sa,
+                                  vol_slot[k], size_slot[k], inv_vol,
+                                  singleton_rule),
+                     ck);
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const float b = __shfl_xor_sync(kAll, best, s);
+      const int id_b = __shfl_xor_sync(kAll, best_id, s);
+      argmax_combine(best, best_id, b, id_b);
+    }
+    if (lane == 0) out(r, best > -INFINITY ? best_id : -1, best);
+    __syncwarp();                            // the next row reuses the arrays
+  }
 }
 
 }  // namespace repro_torch

@@ -16,7 +16,13 @@ port and held against the JAX package on the same graphs and configs:
   (``capacity_schedule="none"``) bit for bit, the JAX package's own
   contract;
 * ``traced_ell_tile`` equals the JAX package's tile, tail flags included,
-  at widths 16, 64 and 256, and the traced coarse-level evaluator equals
+  at widths 16, 64 and 256; it and ``build_ell`` keep the tile contract
+  the resident Louvain kernel relies on (``graph/ell.py``: sentinel rows
+  hold only sentinels of weight 0) and their layout (a live row's real
+  slots fill [0, deg) with at most its masked self-loop among them) on
+  coarse graphs of the banded, planted and hub-tailed kinds;
+  ``tile_contract`` refuses tiles that break the contract and counts the
+  rows that break the layout; the traced coarse-level evaluator equals
   the segment evaluator and the JAX package's traced evaluator;
   ``remap_communities_sorted`` and ``shrink_graph`` equal the JAX
   package's;
@@ -49,7 +55,7 @@ from repro.graph.structure import graph_from_arrays as jgraph_from_arrays
 from repro_torch.core.engine import EngineSpec, SweepEngine
 from repro_torch.core.louvain import (LouvainConfig, auto_capacity_schedule,
                                       louvain)
-from repro_torch.graph.ell import traced_ell_tile
+from repro_torch.graph.ell import build_ell, tile_contract, traced_ell_tile
 from repro_torch.graph.structure import graph_from_numpy
 from repro_torch.utils.errors import CapacityError
 
@@ -370,6 +376,113 @@ def test_traced_ell_tile_matches_jax(width):
     # a tail row is pure padding
     assert (got[0].numpy()[is_tail] == cg.n_max).all()
     assert (got[1].numpy()[is_tail] == cg.n_max).all()
+
+
+def _contract_graph(kind):
+    """A coarse graph for the tile-contract tests: the JAX-coarsened hub
+    graph (``_coarse_graph``: tail vertices at every width), or the port's
+    own ``remap_and_coarsen`` of a banded or planted graph under a
+    partition into runs of three consecutive vertices."""
+    if kind == "hubs":
+        return to_torch(_coarse_graph())
+    from repro_torch.core import aggregation
+
+    g = to_torch(_graph(kind))
+    com = torch.arange(g.n_max, dtype=torch.int32) // 3
+    return aggregation.remap_and_coarsen(g, com)[2]
+
+
+def _edge_counts(g):
+    """Per vertex: edges (self-loop included) and self-loops, from the
+    graph's valid edge list."""
+    src, dst, _ = g.to_numpy_edges()
+    n = g.n_max
+    return (np.bincount(src, minlength=n),
+            np.bincount(src[src == dst], minlength=n))
+
+
+@pytest.mark.parametrize("width", [16, 64, 256])
+@pytest.mark.parametrize("kind", ["banded_small", "planted", "hubs"])
+def test_traced_ell_tile_keeps_the_tile_contract(kind, width):
+    """What the resident Louvain kernel relies on, on traced tiles of
+    coarse graphs: a sentinel row (padding vertex slot or tail vertex)
+    holds only sentinels of weight 0; a live row v holds its deg(v) edges
+    in slots [0, deg(v)), its masked self-loop (weight 0) the only
+    sentinel among them, and sentinels of weight 0 after them; the counts
+    ``tile_contract`` returns are the tile's."""
+    g = _contract_graph(kind)
+    n = g.n_max
+    deg, loops = _edge_counts(g)
+    assert loops.max() <= 1               # a coarse graph: merged edges
+    rows, nbr, w, is_tail = (t.numpy() for t in traced_ell_tile(g, width))
+    live = rows < n
+    assert (nbr[~live] == n).all() and (w[~live] == 0).all()
+    assert (rows[live] == np.flatnonzero(live)).all()
+    assert (is_tail == ((deg > width) & (np.arange(n) < g.n_valid))).all()
+    assert (~live).sum() > is_tail.sum()   # padding vertex slots too
+    d = deg[live]
+    j = np.arange(width)[None, :]
+    inside = j < d[:, None]
+    sent = nbr[live] == n
+    assert (sent & ~inside).sum() == (~inside).sum()     # padding after deg
+    assert ((sent & inside).sum(axis=1) == loops[live]).all()
+    assert (w[live][sent] == 0).all()
+    last = np.where(~sent, j + 1, 0).max(axis=1)
+    assert tile_contract(*(torch.from_numpy(x) for x in (rows, nbr, w)),
+                         n) == (int(live.sum()), int((~sent).sum()),
+                                int(last.sum()), 0)
+
+
+@pytest.mark.parametrize("kind", ["banded_small", "planted", "hubs"])
+def test_build_ell_keeps_the_tile_contract(kind):
+    """``build_ell`` buckets of the same coarse graphs: padding rows hold
+    only sentinels of weight 0, a row of (non-loop) degree d holds its
+    neighbours in slots [0, d) with no sentinel among them."""
+    g = _contract_graph(kind)
+    n = g.n_max
+    deg, loops = _edge_counts(g)
+    ell = build_ell(g)
+    assert sum(b.n_rows_valid for b in ell.buckets) + int(
+        ell.tail_vertices.numel()) == int(((deg - loops) > 0).sum())
+    for b in ell.buckets:
+        rows, nbr, w = b.rows.numpy(), b.nbr.numpy(), b.w.numpy()
+        live = rows < n
+        assert live.sum() == b.n_rows_valid and live[:b.n_rows_valid].all()
+        d = (deg - loops)[rows[live]]
+        real = nbr[live] < n
+        assert (real == (np.arange(b.width)[None, :] < d[:, None])).all()
+        assert (nbr[~live] == n).all() and (w[~live] == 0).all()
+        assert (w[live][~real] == 0).all()
+        assert tile_contract(b.rows, b.nbr, b.w, n) == (
+            b.n_rows_valid, int(d.sum()), int(d.sum()), 0)
+
+
+def _contract_tile():
+    n = 50
+    rows = torch.tensor([3, 7, n], dtype=torch.int32)
+    nbr = torch.tensor([[1, n, 2, n], [4, 5, n, n], [n, n, n, n]],
+                       dtype=torch.int32)
+    return n, rows, nbr, (nbr < n).float()
+
+
+@pytest.mark.parametrize("breach", ["dead_row_slot", "padding_weight"])
+def test_tile_contract_refuses_a_broken_tile(breach):
+    n, rows, nbr, w = _contract_tile()
+    assert tile_contract(rows, nbr, w, n) == (2, 4, 5, 0)
+    if breach == "dead_row_slot":
+        nbr[2, 1] = 9
+    else:
+        w[1, 3] = 1.0
+    with pytest.raises(ValueError, match="tile contract"):
+        tile_contract(rows, nbr, w, n)
+
+
+def test_tile_contract_counts_crowded_rows():
+    """Two sentinels before a live row's last real slot break the
+    builders' layout, not the contract: counted, not refused."""
+    n, rows, nbr, _ = _contract_tile()
+    nbr[0, 1], nbr[0, 2], nbr[0, 3] = n, n, 6
+    assert tile_contract(rows, nbr, (nbr < n).float(), n) == (2, 4, 6, 1)
 
 
 def test_traced_ell_tile_requires_src_sorted():

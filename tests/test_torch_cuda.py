@@ -24,6 +24,17 @@ weights, the weight-mass contract on uniform(0.5, 1.5) weights.  A
 ``pallas`` cascade on a 6144-vertex graph equals the ``ell`` and
 ``segment`` runs, ``cascade_stages`` included.
 
+The resident Louvain kernel relies on the tile contract (``graph/ell.py``:
+a sentinel row holds only sentinels of weight 0): it meets traced tiles
+that the port builds from coarse graphs at W = 16, 64 and 256 under unit,
+integer and uniform float32 weights (bit for bit against the plain version
+on the first two; on float32 bit for bit against the two-step path, whose
+``delta_q`` kernel holds the weight-mass contract), and layouts that
+stress the one-warp-a-row path: dense rows among dead ones in one warp's
+group and one block, an all-dead tile, a masked loop in the middle of
+every live row, live rows holding only their masked loop, rows of one
+label, and labels past 2^26 (64-bit sort keys at W = 64).
+
 The flash-attention kernels run against their plain version at every head
 dim they take, GQA groups 1, 2 and 4, causal and not, Sq != Sk and ragged
 lengths: float32 inputs through the CUDA-core kernel within 1e-5, bf16
@@ -555,6 +566,164 @@ def test_scored_tiles_at_their_widest_widths(cuda_device, weights, kind):
         else:
             _mass_contract(k, p, plain, args, n,
                            tiles[2].abs().sum(dim=1).clamp_min(1.0))
+
+
+def _traced_case(width, weights, seed, dev):
+    """A traced tile of a coarse graph built by the port on the CPU (a
+    banded graph of 6 000 vertices with two hubs, coarsened by runs of
+    three vertices: 2 000 live rows of 6 000, hub rows in the tail at
+    W = 16 and 64), moved to the card, with composed tables of a random
+    partition of the coarse vertices and weights ``unit``, ``int``
+    (1..8) or ``f32`` (uniform(0.5, 1.5))."""
+    from repro_torch.core.aggregation import remap_and_coarsen
+    from repro_torch.graph.builders import from_numpy_edges
+    from repro_torch.graph.ell import traced_ell_tile
+
+    rng = np.random.default_rng(seed)
+    u = np.repeat(np.arange(6000), 4)
+    v = np.clip(u + rng.integers(1, 60, u.size), 0, 5999)
+    hubs = [np.full(150, 100), rng.choice(6000, 150, replace=False),
+            np.full(400, 3000), rng.choice(6000, 400, replace=False)]
+    u = np.concatenate([u, hubs[0], hubs[2]])
+    v = np.concatenate([v, hubs[1], hubs[3]])
+    keep = u != v
+    g = from_numpy_edges(u[keep], v[keep], device="cpu")
+    cg = remap_and_coarsen(
+        g, torch.arange(g.n_max, dtype=torch.int32) // 3)[2]
+    rows, nbr, w, _ = traced_ell_tile(cg, width)
+    n = cg.n_max
+    real = (nbr < n).numpy()
+    if weights == "int":
+        w = torch.from_numpy(np.where(real, rng.integers(1, 9, real.shape),
+                                      0).astype(np.float32))
+    elif weights == "f32":
+        w = torch.from_numpy(np.where(real, rng.uniform(0.5, 1.5,
+                                                        real.shape),
+                                      0).astype(np.float32))
+    labels = rng.integers(0, n // 4, n)
+    tabs = [np.concatenate([labels, [n]]).astype(np.int32),
+            np.concatenate([rng.integers(1, 40, n), [0]]).astype(np.float32),
+            np.concatenate([rng.integers(1, 3, n), [0]]).astype(np.int32),
+            np.concatenate([rng.integers(1, 9, n), [0]]).astype(np.float32)]
+    return ([t.to(dev) for t in (rows, nbr, w)],
+            [_card(t, dev) for t in tabs], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["unit", "int", "f32"])
+@pytest.mark.parametrize("width", [16, 64, 256])
+def test_louvain_kernel_on_traced_tiles(cuda_device, width, weights):
+    """The resident Louvain kernel on the port's own traced tiles: bit for
+    bit against the plain version on unit and integer weights; on float32
+    weights bit for bit against the two-step path, whose scoring kernel
+    holds the weight-mass contract against its plain version.  Dead rows
+    give (-1, no move)."""
+    tiles, tabs, n = _traced_case(width, weights, width, cuda_device)
+    assert bool((tiles[0] == n).any()) and bool((tiles[0] < n).any())
+    composed = compose_louvain_tables(*tabs, n)
+    vol_total = torch.tensor(977.0, device=cuda_device)
+    inv = (1.0 / vol_total).to(torch.float32)
+    for rule in (True, False):
+        k = local_move_louvain_kernel(*tiles, *composed, inv, sentinel=n,
+                                      singleton_rule=rule)
+        dead = tiles[0] == n
+        assert bool((k[0][dead] == -1).all()) and not bool(k[1][dead].any())
+        assert bool(k[1].any())
+        if weights != "f32":
+            p = local_move_louvain_tables_ref(*tiles, *composed, inv,
+                                              sentinel=n, singleton_rule=rule)
+            torch.cuda.synchronize()
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+            continue
+        cand, cur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
+            tiles, composed, n)
+        args = (cand, tiles[2], cur, deg, volc, volcur, sizec, sizecur, inv)
+        best, gain = delta_q_kernel(*args, sentinel=n, singleton_rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(best, k[0])
+        assert torch.equal((best >= 0) & (gain > 0.0), k[1])
+
+        def plain(*a):
+            return delta_q_chunked(*a, n, rule)
+        _mass_contract((best, gain), plain(*args), plain, args, n,
+                       tiles[2].abs().sum(dim=1).clamp_min(1.0))
+
+
+CONTRACT_LAYOUTS = ("dense_among_dead", "all_dead", "loop_mid_row",
+                    "loop_only", "one_label", "wide_keys")
+
+
+def _contract_layout(kind, width, seed, dev):
+    """300 rows under the tile contract that stress the one-warp-a-row
+    path (module docstring): ``dense_among_dead`` — rows 5 and 37 (two
+    warps' row groups of one block) and 290 full, every other row dead;
+    ``all_dead``; ``loop_mid_row`` — 60 % of the rows live with a prefix
+    of 2..W real slots and a masked loop (a sentinel slot) in its middle;
+    ``loop_only`` — the same, but four live rows in five hold nothing but
+    their masked loop, as most rows of a late coarse level do;
+    ``one_label`` — the same prefixes, every neighbour of one community;
+    ``wide_keys`` — the same prefixes on a graph of 2^27 + 5 vertices,
+    each neighbour its own community, so half the labels pass 2^26 and
+    the sort takes 64-bit keys at W >= 64.  Integer
+    weights 1..4.  Returns the tiles, the four tables and the sentinel."""
+    rng = np.random.default_rng(seed)
+    R = 300
+    n = (1 << 27) + 5 if kind == "wide_keys" else 4096
+    half = n // 2
+    rows = np.full(R, n, np.int32)
+    nbr = np.full((R, width), n, np.int32)
+    if kind == "dense_among_dead":
+        live, deg = np.array([5, 37, 290]), np.full(3, width)
+    elif kind == "all_dead":
+        live, deg = np.array([], np.int64), np.array([], np.int64)
+    else:
+        live = np.flatnonzero(rng.random(R) < 0.6)
+        deg = rng.integers(2, width + 1, live.size)
+        if kind == "loop_only":
+            deg[rng.random(live.size) < 0.8] = 1
+    rows[live] = rng.choice(np.arange(half, n), live.size, replace=False)
+    for r, d in zip(live, deg):
+        nbr[r, :d] = rng.integers(0, half if kind != "wide_keys" else n, d)
+        if kind != "dense_among_dead":
+            nbr[r, d // 2] = n                       # the masked loop
+    w = np.where(nbr < n, rng.integers(1, 5, nbr.shape), 0).astype(
+        np.float32)
+    if kind == "wide_keys":
+        labels = np.arange(n)
+    else:
+        labels = rng.integers(0, n // 8, n)
+        if kind == "one_label":
+            labels[:half] = 7
+    tabs = [np.concatenate([labels, [n]]).astype(np.int32),
+            np.concatenate([rng.integers(1, 40, n), [0]]).astype(np.float32),
+            np.concatenate([rng.integers(1, 3, n), [0]]).astype(np.int32),
+            np.concatenate([rng.integers(1, 9, n), [0]]).astype(np.float32)]
+    return ([_card(x, dev) for x in (rows, nbr, w)],
+            [_card(t, dev) for t in tabs], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CONTRACT_LAYOUTS)
+@pytest.mark.parametrize("width", [16, 64, 256])
+def test_louvain_kernel_on_contract_layouts(cuda_device, width, kind):
+    """The resident Louvain kernel ≡ its plain version, bit for bit, on
+    the contract layouts, both singleton-rule settings; dead rows give
+    (-1, no move) and the live rows propose moves."""
+    tiles, tabs, n = _contract_layout(kind, width, width + 3, cuda_device)
+    composed = compose_louvain_tables(*tabs, n)
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32, device=cuda_device)
+    dead = tiles[0] == n
+    for rule in (True, False):
+        k = local_move_louvain_kernel(*tiles, *composed, inv, sentinel=n,
+                                      singleton_rule=rule)
+        p = local_move_louvain_tables_ref(*tiles, *composed, inv, sentinel=n,
+                                          singleton_rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert bool((k[0][dead] == -1).all()) and not bool(k[1][dead].any())
+        assert bool(k[1].any()) == (kind != "all_dead")
+    if kind == "wide_keys":
+        assert int(k[0].max()) >= 1 << 26     # past the 32-bit keys' labels
 
 
 @pytest.mark.cuda

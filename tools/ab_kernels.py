@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
 """Time one CUDA kernel family of several source trees, interleaved.
 
-    python3 tools/ab_kernels.py KERNEL LABEL=CSRC_DIR LABEL=CSRC_DIR ...
+    python3 tools/ab_kernels.py KERNEL [--widths=64,...] [--sets=traced,...] \
+        LABEL=CSRC_DIR LABEL=CSRC_DIR ...
 
 KERNEL is ``local_move`` (the resident ``local_move_plp`` and
 ``local_move_louvain`` kernels, on seeded random inputs at the as-skitter
 stand-in's level-0 shapes: tables of 2^21 + 1 entries; W = 16, 64, 256,
 1024 buckets of 810 488, 118 136, 54 888 and 25 624 rows; 50 launches a
-timing; three input sets per width: ``scattered`` — 30 % padding slots
+timing; five input sets per width: ``scattered`` — 30 % padding slots
 anywhere in the row, labels from 2^19 ids (runs of one), unit weights;
 ``prefix`` — each row's valid slots a prefix of W/4 < d <= W slots, as a
 level-0 bucket holds them, labels from 2^19 ids, uniform(0.5, 1.5)
 weights; ``long_runs`` — the same prefixes with labels from 8 ids, so
 each row holds a few long runs, uniform(0.5, 1.5) weights; ``one_run``
 — the same prefixes all of one label, a single run of d slots, as rows
-of a converged PLP sweep nearly are),
+of a converged PLP sweep nearly are; ``traced`` — the layout of a coarse
+level's traced tile (``graph/ell.py traced_ell_tile``): the first half of
+the rows live and vertex-aligned (row v holds vertex v), the second half
+dead (row id and every slot the sentinel, weight 0), live degrees drawn
+heavy-tailed (1 + Pareto(1.0), capped at W) as a prefix of the row with
+one masked self-loop (a sentinel slot) among them, labels from 2^19 ids,
+uniform(0.5, 1.5) weights; at each width's rows and at the as-skitter
+stand-in's coarse tile, W = 64 with 2^21 rows; and ``late_coarse``, at
+that coarse tile's shape only — a late coarse level of the as-skitter
+stand-in as ``chip_smoke.py`` logs it: 1 087 552 live rows, of which
+one in a hundred holds a ``traced`` prefix and the rest nothing but the
+masked loop),
 ``flash_attention_fwd`` (the float32 CUDA-core kernel, on seeded bf16
 inputs, causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py``
 (2, 16, 4096, 128), 20 launches a timing, and at one prefill_32k sequence
@@ -33,6 +45,7 @@ held to ``attention_ref`` instead (one bf16 ulp of the larger value plus
 1e-6, at the prefill shape) and may differ from each other.  Needs one
 CUDA card and ``nvcc``.
 """
+import argparse
 import ctypes
 import itertools
 import subprocess
@@ -123,19 +136,33 @@ def ab(labels, launcher, outputs, what, reps, check=None):
 
 
 def local_move_inputs(rng, W, R, kind):
-    """(nbr, w) of one input set (module docstring)."""
+    """(rows, nbr, w) of one input set (module docstring)."""
+    if kind in ("traced", "late_coarse"):
+        live = R // 2 if kind == "traced" else 1_087_552
+        rows = np.full(R, N, np.int32)
+        rows[:live] = np.arange(live)
+        deg = np.minimum(W, 1 + rng.pareto(1.0, live).astype(np.int64))
+        if kind == "late_coarse":
+            deg[rng.random(live) >= 0.01] = 1          # the loop alone
+        nbr = rng.integers(0, N, (R, W)).astype(np.int32)
+        nbr[live:] = N
+        nbr[:live][np.arange(W)[None, :] >= deg[:, None]] = N
+        nbr[np.arange(live), rng.integers(0, deg)] = N    # the masked loop
+        w = np.where(nbr < N, rng.uniform(0.5, 1.5, (R, W)), 0.0)
+        return rows, nbr, w.astype(np.float32)
+    rows = rng.choice(N, R, replace=False).astype(np.int32)
     if kind == "scattered":
         nbr = rng.integers(0, N, (R, W)).astype(np.int32)
         nbr[rng.random((R, W)) < 0.3] = N
-        return nbr, (nbr < N).astype(np.float32)
+        return rows, nbr, (nbr < N).astype(np.float32)
     deg = rng.integers(W // 4 + 1, W + 1, R)
     nbr = rng.integers(0, N, (R, W)).astype(np.int32)
     nbr[np.arange(W)[None, :] >= deg[:, None]] = N
     w = np.where(nbr < N, rng.uniform(0.5, 1.5, (R, W)), 0.0)
-    return nbr, w.astype(np.float32)
+    return rows, nbr, w.astype(np.float32)
 
 
-def local_move(libs, labels, dev):
+def local_move(libs, labels, dev, widths=None, sets=None):
     rng = np.random.default_rng(0)
 
     def card(x):
@@ -151,12 +178,14 @@ def local_move(libs, labels, dev):
               "one_run": card(np.append(np.full(N, 3), N).astype(np.int32))}
     inv = torch.tensor(1e-7, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for (W, R), kind in itertools.product(
-            ((16, 810_488), (64, 118_136), (256, 54_888), (1024, 25_624)),
-            ("scattered", "prefix", "long_runs", "one_run")):
-        rows = card(rng.choice(N, R, replace=False).astype(np.int32))
-        nbr_np, w_np = local_move_inputs(rng, W, R, kind)
-        nbr, w = card(nbr_np), card(w_np)
+    cases = list(itertools.product(
+        ((16, 810_488), (64, 118_136), (256, 54_888), (1024, 25_624)),
+        ("scattered", "prefix", "long_runs", "one_run", "traced")))
+    for (W, R), kind in cases + [((64, N), "traced"),
+                                 ((64, N), "late_coarse")]:
+        if (widths and W not in widths) or (sets and kind not in sets):
+            continue
+        rows, nbr, w = (card(x) for x in local_move_inputs(rng, W, R, kind))
         lab = tables.get(kind, tabs[0])
         best = torch.empty(R, dtype=torch.int32, device=dev)
         prop = torch.empty(R, dtype=torch.bool, device=dev)
@@ -225,21 +254,28 @@ def flash_attention_fwd(libs, labels, dev, name="flash_attention_fwd"):
 
 
 def main(argv):
-    if len(argv) < 3 or argv[0] not in SOURCES \
+    parser = argparse.ArgumentParser(
+        usage=__doc__.split("\n\n")[1].strip())
+    parser.add_argument("kernel", choices=sorted(SOURCES))
+    parser.add_argument("trees", nargs="+", metavar="LABEL=CSRC_DIR")
+    for opt in ("--widths", "--sets"):
+        parser.add_argument(opt, type=lambda v: v.split(","),
+                            help="local_move only: keep the named ones")
+    args = parser.parse_intermixed_args(argv)
+    trees = [t.split("=", 1) for t in args.trees]
+    if len(trees) < 2 or any(len(t) != 2 for t in trees) \
             or not torch.cuda.is_available():
         sys.exit(__doc__)
-    trees = [a.split("=", 1) for a in argv[1:]]
-    if any(len(t) != 2 for t in trees):
-        sys.exit(__doc__)
-    libs = compile_trees(trees, SOURCES[argv[0]])
+    libs = compile_trees(trees, SOURCES[args.kernel])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     labels, dev = [t[0] for t in trees], torch.device("cuda")
-    if argv[0] == "local_move":
-        local_move(libs, labels, dev)
+    if args.kernel == "local_move":
+        widths = args.widths and [int(x) for x in args.widths]
+        local_move(libs, labels, dev, widths, args.sets)
     else:
-        flash_attention_fwd(libs, labels, dev, argv[0])
+        flash_attention_fwd(libs, labels, dev, args.kernel)
 
 
 if __name__ == "__main__":
