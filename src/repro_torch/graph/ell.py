@@ -26,7 +26,8 @@ and the local_move kernels may rely on (``tile_contract`` checks it):
 
 1. a row whose id is the sentinel (``n_max``) holds only sentinel slots,
    of weight 0, so its move is (-1, none) whatever the tables hold; the
-   resident Louvain kernel settles such a row from its id alone;
+   resident Louvain kernel at W = 64 and the streamed kernels at W = 16
+   settle such a row from its id alone;
 2. every sentinel slot has weight 0.
 
 Both builders also lay a live row's real slots out in ``[0, deg)``, in
@@ -55,10 +56,13 @@ ROW_PAD = 8  # rows per bucket are padded to a multiple of this
 # (128 at W = 16, 32 at W = 64, 8 at W >= 256) one row group after another.
 # On the com-dblp stand-in (scale 1.0, W = 16: 316 776 rows) that is 2 475
 # blocks with a 2 KB (PLP) or 8 KB (Louvain) window each.  Timed on an
-# NVIDIA H100 (700 W; chip_smoke.py), the streamed kernels got faster at
-# every halving from 2048 rows per block down to 128, and only 2 % more
-# from 128 to 64: fewer rows mean fewer dependent passes per block and
-# more blocks in flight, against re-reading more overlapping window.
+# NVIDIA H100 (700 W; chip_smoke.py's sweep), the W = 16 kernels (a lane a
+# row) take, PLP / Louvain: 64 rows a block 0.0265 / 0.0239 ms, 128 rows
+# 0.0269 / 0.0247, 256 rows 0.0300 / 0.0267, 2048 rows 0.0522 / 0.0594.
+# 64 rows gain 1.5-3 % there but lose up to 4 % on Louvain in
+# tools/ab_kernels.py local_move_streamed, so 128 stays: more rows a block
+# mean more rows a thread in sequence, fewer mean more overlapping window
+# re-read.
 STREAM_BLOCK_ELEMS = 2048
 
 

@@ -282,14 +282,16 @@ struct DeviceTable {
 // streamed layout): vertex v sits at v - lo.  The offset is clipped into
 // the window as the plain version clips it, so an id that the window
 // metadata failed to cover reads the same entry in both and never reads
-// outside the window.
-template <class V>
+// outside the window.  The W = 16 path takes I = int: ids and window bases
+// lie in [0, sentinel], so v - lo fits 32 bits (its kernels ran 2-4 %
+// faster so; tools/ab_kernels.py local_move_streamed, H100).
+template <class V, class I = long long>
 struct WindowTable {
   const V* s;
-  long long lo;
+  I lo;
   int len;
   __device__ __forceinline__ V operator()(int v) const {
-    long long i = static_cast<long long>(v) - lo;
+    I i = static_cast<I>(v) - lo;
     i = i < 0 ? 0 : (i >= len ? len - 1 : i);
     return s[i];
   }
@@ -306,6 +308,158 @@ __device__ __forceinline__ void stage_window(V* s, const V* __restrict__ tab,
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     const long long v = lo + i;
     s[i] = v < n_tab ? tab[v] : fill;
+  }
+}
+
+// ------------------------------------------------------------ a lane a row
+//
+// The streamed kernels' path at W = 16 (local_move_plp_streamed.cu,
+// local_move_louvain_streamed.cu): each thread scores whole rows, a row's
+// 16 slot ids and weights in its registers, so a row's scan, argmax and
+// current-label sum cost no shuffle, no ballot and no barrier, and one
+// warp instruction serves 32 rows; the block synchronises once, after
+// staging its windows.  At W = 16 the work a row is small enough that
+// what a row costs in issued instructions decides the time: half a warp a
+// row (lane k slot k, shuffles for the scan and the argmax) issued about
+// 270 warp instructions for every two rows and took 0.0485 / 0.0517 ms
+// (PLP / Louvain) on the com-dblp stand-in's bucket where a lane a row
+// takes 0.0277 for either (NVIDIA H100 80GB HBM3, 700 W;
+// tools/ab_kernels.py local_move_streamed).
+
+// Copies a window like stage_window, but with 16-byte cp.async copies
+// (LDGSTS) for the 4-entry chunks that lie inside the table, so the
+// block's threads go on issuing loads while it lands; entries of a chunk
+// across or past the table's end take `fill` by plain stores.  `s` and
+// `tab + lo` are 16-byte aligned where the chunks are copied (lo is a
+// multiple of the slot, itself of TABLE_LANE = 128 entries; the caller
+// checks the table's base), and len is a multiple of 4.  The caller waits
+// with cp_async_wait_all() and then synchronises the block.
+template <class V>
+__device__ __forceinline__ void stage_window_async(V* s,
+                                                   const V* __restrict__ tab,
+                                                   long long n_tab,
+                                                   long long lo, int len,
+                                                   V fill) {
+  static_assert(sizeof(V) == 4, "4-byte table entries");
+  for (int c = threadIdx.x; 4 * c < len; c += blockDim.x) {
+    const long long v = lo + 4 * c;
+    if (v + 4 <= n_tab) {
+      const unsigned dst =
+          static_cast<unsigned>(__cvta_generic_to_shared(s + 4 * c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                   "l"(tab + v));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * c + e] = v + e < n_tab ? tab[v + e] : fill;
+    }
+  }
+}
+
+// Waits for the calling thread's cp.async copies (none is fine).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The window copy of the W = 16 path: by cp.async where `tab` is 16-byte
+// aligned, else as stage_window.  The asynchronous copy lets a thread issue
+// its first row's loads while the window lands: with plain loads and
+// stores the same kernels took 14 % (PLP, a 2 KB window) and 30 %
+// (Louvain, 8 KB) longer (tools/ab_kernels.py local_move_streamed, H100).
+template <class V>
+__device__ __forceinline__ void stage_window_w16(V* s, const V* __restrict__ tab,
+                                                 long long n_tab, long long lo,
+                                                 int len, V fill) {
+  if ((reinterpret_cast<unsigned long long>(tab) & 15) == 0)
+    stage_window_async(s, tab, n_tab, lo, len, fill);
+  else
+    stage_window(s, tab, n_tab, lo, len, fill);
+}
+
+// Row r's 16 slot ids and weights into registers: four 16-byte loads
+// each where the tiles are 16-byte aligned (`vec`), else 16 loads each.
+__device__ __forceinline__ void load_row16(const int* __restrict__ nbr,
+                                           const float* __restrict__ w,
+                                           long long r, bool vec,
+                                           int (&id)[16], float (&wt)[16]) {
+  if (vec) {
+    const int4* n4 = reinterpret_cast<const int4*>(nbr + r * 16);
+    const float4* w4 = reinterpret_cast<const float4*>(w + r * 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int4 a = __ldg(n4 + q);
+      const float4 b = __ldg(w4 + q);
+      id[4 * q] = a.x, id[4 * q + 1] = a.y, id[4 * q + 2] = a.z,
+      id[4 * q + 3] = a.w;
+      wt[4 * q] = b.x, wt[4 * q + 1] = b.y, wt[4 * q + 2] = b.z,
+      wt[4 * q + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      id[k] = __ldg(nbr + r * 16 + k);
+      wt[k] = __ldg(w + r * 16 + k);
+    }
+  }
+}
+
+// The row loop of the W = 16 path, for a block over rows [start, end) of
+// (R, 16) tiles: thread t takes rows start + t, start + t + blockDim.x,
+// ...  A row whose id is the sentinel is written (-1, none) from its id
+// alone by `none(r)`: under the tile contract (graph/ell.py
+// tile_contract) it holds only sentinel slots of weight 0.  Each live row
+// goes to `score(r, v, id, wt)`: its index, id, slot ids and weights.
+// `stage()` issues the copy of the block's windows (stage_window_w16)
+// after the first row id's load and before that row's slot loads, which
+// are made only for a real id; the block's one __syncthreads follows them.
+//
+// With kPrefetch a thread loads its next row (id, slot ids and weights,
+// whatever the id) before it scores the current one.  PLP takes it: on an
+// H100 (tools/ab_kernels.py local_move_streamed) its kernel ran 0.0277
+// ms where the loop without it ran 0.0317, even at one row a thread,
+// where nothing is prefetched — without it the compiler keeps the scan's
+// compares in general registers (P2R, LOP3; 1 808 instructions against
+// 1 536) — and 0.0313 against 0.0340 at two rows a thread.  Louvain does
+// not: its registers rise from 70 to 96, and it loses 13-15 %.
+template <bool kPrefetch, class Stage, class None, class Score>
+__device__ __forceinline__ void lane_rows(const int* __restrict__ rows,
+                                          const int* __restrict__ nbr,
+                                          const float* __restrict__ w,
+                                          int sentinel, long long start,
+                                          long long end, const Stage& stage,
+                                          const None& none,
+                                          const Score& score) {
+  const bool vec = ((reinterpret_cast<unsigned long long>(nbr) |
+                     reinterpret_cast<unsigned long long>(w)) & 15) == 0;
+  long long r = start + threadIdx.x;
+  int v = r < end ? __ldg(rows + r) : sentinel;
+  stage();
+  int id[16];
+  float wt[16];
+  if (v < sentinel) load_row16(nbr, w, r, vec, id, wt);
+  cp_async_wait_all();
+  __syncthreads();
+  for (; r < end; r += blockDim.x) {
+    if constexpr (kPrefetch) {
+      const long long rn = r + blockDim.x;
+      int vn = sentinel, idn[16];
+      float wtn[16];
+      if (rn < end) {
+        vn = __ldg(rows + rn);
+        load_row16(nbr, w, rn, vec, idn, wtn);
+      }
+      if (v < sentinel) score(r, v, id, wt);
+      else none(r);
+      v = vn;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) id[k] = idn[k], wt[k] = wtn[k];
+    } else {
+      if (r != start + threadIdx.x) {
+        v = __ldg(rows + r);
+        if (v < sentinel) load_row16(nbr, w, r, vec, id, wt);
+      }
+      if (v < sentinel) score(r, v, id, wt);
+      else none(r);
+    }
   }
 }
 

@@ -22,6 +22,9 @@
 //
 // Candidates, weights, volumes and sizes of a row are staged once in shared
 // memory (16 KB at W = 1024), so the W*W loop reads only shared memory.
+// The streamed kernel's W = 16 path instead holds a row in one lane's
+// registers (louvain_score_lane, at the end), with the same additions in
+// the same order.
 #pragma once
 #include <climits>
 #include <cmath>
@@ -553,6 +556,49 @@ __device__ __forceinline__ void louvain_rows_by_warp(
     if (lane == 0) out(r, best > -INFINITY ? best_id : -1, best);
     __syncwarp();                            // the next row reuses the arrays
   }
+}
+
+// ------------------------------------------------------------ a lane a row
+//
+// The Louvain move of one W = 16 row held by one lane (common.cuh
+// lane_rows), on the block's windows of the four composed tables: its slot
+// ids and weights in registers, v the row's (real) id.  S_A is the block
+// path's thread-0 pass (the weights of the valid slots holding A, j
+// ascending); each valid candidate other than A, unless the singleton rule
+// blocks it, sums its S_k by the scan and scores louvain_gain from its own
+// volume and size; the argmax keeps the best, ties to the smaller id.
+template <class Ints, class Floats>
+__device__ __forceinline__ void louvain_score_lane(
+    const Ints& com_v, const Floats& volcom_v, const Ints& sizecom_v,
+    const Floats& deg_v, float inv_vol, int singleton_rule, int sentinel,
+    long long r, int v, const int (&id)[16], const float (&wt)[16],
+    const LouvainProposal& out) {
+  int cand[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) cand[k] = id[k] < sentinel ? com_v(id[k]) : sentinel;
+  const LouvainRowTerms a{com_v(v), deg_v(v), volcom_v(v), sizecom_v(v)};
+  float sa = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (cand[j] != sentinel && cand[j] == a.cur) sa = __fadd_rn(sa, wt[j]);
+  float best = -INFINITY;
+  int best_id = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int ck = cand[k];
+    if (ck == sentinel || ck == a.cur) continue;   // invalid or is_A
+    const int size_k = sizecom_v(id[k]);
+    if (singleton_blocked(a, ck, size_k, singleton_rule)) continue;
+    float s_k = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (cand[j] == ck) s_k = __fadd_rn(s_k, wt[j]);
+    argmax_combine(best, best_id,
+                   louvain_gain(a, ck, s_k, sa, volcom_v(id[k]), size_k,
+                                inv_vol, singleton_rule),
+                   ck);
+  }
+  out(r, best > -INFINITY ? best_id : -1, best);
 }
 
 }  // namespace repro_torch

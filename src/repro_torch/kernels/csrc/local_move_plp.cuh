@@ -14,7 +14,9 @@
 // A row's labels and weights are staged once in shared memory (8 KB at
 // W = 1024), so the W*W loop reads only shared memory.  Each thread scores
 // candidates k = t, t + T, ... with j ascending; a shared-memory tree takes
-// the row's argmax.
+// the row's argmax.  The streamed kernel's W = 16 path instead holds a row
+// in one lane's registers (plp_score_lane, at the end), with the same
+// additions in the same order.
 #pragma once
 #include <climits>
 #include <cmath>
@@ -293,6 +295,45 @@ __device__ __forceinline__ void plp_score_rows(const Row& src, uint32_t seed,
     plp_score_rows_scan<W>(src, seed, scale, sentinel, first, end, out);
   else
     plp_score_rows_sorted<W>(src, seed, scale, sentinel, first, end, out);
+}
+
+// The PLP move of one W = 16 row held by one lane (common.cuh lane_rows):
+// its slot ids and weights in registers, `labels` the block's window of
+// the label table, v the row's (real) id.  Each slot's label scores the
+// block path's scan sum — the weights of the slots holding it, j
+// ascending, from 0.0f — plus its tie noise, and the argmax over the slots
+// keeps the best, ties to the smaller label (a total order on non-NaN
+// scores, so the order of the slots does not matter).  The current
+// label's score is that of a slot holding it: the same sum, the same
+// noise.
+template <class Labels>
+__device__ __forceinline__ void plp_score_lane(const Labels& labels,
+                                               uint32_t seed, float scale,
+                                               int sentinel, long long r,
+                                               int v, const int (&id)[16],
+                                               const float (&wt)[16],
+                                               const PlpProposal& out) {
+  int lab[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) lab[k] = id[k] < sentinel ? labels(id[k]) : sentinel;
+  const int cur = labels(v);
+  const uint32_t row_n = static_cast<uint32_t>(v);
+  float best = -INFINITY, cur_score = 0.0f;
+  int best_id = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (lab[j] == lab[k]) s = __fadd_rn(s, wt[j]);
+    const float eff = __fadd_rn(
+        s, tie_noise(row_n, static_cast<uint32_t>(lab[k]), seed, scale));
+    if (lab[k] != sentinel) {
+      argmax_combine(best, best_id, eff, lab[k]);
+      if (lab[k] == cur) cur_score = eff;
+    }
+  }
+  out(r, best > -INFINITY ? best_id : -1, best, cur_score);
 }
 
 }  // namespace repro_torch

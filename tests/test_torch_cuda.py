@@ -10,7 +10,11 @@ package:
 Inputs are made from a seed with numpy at small shapes: every ELL width,
 integer and all-equal (tie-rich) weights, both singleton-rule settings.
 The streamed kernels run on locality-ordered tiles (windows narrower than
-the table, several blocks) and on random ones (whole-table windows).  The
+the table, several blocks) and on random ones (whole-table windows); their
+W = 16 path (a lane a row) also meets exact ties, whole dead blocks,
+ids clipped at both window edges, labels just under the sentinel, float32
+weights (bit for bit against the resident kernel) and every block size of
+``chip_smoke.py``'s sweep, with a last block of one row.  The
 scored-tile kernels (``label_argmax``, ``delta_q``) also run at widths
 that are not ELL widths, and the two-step path (gather the tiles, then
 score them) must equal the fused kernels bit for bit on float32 weights
@@ -202,6 +206,165 @@ def test_local_move_louvain_streamed_kernel_matches_plain(
     torch.cuda.synchronize()
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])
+
+
+W16_KINDS = ("int", "ties", "all_dead_blocks", "clipped", "top_labels")
+# chip_smoke.py's STREAM_BLOCK_ROWS_SWEEP, and two sizes that leave a
+# block's last warp part empty (100) or a block one row (1)
+W16_BLOCK_ROWS = (64, 128, 256, 512, 1024, 2048, 100, 1)
+
+
+def _w16_case(kind, seed, dev, weights="int"):
+    """Banded W = 16 tiles for the streamed kernels' lane-a-row path: 1 537
+    rows (12 blocks of 128 and a block of one row) holding ascending ids of
+    4 096 vertices, each neighbour within 64 ids of its row, 25 % padding
+    slots, 10 % dead rows; ``weights`` int (1..4) or f32 (uniform(0.5,
+    1.5)).  ``ties``: every live row holds two neighbours of other labels
+    on alternate slots, weight 1, and the volumes and sizes are equal, so
+    both moves score alike and the smaller id must win; ``all_dead_blocks``:
+    blocks 2, 3 and 7 (of 128 rows) dead; ``top_labels``: every label and
+    community among sentinel − 3 .. sentinel − 1.  (``clipped`` moves ids
+    off their windows once the test has computed them:
+    ``_clip_off_windows``.)  Returns n, the tiles and the four tables."""
+    rng = np.random.default_rng(seed)
+    n, R, W = 4096, 1537, 16
+    r_ids = np.sort(rng.choice(np.arange(64, n - 64), R, replace=False))
+    nbr = (r_ids[:, None] + rng.integers(-64, 65, (R, W))).astype(np.int32)
+    labels = rng.integers(0, n // 8, n)
+    vol, size = rng.integers(1, 40, n), rng.integers(1, 3, n)
+    pad = rng.random((R, W)) < 0.25
+    if kind == "ties":
+        x = r_ids + rng.integers(1, 64, R)
+        y = r_ids - rng.integers(1, 64, R)
+        nbr[:, 0::2], nbr[:, 1::2] = x[:, None], y[:, None]
+        labels = rng.permutation(n)                  # every label distinct
+        vol, size = np.full(n, 20), np.full(n, 2)
+        pad[:] = False
+    elif kind == "top_labels":
+        labels = rng.integers(n - 3, n, n)
+    dead = rng.random(R) < 0.1
+    if kind == "all_dead_blocks":
+        for b in (2, 3, 7):
+            dead[b * 128:(b + 1) * 128] = True
+    r_ids = np.where(dead, n, r_ids).astype(np.int32)
+    pad |= dead[:, None]
+    nbr[pad] = n
+    w = (np.ones((R, W)) if kind == "ties" else
+         rng.uniform(0.5, 1.5, (R, W)) if weights == "f32" else
+         rng.integers(1, 5, (R, W)))
+    w = np.where(pad, 0.0, w).astype(np.float32)
+    tabs = [np.append(labels, n).astype(np.int32),
+            np.append(vol, 0).astype(np.float32),
+            np.append(size, 0).astype(np.int32),
+            np.append(rng.integers(1, 9, n), 0).astype(np.float32)]
+    return n, [_card(x, dev) for x in (r_ids, nbr, w)], [_card(t, dev)
+                                                         for t in tabs]
+
+
+def _clip_off_windows(tiles, win, n, seed):
+    """The tiles with 5 % of the real slots moved below or above their
+    block's window, on both sides (the clamp both versions apply)."""
+    rng = np.random.default_rng(seed)
+    nbr = tiles[1].cpu().numpy()
+    R = nbr.shape[0]
+    lo = (win.win_blk.cpu().numpy().astype(np.int64) * win.slot).repeat(
+        win.block_rows)[:R, None]
+    below = rng.random(nbr.shape) < 0.5
+    moved = np.where(below, lo - rng.integers(1, 40, nbr.shape),
+                     lo + 2 * win.slot - 1 + rng.integers(1, 40, nbr.shape))
+    pick = ((nbr < n) & (rng.random(nbr.shape) < 0.05) & (moved >= 0)
+            & (moved < n))
+    assert bool((pick & below).any()) and bool((pick & ~below).any())
+    nbr[pick] = moved[pick]
+    return [tiles[0], _card(nbr, tiles[1].device), tiles[2]]
+
+
+def _w16_runs(tiles, tabs, n, win, tie_eps):
+    """(kernel, plain) outputs of the PLP and both Louvain moves."""
+    composed = compose_louvain_tables(*tabs, n)
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32,
+                       device=tiles[0].device)
+    kw = dict(tie_eps=tie_eps, sentinel=n, windows=win)
+    out = [(local_move_plp_streamed_kernel(*tiles, tabs[0], 9, **kw),
+            local_move_plp_windowed_ref(*tiles, tabs[0], 9, **kw))]
+    for rule in (True, False):
+        kw = dict(sentinel=n, singleton_rule=rule, windows=win)
+        out.append((local_move_louvain_streamed_kernel(*tiles, *composed,
+                                                       inv, **kw),
+                    local_move_louvain_windowed_ref(*tiles, *composed, inv,
+                                                    **kw)))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", [128, 512])
+@pytest.mark.parametrize("kind", W16_KINDS)
+def test_streamed_w16_path_matches_plain(cuda_device, kind, block_rows):
+    """The streamed kernels' W = 16 path (a lane a row) ≡ the windowed
+    plain versions, bit for bit, at a row a thread and at four rows a
+    thread a block (512 rows): exact ties (broken to the smaller id,
+    tie_eps = 0), whole dead blocks, ids clipped at both window edges,
+    labels just under the sentinel; a last block of one row."""
+    n, tiles, tabs = _w16_case(kind, 31, cuda_device)
+    win = compute_windows(tiles[0], tiles[1], n, block_rows)
+    assert win.win_blk.numel() == -(-1537 // block_rows) and 2 * win.slot < n
+    if kind == "clipped":
+        tiles = _clip_off_windows(tiles, win, n, 32)
+    launches = (local_move_plp_streamed_kernel.launches,
+                local_move_louvain_streamed_kernel.launches)
+    runs = _w16_runs(tiles, tabs, n, win, 0.0 if kind == "ties" else 0.25)
+    assert (local_move_plp_streamed_kernel.launches,
+            local_move_louvain_streamed_kernel.launches) == (
+                launches[0] + 1, launches[1] + 2)
+    dead = tiles[0] == n
+    for k, p in runs:
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert bool((k[0][dead] == -1).all()) and not bool(k[1][dead].any())
+        assert bool(k[1].any())
+    if kind == "ties":       # both moves score alike: the smaller id wins
+        nbr = tiles[1][~dead].long()
+        lab = tabs[0][nbr[:, :2]]
+        assert torch.equal(runs[0][0][0][~dead], lab.amin(dim=1))
+    if kind == "top_labels":
+        assert int(runs[0][0][0].max()) == n - 1
+
+
+@pytest.mark.cuda
+def test_streamed_w16_path_on_f32_weights(cuda_device):
+    """On uniform(0.5, 1.5) weights the W = 16 path equals the resident
+    kernel bit for bit (its block path sums the same weights in the same
+    order; every real id lies in its window, so both read the same
+    entries)."""
+    n, tiles, tabs = _w16_case("int", 33, cuda_device, weights="f32")
+    win = compute_windows(tiles[0], tiles[1], n, 128)
+    composed = compose_louvain_tables(*tabs, n)
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32, device=cuda_device)
+    k = local_move_plp_streamed_kernel(*tiles, tabs[0], 9, tie_eps=0.25,
+                                       sentinel=n, windows=win)
+    r = local_move_plp_kernel(*tiles, tabs[0], 9, tie_eps=0.25, sentinel=n)
+    assert torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])
+    for rule in (True, False):
+        k = local_move_louvain_streamed_kernel(
+            *tiles, *composed, inv, sentinel=n, singleton_rule=rule,
+            windows=win)
+        r = local_move_louvain_kernel(*tiles, *composed, inv, sentinel=n,
+                                      singleton_rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])
+        assert bool(k[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", W16_BLOCK_ROWS)
+def test_streamed_w16_path_at_every_block_size(cuda_device, block_rows):
+    """Every block size gives the plain version's outputs: from a block of
+    one row (one thread) to 2 048 rows (16 rows a thread), and 100 rows (a
+    last warp partly idle)."""
+    n, tiles, tabs = _w16_case("int", 35, cuda_device)
+    win = compute_windows(tiles[0], tiles[1], n, block_rows)
+    for k, p in _w16_runs(tiles, tabs, n, win, 0.25):
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
 @pytest.mark.cuda

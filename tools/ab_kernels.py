@@ -2,7 +2,7 @@
 """Time one CUDA kernel family of several source trees, interleaved.
 
     python3 tools/ab_kernels.py KERNEL [--widths=64,...] [--sets=traced,...] \
-        LABEL=CSRC_DIR LABEL=CSRC_DIR ...
+        [--block-rows=128,...] LABEL=CSRC_DIR LABEL=CSRC_DIR ...
 
 KERNEL is ``local_move`` (the resident ``local_move_plp`` and
 ``local_move_louvain`` kernels, on seeded random inputs at the as-skitter
@@ -27,6 +27,20 @@ that coarse tile's shape only — a late coarse level of the as-skitter
 stand-in as ``chip_smoke.py`` logs it: 1 087 552 live rows, of which
 one in a hundred holds a ``traced`` prefix and the rest nothing but the
 masked loop),
+``local_move_streamed`` (the streamed ``local_move_plp_streamed`` and
+``local_move_louvain_streamed`` kernels at the com-dblp stand-in's W = 16
+bucket: 316 776 rows, tables of 317 081 entries, windows from
+``graph/ell.py compute_windows`` at ``--block-rows``, default
+``stream_block_rows(16)``; 50 launches a timing; Louvain under both
+singleton rules; five input sets, each over banded ids — the rows hold
+ascending vertex ids, each neighbour within 60 ids of its row, so the
+windows stay narrow as on the locality-ordered bucket: ``prefix``,
+``long_runs`` and ``one_run`` as for ``local_move``; ``clipped`` — the
+``prefix`` tiles with 2 % of the real slots moved, after the windows were
+computed, to ids below or above their block's window, which both the
+kernel and the plain version clamp into it; ``dead_tail`` — the
+``prefix`` tiles with their last quarter of rows dead: row id and every
+slot the sentinel, weight 0),
 ``flash_attention_fwd`` (the float32 CUDA-core kernel, on seeded bf16
 inputs, causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py``
 (2, 16, 4096, 128), 20 launches a timing, and at one prefill_32k sequence
@@ -60,9 +74,13 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels import build  # noqa: E402
 
 SOURCES = {"local_move": ("local_move_plp", "local_move_louvain"),
+           "local_move_streamed": ("local_move_plp_streamed",
+                                   "local_move_louvain_streamed"),
            "flash_attention_fwd": ("flash_attention_fwd",),
            "flash_attention_fwd_wgmma": ("flash_attention_fwd_wgmma",)}
 N = 2_097_152
+# the com-dblp stand-in's W = 16 bucket: rows, vertices (the sentinel)
+DBLP_ROWS, DBLP_N = 316_776, 317_080
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -213,6 +231,108 @@ def local_move(libs, labels, dev, widths=None, sets=None):
                f"{k} W={W} rows={R} {kind}", 50)
 
 
+def streamed_inputs(rng, R, n, kind):
+    """(rows, nbr, w) of one ``local_move_streamed`` set at W = 16 over
+    banded ids (module docstring); ``clipped`` is moved off its windows by
+    ``clip_off_windows`` once they are computed."""
+    W = 16
+    rows = np.sort(rng.choice(n, R, replace=False)).astype(np.int32)
+    deg = rng.integers(W // 4 + 1, W + 1, R)
+    nbr = np.clip(rows[:, None] + rng.integers(-60, 61, (R, W)), 0,
+                  n - 1).astype(np.int32)
+    nbr[np.arange(W)[None, :] >= deg[:, None]] = n
+    if kind == "dead_tail":
+        rows[R - R // 4:] = n
+        nbr[R - R // 4:] = n
+    w = np.where(nbr < n, rng.uniform(0.5, 1.5, (R, W)), 0.0)
+    return rows, nbr, w.astype(np.float32)
+
+
+def clip_off_windows(rng, nbr, n, win):
+    """Moves 2 % of the real slots of ``nbr`` to ids below or above their
+    block's window [lo, lo + 2·slot) (those that stay in [0, n))."""
+    R = nbr.shape[0]
+    lo = (win.win_blk.cpu().numpy().astype(np.int64)
+          * win.slot).repeat(win.block_rows)[:R, None]
+    pick = (nbr < n) & (rng.random(nbr.shape) < 0.02)
+    below = rng.random(nbr.shape) < 0.5
+    off = rng.integers(1, 50, nbr.shape)
+    moved = np.where(below, lo - off, lo + 2 * win.slot - 1 + off)
+    pick &= (moved >= 0) & (moved < n)
+    nbr = nbr.copy()
+    nbr[pick] = moved[pick]
+    return nbr, int(pick.sum())
+
+
+def local_move_streamed(libs, labels, dev, sets=None, block_rows=None):
+    from repro_torch.graph.ell import compute_windows, stream_block_rows
+
+    rng = np.random.default_rng(0)
+    R, n, W = DBLP_ROWS, DBLP_N, 16
+    kinds = ("prefix", "long_runs", "one_run", "clipped", "dead_tail")
+
+    def card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    tabs = [card(np.append(rng.integers(0, n, n), n).astype(np.int32)),
+            card(np.append(rng.integers(1, 50, n), 0).astype(np.float32)),
+            card(np.append(rng.integers(1, 3, n), 0).astype(np.int32)),
+            card(np.append(rng.integers(1, 9, n), 0).astype(np.float32))]
+    tables = {"long_runs": card(np.append(rng.integers(0, 8, n), n).astype(
+                  np.int32)),
+              "one_run": card(np.append(np.full(n, 3), n).astype(np.int32))}
+    inv = torch.tensor(1e-6, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for br, kind in itertools.product(block_rows or [stream_block_rows(W)],
+                                      kinds):
+        if sets and kind not in sets:
+            continue
+        # the same inputs at every block size
+        krng = np.random.default_rng([1, kinds.index(kind)])
+        rows_np, nbr_np, w_np = streamed_inputs(krng, R, n, kind)
+        rows, nbr = card(rows_np), card(nbr_np)
+        win = compute_windows(rows, nbr, n, br)
+        what = f"W={W} rows={R} block_rows={br} slot={win.slot} {kind}"
+        if kind == "clipped":
+            nbr_np, moved = clip_off_windows(krng, nbr_np, n, win)
+            nbr = card(nbr_np)
+            what += f" ({moved} slots off their window)"
+        w = card(w_np)
+        lab = tables.get(kind, tabs[0])
+        best = torch.empty(R, dtype=torch.int32, device=dev)
+        prop = torch.empty(R, dtype=torch.bool, device=dev)
+        out = (best.data_ptr(), prop.data_ptr(), stream)
+        head = (rows.data_ptr(), nbr.data_ptr(), w.data_ptr())
+        blocks = (win.win_blk.data_ptr(), win.slot, win.block_rows)
+
+        def plp(label):
+            name = "local_move_plp_streamed"
+            return entry(libs[(label, name)], name,
+                         [_P] * 5 + [_I, ctypes.c_longlong, ctypes.c_uint32,
+                                     ctypes.c_float, _I, ctypes.c_longlong,
+                                     _I, _P, _P, _P],
+                         (*head, lab.data_ptr(), *blocks, 7, 1e-10, n, R, W,
+                          *out))
+
+        def louvain(rule):
+            def launcher(label):
+                name = "local_move_louvain_streamed"
+                return entry(libs[(label, name)], name,
+                             [_P] * 9 + [_I, ctypes.c_longlong, _I, _I,
+                                         ctypes.c_longlong, _I, _P, _P, _P],
+                             (*head, lab.data_ptr(),
+                              *(t.data_ptr() for t in tabs[1:]),
+                              inv.data_ptr(), *blocks, rule, n, R, W, *out))
+            return launcher
+
+        for k, launcher in (("local_move_plp_streamed", plp),
+                            ("local_move_louvain_streamed rule=1",
+                             louvain(1)),
+                            ("local_move_louvain_streamed rule=0",
+                             louvain(0))):
+            ab(labels, launcher, (best, prop), f"{k} {what}", 50)
+
+
 def within_bf16_ulp(a, r) -> bool:
     """|a - r| within one bf16 ulp of the larger of the two plus 1e-6
     everywhere (``chip_smoke.py``'s bound for the bf16 kernel)."""
@@ -258,9 +378,11 @@ def main(argv):
         usage=__doc__.split("\n\n")[1].strip())
     parser.add_argument("kernel", choices=sorted(SOURCES))
     parser.add_argument("trees", nargs="+", metavar="LABEL=CSRC_DIR")
-    for opt in ("--widths", "--sets"):
+    for opt in ("--widths", "--sets", "--block-rows"):
         parser.add_argument(opt, type=lambda v: v.split(","),
-                            help="local_move only: keep the named ones")
+                            help="local_move(_streamed) only: keep the "
+                            "named ones (--block-rows: the streamed "
+                            "windows' rows per block)")
     args = parser.parse_intermixed_args(argv)
     trees = [t.split("=", 1) for t in args.trees]
     if len(trees) < 2 or any(len(t) != 2 for t in trees) \
@@ -274,6 +396,10 @@ def main(argv):
     if args.kernel == "local_move":
         widths = args.widths and [int(x) for x in args.widths]
         local_move(libs, labels, dev, widths, args.sets)
+    elif args.kernel == "local_move_streamed":
+        local_move_streamed(libs, labels, dev, args.sets,
+                            args.block_rows and [int(x)
+                                                 for x in args.block_rows])
     else:
         flash_attention_fwd(libs, labels, dev, args.kernel)
 
