@@ -13,9 +13,13 @@ Phases, each failing loudly (exit code 1, no result line):
 2. Build: the ten CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, all started together; prints what
    ``-Xptxas -v`` reports for each (the wgmma flash kernel must not
-   spill), and the counts of ``HGMMA`` and ``UTMALDG`` instructions in
-   the wgmma flash kernel's SASS (``cuobjdump -sass`` of the toolkit that
-   built it): both must be above 0.
+   spill), the counts of ``HGMMA`` and ``UTMALDG`` instructions in the
+   wgmma flash kernel's SASS (``cuobjdump -sass`` of the toolkit that
+   built it), both above 0, and the float32 flash kernel's TF32
+   tensor-core instructions (``HGMMA`` ... ``TF32``, or ``HMMA`` ...
+   ``TF32``), above 0; its ``FFMA`` count is logged beside them (the
+   exponentials' and divisions' only: no product runs on the CUDA
+   cores).
 3. Main path, on two graphs of real size built on the card with
    ``datasets.load(name, scale, device="cuda")``: the R-MAT ``as-skitter``
    stand-in at scale 1.0 (2^21 vertices, ~28 M directed edges), and the
@@ -132,10 +136,15 @@ Phases, each failing loudly (exit code 1, no result line):
    ``prefill_32k`` sequence (1, 16, 32768, 128).  Each beside its plain
    version (CUDA events; skipped at 32 768, whose float32 scores alone
    are 64 GiB), ``F.scaled_dot_product_attention(is_causal=True)`` on the
-   same inputs (the library call, CUDA events) and its bound max(2·B·Hq·
-   Sq·Sk·D flops at the inputs' peak rate — 989 TFLOP/s for bf16 on the
-   tensor cores, 67 TFLOP/s for float32 on the CUDA cores — , bytes of
-   q, k, v, o / 3.35 TB/s).
+   same inputs (the library call, CUDA events) and its bound max(the
+   causal half of both products' flops, 2·B·Hq·Sq·Sk·D, at the inputs'
+   tensor-core rate — bf16 at 989 TFLOP/s; float32 as three split-TF32
+   products, 3 × 2·B·Hq·Sq·Sk·D at 495 TFLOP/s — , bytes of q, k, v, o /
+   3.35 TB/s).  The float32 row's ``[lm]`` line also gives the bound of
+   the same flops at 67 TFLOP/s, the CUDA cores' float32 rate.  Every
+   check against ``attention_ref`` first asserts that
+   ``torch.backends.cuda.matmul.allow_tf32`` is off: with it on, the
+   plain version's float32 products would themselves run in TF32.
 
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
@@ -182,7 +191,12 @@ LM_SERVE = {"batch_slots": 4, "max_seq": 512, "requests": 8,
             "prompt": (16, 96), "max_new": 16}
 LM_LOGIT_REL = 2.0 ** -4
 BF16_TFLOPS = 989e12
-# the two flash kernels (bf16 on the tensor cores, float32 on the CUDA cores)
+# the tensor cores' dense TF32 rate; a float32 product in split TF32 is
+# three TF32 products
+TF32_TFLOPS = 495e12
+TF32_TERMS = 3
+# the two flash kernels (bf16 on the tensor cores, float32 on the tensor
+# cores in split TF32)
 WGMMA = "flash_attention_fwd_wgmma"
 F32_FLASH = "flash_attention_fwd"
 
@@ -390,6 +404,18 @@ def phase_build(build):
                                                for op, n in counts.items()))
     if not all(counts.values()):
         fail(f"{WGMMA} SASS lacks tensor-core or TMA instructions: {counts}")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.lib_path(F32_FLASH))],
+        capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr.strip()}")
+    lines = sass.stdout.splitlines()
+    tf32 = sum("MMA" in line and "TF32" in line for line in lines)
+    ffma = sum("FFMA" in line for line in lines)
+    log(f"[build] {F32_FLASH} SASS: HGMMA/HMMA ... TF32 {tf32}, FFMA {ffma} "
+        f"(exponentials and divisions)")
+    if not tf32:
+        fail(f"{F32_FLASH} SASS lacks TF32 tensor-core instructions")
 
 
 PLP_FIELDS = ("labels", "iterations", "delta_n_history", "active_history")
@@ -1300,17 +1326,20 @@ def phase_scored_tiles(args, torch, rt, captured, seg_inputs, launches):
 # ------------------------------------------------------------ phase 5: LM
 
 
-def attention_bound(q, k) -> tuple[float, str]:
-    """A flash kernel's least time: the causal half of both products
-    (2·B·Hq·Sq·Sk·D flops) at the peak rate of the inputs' type (bf16 on
-    the tensor cores, float32 on the CUDA cores), or q, k, v and o moved
-    once each at HBM rate."""
+def attention_flops(q, k) -> float:
+    """The causal half of both products: 2·B·Hq·Sq·Sk·D flops."""
     b, hq, sq, d = q.shape
-    sk = k.shape[2]
-    flops = 2.0 * b * hq * sq * sk * d
+    return 2.0 * b * hq * sq * k.shape[2] * d
+
+
+def attention_bound(q, k) -> tuple[float, str]:
+    """A flash kernel's least time: its products on the tensor cores (bf16
+    at 989 TFLOP/s; float32 as three TF32 products each at 495 TFLOP/s),
+    or q, k, v and o moved once each at HBM rate."""
+    flops = attention_flops(q, k)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    rate = BF16_TFLOPS if q.element_size() == 2 else F32_OPS_PER_S
-    t_ops = flops / rate * 1e3
+    t_ops = (flops / BF16_TFLOPS if q.element_size() == 2
+             else TF32_TERMS * flops / TF32_TFLOPS) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1324,6 +1353,9 @@ def check_attention(rt, torch, q, k, v, causal, where) -> float:
     most."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = rt.fa_kernel.flash_attention_fwd_kernel(q, k, v, causal=causal)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is on: attention_ref's "
+             "float32 products would run in TF32")
     ref = rt.fa_ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     a, b = out.float(), ref.float()
@@ -1538,11 +1570,14 @@ def time_attention(rt, torch, q, k, v, k_times, reps, plain: bool) -> dict:
     lib_ms = loop_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=gqa),
                      reps, torch)
     b_ms, kind = attention_bound(q, k)
+    cuda_cores = ("" if q.element_size() == 2 else
+                  f"; the same flops at the CUDA cores' float32 rate "
+                  f"{attention_flops(q, k) / F32_OPS_PER_S * 1e3:.4f} ms")
     log(f"[lm] {rt.fa_kernel.KERNEL_OF[q.dtype]} {(b, hq, s, d)} {str(q.dtype)[6:]} causal: kernel "
         + " / ".join(f"{t:.4f}" for t in k_times) + f" ms (mean {k_ms:.4f}),"
         f" plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, SDPA "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({kind}); kernel at "
-        f"{b_ms / k_ms:.1%} of its bound")
+        f"{b_ms / k_ms:.1%} of its bound{cuda_cores}")
     return {"shape": [b, hq, s, d], "ms": k_ms, "ms_each": k_times,
             "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
             "bound_by": kind}

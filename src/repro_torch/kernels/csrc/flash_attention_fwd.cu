@@ -1,269 +1,650 @@
-// flash_attention_fwd: causal GQA attention forward with an online softmax,
-// float32 inside, for float32 or bf16 tensors in and out.
+// flash_attention_fwd: causal GQA attention forward for float32 tensors on
+// Hopper's tensor cores, both products by wgmma in split TF32.
 //
-// Replaces src/repro/kernels/flash_attention/kernel.py flash_attention_fwd
-// (body _flash_fwd_kernel).  Plain version:
-// src/repro_torch/kernels/flash_attention/ref.py attention_ref.
+// Replaces src/repro/kernels/flash_attention/kernel.py:85
+// flash_attention_fwd (body _flash_fwd_kernel, pallas_call at :115) for
+// float32 inputs; bf16 inputs launch csrc/flash_attention_fwd_wgmma.cu.
+// Plain version: src/repro_torch/kernels/flash_attention/ref.py
+// attention_ref.
 //
-//   q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), Hq % Hkv == 0; query head h
-//   reads KV head h / (Hq / Hkv).  Queries are scaled by 1/sqrt(D) in f32.
-//   Causal masking is aligned top left (key j visible to query i iff
-//   j <= i); masked scores are -1e30, keys past Sk take no part at all.
-//   o = acc / max(l, 1e-30), cast to the input dtype.
-//
-// Design: one CUDA block of 128 threads per (b*Hq + h, 64-row query tile),
-// heaviest causal tiles first.  The block stages its query tile (scaled,
-// as f32, transposed) in shared memory once, then walks the key tiles of
-// 64 keys in ascending order, each staged as f32 (K transposed, V as is);
-// when causal, the walk stops at the diagonal (the Pallas kernel's
-// n_iter).  Each thread owns a 4-row by 8-key piece of the 64 x 64 score
-// tile (keys tx + 8j, so a warp reads consecutive shared-memory words) and
-// the same 4 rows by D/8 columns of the output accumulator, in registers.
-// Row max and row sum combine over the 8 threads of a row group with warp
-// shuffles; the probabilities go through shared memory (transposed) to the
-// P.V product, read back only by the warp that wrote them.  Both products
-// are explicit f32 fused multiply-adds on the CUDA cores.  Staging in f32
-// needs (64 * D + 65 * D + 64 * D + 64 * 65) * 4 bytes, 115 456 at
-// D = 128, past the 48 KB static limit, so it is dynamic shared memory
-// after cudaFuncSetAttribute(MaxDynamicSharedMemorySize); two blocks fit
-// an SM's 228 KB.  The K and P tiles are padded to a stride of 65 so the
-// transposed writes hit distinct banks; the query tile, staged once per
-// block, is not, to keep within that budget.
+//   q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), float32, D in {16, 32, 64,
+//   128}, Hq % Hkv == 0; query head h reads KV head h / (Hq / Hkv).
+//   Queries are scaled by 1/sqrt(D) in f32.  Causal masking is aligned
+//   top left (key j visible to query i iff j <= i); masked scores are
+//   -1e30, keys past Sk take no part at all.  o = acc / max(l, 1e-30).
 //
 // Bound on the H100: operations.  The two products cost 4 * Sq * Sk * D
-// flops per head (half of it under the causal mask), against 2 bytes per
-// element of q, k, v and o: about 1 000 flops per byte at Sq = Sk = 4096
-// and D = 128 (Sq / 4 under the mask), past the card's balance of some
-// 295, so the least time is the tensor cores' (989 TFLOP/s bf16).  This kernel runs on the CUDA cores in f32
-// (67 TFLOP/s peak with FMA) and reads every K/V tile once per query tile
-// from L2; it is the simple, exact first version, whose time stands beside
-// that bound.  The tensor-core version (wgmma, TMA, warp specialisation)
-// is the next step.
-#include <cuda_bf16.h>
+// flops per head (half of it under the causal mask) against 4 bytes per
+// element of q, k, v and o.  The contract (rtol = atol = 1e-5 against
+// attention_ref in float32) is kept on the tensor cores by splitting each
+// float32 operand x into two TF32 values, hi = rna(x) and lo = rna(x - hi)
+// (rna: to nearest, ties away from zero, as cvt.rna.tf32.f32, here by two
+// integer instructions where the cvt takes four), and each product a.b
+// into lo.hi + hi.lo + hi.hi: the dropped lo.lo and the rounding of lo
+// are each under 2^-22 of |a.b|.  So the least time is three TF32
+// products at 495 TFLOP/s.  One TF32 product (hi.hi alone) lands past
+// 1e-5 (tests/test_torch_flash_attention.py emulates both, tf32_recipe).
+//
+// * Why wgmma: mma.sync runs TF32 at 302-314 TFLOP/s on the H100
+//   (tools/mma_sync_peak.py), and the same design on mma.sync (8 warps of
+//   16 rows, every warp splitting its own fragments) took 2.68 ms at
+//   (2, 16, 4096, 128) causal; this kernel takes 1.90 (tools/ab_kernels.py,
+//   PERF.md; NVIDIA H100 80GB HBM3, 700 W).  wgmma wants both TF32
+//   operands K-major, so V is stored transposed, and every operand it
+//   reads from shared memory is split there once, into hi and lo tiles:
+//   the price is shared memory, 2 x 64 KB a 32-key stage at D = 128.
+// * Grid: one block per (b*Hq + h, 128-row query tile), heaviest causal
+//   tiles first; the walk over 32-key tiles stops at the diagonal (the
+//   Pallas kernel's n_iter).  384 threads: warpgroup 0 produces,
+//   warpgroups 1 and 2 consume, 64 query rows each; setmaxnreg moves the
+//   registers (producer 88, consumers 208).
+// * Producer: loads each K and V tile from global memory (16-byte loads;
+//   the next tile's while the ring is full), splits it into hi and lo,
+//   stores K K-major and V transposed (V^T: D rows of 32 keys), both in
+//   the swizzled layouts wgmma reads, into a ring of two stages with full
+//   and empty mbarriers.  A k or v that is not 16-byte aligned takes
+//   4-byte loads.  Shared memory at D = 128: q lo 64 KB + 2 x 64 KB.
+// * Consumers: q hi stays in registers as the A fragments of S; q lo is
+//   split into a K-major tile.  S = Q.K^T per 8-column k-step: lo.hi
+//   (both from shared memory), hi.lo and hi.hi (A from registers), wgmma
+//   m64n32k8.  Masks only on tiles that cross the warpgroup's diagonal or
+//   Sk's edge.  Online softmax in registers: the row max over a row's 4
+//   threads by shuffles, m and l in f32 (each thread keeps its part of l).
+// * O += P.V: P's hi and lo are A fragments straight from the S
+//   accumulators, because the keys of V^T are stored in the accumulator
+//   layout's order (a thread holds keys 2t and 2t + 1 of each 8-key
+//   block, the A fragment's k = t and t + 4).  Each tile's P.V goes into
+//   an accumulator of its own, 64 columns at a time (wgmma m64n64k8 with
+//   A from registers), and is added to O in f32 with round-to-nearest
+//   (O = O * alpha + PV): the tensor cores truncate as they accumulate,
+//   and one accumulator across a whole row of tiles would let that build
+//   up.
+// * Epilogue: O / max(l, 1e-30) stored from registers; rows past Sq are
+//   not written.
+//
+// At 1.90 ms the products run at about 217 TFLOP/s, 2.3 times the 0.83
+// ms bound.  Not yet: ping-pong between the two consumer warpgroups, the
+// softmax overlapped with the next tile's S product, a deeper ring.
 #include <cuda_runtime.h>
 
-#include <type_traits>
+#include <cstdint>
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 64;          // keys per tile
-constexpr int kThreads = 128;    // 16 row groups of 4 rows x 8 threads
-constexpr int kStride = 65;      // padded stride of the K and P tiles
-constexpr float kNegInf = -1e30f;
+constexpr int kBQ = 128;              // query rows per block: 64 a consumer
+constexpr int kBK = 32;               // keys per tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kThreads = 384;         // warpgroup 0 splits, 1 and 2 multiply
+// setmaxnreg moves registers within the block's 384 x 168: 128 x 88 +
+// 256 x 208
+constexpr int kProducerRegs = 88;
+constexpr int kConsumerRegs = 208;
+constexpr float kNegBig = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Shared-memory geometry of a head dim.  Q and K tiles are K-major: rows
+// of D floats cut into boxes of kCols floats, one swizzle row (kRowBytes:
+// 128 bytes, or 64 at D = 16) each.  V is stored transposed (V^T: D rows
+// of the tile's kBK = 32 keys, 128 bytes, 128-byte swizzle).  K and V
+// come as hi and lo tiles, q as its lo tile (its hi stays in registers).
+template <int D>
+struct Geo {
+  static constexpr int kCols = D < 32 ? D : 32;
+  static constexpr int kRowBytes = 4 * kCols;             // 64 or 128
+  // descriptor layout code: 1 = 128-byte, 2 = 64-byte swizzle
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
+  static constexpr int kQBytes = kBQ * D * 4;             // q lo
+  static constexpr int kKBytes = kBK * D * 4;             // k hi or k lo
+  static constexpr int kVBytes = D * kBK * 4;             // v^T hi or lo
+  static constexpr int kStageBytes = 2 * kKBytes + 2 * kVBytes;
+  static constexpr int kSmem =
+      kQBytes + kStages * kStageBytes + 2 * kStages * 8 + 1024;
+
+  // byte offset of float col (a multiple of 4) of row r in a K-major tile
+  // of `rows` rows
+  static __device__ __forceinline__ uint32_t kmajor(int rows, int r, int col) {
+    const int box = col / kCols, chunk = (col % kCols) / 4;
+    const int sw = kRowBytes == 128 ? (r & 7) : ((r >> 1) & 3);
+    return static_cast<uint32_t>((box * rows + r) * kRowBytes +
+                                 16 * (chunk ^ sw));
+  }
+};
+
+// byte offset of key position p (0 .. 31) of row d in a V^T tile
+__device__ __forceinline__ uint32_t vt_off(int d, int p) {
+  return static_cast<uint32_t>(d * 128 + 16 * ((p >> 2) ^ (d & 7)) +
+                               4 * (p & 3));
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+
+// The position of key k of a tile in V^T: within each 8-key block, key
+// 2t at t and key 2t + 1 at t + 4, the order in which a thread's S
+// accumulators (keys 2t, 2t + 1) are the k = t, t + 4 entries of a P.V A
+// fragment.
+__device__ __forceinline__ int key_pos(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero): half the unit of the 13 dropped bits added to the
+// magnitude, then those bits cleared.  Two integer instructions; the cvt
+// compiles to four, with a NaN test.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi + lo, both TF32: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint32_t a,
+                                           uint32_t b, uint32_t c,
+                                           uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d));
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t a) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(a));
+}
+
+// Splits four floats into the hi and lo tiles at the same offset.
+__device__ __forceinline__ void store_split4(uint32_t hi, uint32_t lo,
+                                             float4 x) {
+  uint32_t h[4], l[4];
+  split(x.x, h[0], l[0]);
+  split(x.y, h[1], l[1]);
+  split(x.z, h[2], l[2]);
+  split(x.w, h[3], l[3]);
+  st_shared4(hi, h[0], h[1], h[2], h[3]);
+  st_shared4(lo, l[0], l[1], l[2], l[3]);
+}
+
+// Four consecutive floats from global memory (one 16-byte load when
+// aligned), or zeros when !in.
+__device__ __forceinline__ float4 load4(const float* p, bool in,
+                                        bool aligned) {
+  if (!in) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (aligned) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Makes this thread's shared-memory stores visible to wgmma (the async
+// proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle layout code.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Tells the compiler that registers an asynchronous wgmma reads or writes
+// are in use up to this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D (64 x 32) (+)= A (64 x 8, shared memory) * B (8 x 32, shared
+// memory), both K-major TF32; the product is D's initial value when
+// scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 16) (+)= A (64 x 8, registers) * B (8 x 16, shared memory,
+// K-major), TF32; the product is D's initial value when scale_d is 0.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 32) (+)= A (64 x 8, registers) * B (8 x 32, shared memory,
+// K-major), TF32; the product is D's initial value when scale_d is 0.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 64) (+)= A (64 x 8, registers) * B (8 x 64, shared memory,
+// K-major), TF32; the product is D's initial value when scale_d is 0.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x N) (+)= one 8-key slice of P (the A fragment a) times N columns
+// of V.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, desc_b, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, desc_b, scale_d);
+  } else {
+    wgmma_rs_n16(d, a, desc_b, scale_d);
+  }
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
-  // Qt: D x kBQ; Kt: D x kStride; V: kBK x D; Pt: kBK x kStride
-  return sizeof(float) * (D * kBQ + D * kStride + kBK * D + kBK * kStride);
-}
-
-template <int D, class T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq,
-                 int group, int Sq, int Sk, int n_qt, int bh_total,
-                 bool causal) {
-  extern __shared__ float smem[];
-  float* s_qt = smem;                       // [D][kBQ]
-  float* s_kt = s_qt + D * kBQ;             // [D][kStride]
-  float* s_v = s_kt + D * kStride;          // [kBK][D]
-  float* s_pt = s_v + kBK * D;              // [kBK][kStride]
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int Hq, int group, int Sq, int Sk, int n_qt,
+                      int bh_total, bool causal, bool aligned) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // tiles on 1024-byte boundaries, where every swizzle pattern starts
+  const uint32_t s_ql = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = s_ql + G::kQBytes;                 // kStages stages
+  const uint32_t bar_full = ring + kStages * G::kStageBytes;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
 
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / bh_total);
   const int bh = static_cast<int>(blockIdx.x % bh_total);
   const int b = bh / Hq;
-  const int h = bh % Hq;
-  const int hk = h / group;
+  const int hk = (bh % Hq) / group;
   const int Hkv = Hq / group;
   const int q0 = qt * kBQ;
-  const T* qp = q + (static_cast<long long>(bh) * Sq + q0) * D;
-  const long long kv_off = (static_cast<long long>(b) * Hkv + hk) * Sk * D;
-  const T* kp = k + kv_off;
-  const T* vp = v + kv_off;
-
-  const int t = threadIdx.x;
-  const int ty = t >> 3;      // row group: rows ty*4 .. ty*4+3
-  const int tx = t & 7;       // keys tx + 8j, output columns tx + 8jj
-
-  const float sqrt_d = __fsqrt_rn(static_cast<float>(D));
-  for (int i = t; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const float x = q0 + r < Sq ? to_f32(qp[i]) : 0.0f;
-    s_qt[d * kBQ + r] = __fdiv_rn(x, sqrt_d);
-  }
-
-  constexpr int kCols = D / 8;
-  float acc[4][kCols];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
-
   const int n_kt = (Sk + kBK - 1) / kBK;
   const int last_row = min(q0 + kBQ, Sq) - 1;
   const int n_iter = causal ? min(n_kt, last_row / kBK + 1) : n_kt;
 
-  for (int kt = 0; kt < n_iter; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();              // the previous tile's reads are done
-    for (int i = t; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < Sk;
-      const long long g = static_cast<long long>(k0) * D + i;
-      s_kt[d * kStride + r] = in ? to_f32(kp[g]) : 0.0f;
-      s_v[i] = in ? to_f32(vp[g]) : 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 128);
+      mbar_init(bar_empty + 8 * s, 256);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[4][8];
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  if (wg == 0) {
+    // ---- producer: loads each K and V tile, splits it into hi and lo,
+    // stores K K-major and V transposed
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const long long kv_off = (static_cast<long long>(b) * Hkv + hk) * Sk * D;
+    const float* kp = k + kv_off;
+    const float* vp = v + kv_off;
+    constexpr int kC4 = D / 4;                 // 16-byte chunks a row
+    constexpr int kN = kBK * kC4 / 128;        // chunks a thread, K or V
+    // K: a warp takes whole rows.  V: a warp takes 4 chunks of 8 keys, so
+    // its transposed stores spread over the banks
+    float4 xk[kN], xv[kN];
+    auto load_tile = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < kN; ++n) {
+        const int i = t + 128 * n;
+        int r = i / kC4, c = i % kC4;
+        bool in = k0 + r < Sk;
+        xk[n] = load4(kp + static_cast<long long>(in ? k0 + r : 0) * D + 4 * c,
+                      in, aligned);
+        r = (i / 4) % kBK;
+        c = 4 * (i / (4 * kBK)) + i % 4;
+        in = k0 + r < Sk;
+        xv[n] = load4(vp + static_cast<long long>(in ? k0 + r : 0) * D + 4 * c,
+                      in, aligned);
+      }
+    };
+    if (n_iter > 0) load_tile(0);
+    for (int kt = 0; kt < n_iter; ++kt) {
+      const int st = kt % kStages;
+      mbar_wait(bar_empty + 8 * st, ((kt / kStages) & 1) ^ 1);
+      const uint32_t kh = ring + st * G::kStageBytes;
+      const uint32_t kl = kh + G::kKBytes;
+      const uint32_t vh = kl + G::kKBytes;
+      const uint32_t vl = vh + G::kVBytes;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_qt[d * kBQ + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bk[j] = s_kt[d * kStride + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = __fmaf_rn(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        if (kpos >= Sk)
-          s[i][j] = __int_as_float(0xff800000);   // -inf: no part
-        else if (causal && kpos > qpos)
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int n = 0; n < kN; ++n) {
+        const int i = t + 128 * n, r = i / kC4, c = i % kC4;
+        const uint32_t off = G::kmajor(kBK, r, 4 * c);
+        store_split4(kh + off, kl + off, xk[n]);
       }
 #pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
+      for (int n = 0; n < kN; ++n) {
+        const int i = t + 128 * n;
+        const int r = (i / 4) % kBK, c = 4 * (i / (4 * kBK)) + i % 4;
+        const int p = key_pos(r);
+        const float xs[4] = {xv[n].x, xv[n].y, xv[n].z, xv[n].w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum = __fadd_rn(sum, p);
-        s_pt[(tx + 8 * j) * kStride + ty * 4 + i] = p;
+        for (int e = 0; e < 4; ++e) {
+          uint32_t hi, lo;
+          split(xs[e], hi, lo);
+          st_shared(vh + vt_off(4 * c + e, p), hi);
+          st_shared(vl + vt_off(4 * c + e, p), lo);
+        }
       }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      l[i] = __fmaf_rn(l[i], alpha, sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] = __fmul_rn(acc[i][c], alpha);
+      fence_async_smem();
+      mbar_arrive(bar_full + 8 * st);
+      if (kt + 1 < n_iter) load_tile((kt + 1) * kBK);
     }
-    __syncwarp();                 // a row group's P is written by its warp
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_pt[kk * kStride + ty * 4 + i];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = s_v[kk * D + tx + 8 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = __fmaf_rn(p[i], vv, acc[i][c]);
-      }
-    }
+    return;
   }
 
-  T* op = o + (static_cast<long long>(bh) * Sq + q0) * D;
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 (wg - 1) .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = t / 32, lane = t % 32;
+  const int wrow = 64 * (wg - 1);                // the warpgroup's first row
+  const int rw = wrow + 16 * warp + lane / 4;    // rows rw and rw + 8
+  const int r0 = q0 + rw;
+  const int cq = 2 * (lane % 4);                 // columns 8j + cq, + 1
+  const int tq = lane % 4;
+
+  // q scaled by 1/sqrt(D): hi as this thread's A fragments of S (k-step
+  // kk: rows rw, rw + 8, columns 8 kk + tq, 8 kk + tq + 4), lo into the
+  // K-major tile
+  uint32_t qa[D / 8][4];
+  {
+    const float* qp = q + static_cast<long long>(bh) * Sq * D;
+    const float sqrt_d = __fsqrt_rn(static_cast<float>(D));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= Sq) continue;
-    const float inv = fmaxf(l[i], 1e-30f);
+    for (int kk = 0; kk < D / 8; ++kk)
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      store(op + static_cast<long long>(r) * D + tx + 8 * c,
-            __fdiv_rn(acc[i][c], inv));
+      for (int e = 0; e < 4; ++e) {
+        const int r = rw + 8 * (e & 1);
+        const int col = 8 * kk + tq + 4 * (e >> 1);
+        const float x = q0 + r < Sq
+            ? __ldg(qp + static_cast<long long>(q0 + r) * D + col) : 0.0f;
+        uint32_t lo;
+        split(__fdiv_rn(x, sqrt_d), qa[kk][e], lo);
+        st_shared(s_ql + G::kmajor(kBQ, r, col & ~3) + 4 * (col & 3), lo);
+      }
+    fence_async_smem();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(wg) : "memory");
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.0f, 0.0f};
+  constexpr int kPVN = D < 64 ? D : 64;          // P.V columns a pass
+
+  for (int kt = 0; kt < n_iter; ++kt) {
+    const int st = kt % kStages;
+    const int k0 = kt * kBK;
+    mbar_wait(bar_full + 8 * st, (kt / kStages) & 1);
+    if (!causal || k0 <= q0 + wrow + 63) {
+      const uint32_t kh = ring + st * G::kStageBytes;
+      const uint32_t kl = kh + G::kKBytes;
+      const uint32_t vh = kl + G::kKBytes;
+      const uint32_t vl = vh + G::kVBytes;
+
+      // S = Q.K^T: per 8-column k-step lo.hi (q lo from shared memory),
+      // hi.lo, then hi.hi (q hi from registers)
+      float s[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int box = (kk * 8) / G::kCols;
+        const int col_bytes = ((kk * 8) % G::kCols) * 4;
+        const uint32_t sbo = 8 * G::kRowBytes;
+        const uint32_t qa_off = (box * kBQ + wrow) * G::kRowBytes + col_bytes;
+        const uint32_t kb_off = box * kBK * G::kRowBytes + col_bytes;
+        wgmma_ss_n32(s, make_desc(s_ql + qa_off, 16, sbo, G::kLayout),
+                     make_desc(kh + kb_off, 16, sbo, G::kLayout), kk > 0);
+        wgmma_rs_n32(s, qa[kk], make_desc(kl + kb_off, 16, sbo, G::kLayout),
+                     1);
+        wgmma_rs_n32(s, qa[kk], make_desc(kh + kb_off, 16, sbo, G::kLayout),
+                     1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // masks, only where they can bite (accumulator i: row r0 + 8 * (i & 2
+      // ? 1 : 0), key k0 + 8 * (i / 4) + cq + (i & 1))
+      if ((causal && k0 + kBK - 1 > q0 + wrow) || k0 + kBK > Sk) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int key = k0 + 8 * (i / 4) + cq + (i & 1);
+          const int row = r0 + ((i & 2) ? 8 : 0);
+          if (key >= Sk)
+            s[i] = __int_as_float(0xff800000);   // -inf: no part
+          else if (causal && key > row)
+            s[i] = kNegBig;
+        }
+      }
+
+      // online softmax over the row's 4 threads (half h: row r0 + 8h)
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegBig;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        alpha[h] = expf(m[h] - m_new);
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            s[4 * j + e] = expf(s[4 * j + e] - m_new);
+            sum = __fadd_rn(sum, s[4 * j + e]);
+          }
+        l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), sum);
+        m[h] = m_new;
+      }
+
+      // P as TF32 A fragments: k-step j's k = t is key 8j + 2t (s[4j],
+      // s[4j + 2] by row), k = t + 4 is key 8j + 2t + 1 (s[4j + 1], + 3)
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split(s[4 * j], ph[j][0], pl[j][0]);
+        split(s[4 * j + 2], ph[j][1], pl[j][1]);
+        split(s[4 * j + 1], ph[j][2], pl[j][2]);
+        split(s[4 * j + 3], ph[j][3], pl[j][3]);
+      }
+
+      // this tile's P.V on its own, kPVN columns a pass (per k-step lo.hi,
+      // hi.lo, hi.hi), then O = O * alpha + P.V in f32 with
+      // round-to-nearest
+#pragma unroll
+      for (int pass = 0; pass < D / kPVN; ++pass) {
+        float pv[kPVN / 2];
+        const uint32_t col0 = pass * kPVN * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          const uint64_t dh = make_desc(vh + col0 + 32 * j, 16, 1024, 1);
+          const uint64_t dl = make_desc(vl + col0 + 32 * j, 16, 1024, 1);
+          wgmma_pv<kPVN>(pv, pl[j], dh, j > 0);
+          wgmma_pv<kPVN>(pv, ph[j], dl, 1);
+          wgmma_pv<kPVN>(pv, ph[j], dh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(pv);
+        fence_regs(ph);
+        fence_regs(pl);
+#pragma unroll
+        for (int i = 0; i < kPVN / 2; ++i) {
+          float& a = acc[pass * (kPVN / 2) + i];
+          a = __fadd_rn(__fmul_rn(a, alpha[(i >> 1) & 1]), pv[i]);
+        }
+      }
+    }
+    mbar_arrive(bar_empty + 8 * st);
+  }
+
+  // l over the row's 4 threads; O / max(l, 1e-30), rows past Sq not
+  // written
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = __fadd_rn(l[h], __shfl_xor_sync(0xffffffffu, l[h], 1));
+    l[h] = __fadd_rn(l[h], __shfl_xor_sync(0xffffffffu, l[h], 2));
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+  float* op = o + static_cast<long long>(bh) * Sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const float2 x = make_float2(__fdiv_rn(acc[4 * j + 2 * h], l[h]),
+                                   __fdiv_rn(acc[4 * j + 2 * h + 1], l[h]));
+      *reinterpret_cast<float2*>(op + static_cast<long long>(row) * D +
+                                 8 * j + cq) = x;
+    }
   }
 }
-
-template <int D, class T>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int Hkv, int Sq, int Sk, bool causal,
                    cudaStream_t stream) {
+  using G = Geo<D>;
+  const auto kernel = flash_fwd_tf32_kernel<D>;
+  // setmaxnreg only moves registers the block holds: refuse rather than
+  // launch a block whose consumers would wait for them forever
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+    return cudaErrorInvalidConfiguration;
   // the opt-in to dynamic shared memory past 48 KB, set before every launch
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<D>()));
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (err != cudaSuccess) return err;
   const int n_qt = (Sq + kBQ - 1) / kBQ;
   const int bh_total = B * Hq;
   const long long blocks = static_cast<long long>(n_qt) * bh_total;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_fwd_kernel<D, T><<<static_cast<unsigned>(blocks), kThreads,
-                           smem_bytes<D>(), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hkv, Sq, Sk,
-      n_qt, bh_total, causal);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, G::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
+      Sk, n_qt, bh_total, causal, aligned);
   return cudaGetLastError();
-}
-
-// Calls f(std::integral_constant<int, D>, (T*)nullptr) for the head dim and
-// dtype code (0 = float32, 1 = bfloat16) the caller names.
-template <class F>
-cudaError_t dispatch(int D, int dtype, F f) {
-  auto by_dim = [&](auto* t) -> cudaError_t {
-    switch (D) {
-      case 16: return f(std::integral_constant<int, 16>{}, t);
-      case 32: return f(std::integral_constant<int, 32>{}, t);
-      case 64: return f(std::integral_constant<int, 64>{}, t);
-      case 128: return f(std::integral_constant<int, 128>{}, t);
-      default: return cudaErrorInvalidValue;
-    }
-  };
-  if (dtype == 0) return by_dim(static_cast<float*>(nullptr));
-  if (dtype == 1) return by_dim(static_cast<__nv_bfloat16*>(nullptr));
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).  All tensors are
-// contiguous (B, H, S, D); dtype 0 = float32, 1 = bfloat16; D in
-// {16, 32, 64, 128}; Hq a multiple of Hkv; Sq >= 1, Sk >= 0.
+// contiguous float32 (B, H, S, D); D in {16, 32, 64, 128}; Hq a multiple
+// of Hkv; Sq >= 1, Sk >= 0.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int Hq, int Hkv, int Sq, int Sk,
-                                          int D, int dtype, int causal,
-                                          void* stream) {
+                                          int D, int causal, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || Sq < 1 || Sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch(D, dtype, [&](auto d, auto* t) {
-    using T = std::remove_pointer_t<decltype(t)>;
-    return launch<decltype(d)::value, T>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                         causal != 0,
-                                         static_cast<cudaStream_t>(stream));
-  }));
+  const bool c = causal != 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return static_cast<int>(launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
+    case 32: return static_cast<int>(launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
+    case 64: return static_cast<int>(launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
+    case 128: return static_cast<int>(launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,3 +1,3 @@
-"""Causal GQA flash attention: the two CUDA kernels (bf16 on the tensor
-cores, float32 on the CUDA cores), their plain version and the dispatch
-between them."""
+"""Causal GQA flash attention: the two CUDA kernels (both by wgmma on the
+tensor cores, bf16 and float32 in split TF32), their plain version and the
+dispatch between them."""

@@ -4,8 +4,11 @@ forward with an online softmax whose probabilities keep float32 precision.
 * bf16 tensors launch ``csrc/flash_attention_fwd_wgmma.cu``: both
   products on Hopper's tensor cores (wgmma, TMA-fed K/V stages), P split
   into three bf16 terms for the P.V product.
-* float32 tensors launch ``csrc/flash_attention_fwd.cu``: float32
-  throughout on the CUDA cores, the only way to its 1e-5 contract.
+* float32 tensors launch ``csrc/flash_attention_fwd.cu``: both products
+  on Hopper's tensor cores in split TF32 (wgmma; each float32 operand
+  split into hi + lo TF32 values, three TF32 products for each float32
+  one), K and a transposed V split into hi and lo tiles by a producer
+  warpgroup; within its 1e-5 contract.
 
 The choice is by dtype alone, with no fallback from one kernel to the
 other.  The plain version (``ref.attention_ref``) serves tensors on the
@@ -31,7 +34,7 @@ from repro_torch.kernels.common import check_tensor
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
-# the kernel each dtype launches; flash_attention_fwd takes a dtype code
+# the kernel each dtype launches
 KERNEL_OF = {torch.float32: "flash_attention_fwd",
              torch.bfloat16: "flash_attention_fwd_wgmma"}
 
@@ -76,15 +79,11 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (q, k, v, out)]
-    if name == "flash_attention_fwd":
-        fn = build.entry(name, [_P] * 4 + [_I] * 8 + [_P])
-        err = fn(*ptrs, b, hq, hk, sq, sk, d, 0, int(causal), stream)
-    else:
-        if any(p % 16 for p in ptrs[:3]):
-            raise ValueError("bf16 q, k and v must start at 16-byte aligned "
-                             "addresses (the TMA copies them)")
-        fn = build.entry(name, [_P] * 4 + [_I] * 7 + [_P])
-        err = fn(*ptrs, b, hq, hk, sq, sk, d, int(causal), stream)
+    if name == "flash_attention_fwd_wgmma" and any(p % 16 for p in ptrs[:3]):
+        raise ValueError("bf16 q, k and v must start at 16-byte aligned "
+                         "addresses (the TMA copies them)")
+    fn = build.entry(name, [_P] * 4 + [_I] * 7 + [_P])
+    err = fn(*ptrs, b, hq, hk, sq, sk, d, int(causal), stream)
     build.check_launch(name, err)
     flash_attention_fwd_kernel.launches += 1
     if name == "flash_attention_fwd_wgmma":

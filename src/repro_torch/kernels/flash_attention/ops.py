@@ -3,8 +3,8 @@
 
 Dispatch is by the tensors' device, as in every wrapper of the port: CPU
 tensors take the plain version (``ref.attention_ref``), CUDA tensors launch
-a hand-written kernel (by dtype: bf16 the tensor-core one, float32 the
-CUDA-core one) or raise ``KernelError``.  The JAX package's
+a hand-written kernel (by dtype: bf16 the wgmma one, float32 the
+split-TF32 one) or raise ``KernelError``.  The JAX package's
 ``use_pallas``/``interpret`` switches have no counterpart, and neither has
 its tiling fallback (ragged ``Sq``/``Sk`` to the oracle): the kernel masks
 ragged tiles itself, so every shape on the card goes through it.

@@ -41,11 +41,16 @@ label, and labels past 2^26 (64-bit sort keys at W = 64).
 
 The flash-attention kernels run against their plain version at every head
 dim they take, GQA groups 1, 2 and 4, causal and not, Sq != Sk and ragged
-lengths: float32 inputs through the CUDA-core kernel within 1e-5, bf16
-inputs through the wgmma kernel within one bf16 ulp of the larger value
-plus 1e-6 (both keep the probabilities to float32 precision and round
-once), each launch counted by its own kernel; the wgmma kernel also at the
-model's head dim and lengths; and the dense model's ``prefill_fn`` at its
+lengths: float32 inputs through the split-TF32 tensor-core kernel within
+1e-5, bf16 inputs through the wgmma kernel within one bf16 ulp of the
+larger value plus 1e-6 (both keep the probabilities to float32 precision
+and round once), each launch counted by its own kernel, against
+``attention_ref`` in full float32 (``allow_tf32`` asserted off); both
+kernels also at the model's head dim and lengths, the float32 one up to
+4096 keys a query, at scores up to |s| of about 16 and, where float32
+itself stops resolving 1e-5 (|s| near 30), against a float64 truth, and
+on k and v that are not 16-byte aligned; and the dense model's
+``prefill_fn`` at its
 REDUCED size on the card, every layer's attention through the wgmma kernel,
 against the same model on the CPU within 2^-5 of each logit row's largest
 magnitude (bf16 matmuls on the card sum in another order, and the CPU path
@@ -1085,11 +1090,17 @@ def test_flash_attention_kernel_matches_plain(cuda_device, shape, dtype):
     out = flash_attention_fwd_kernel(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_fwd_kernel.launches == launches + 1
-    # bf16 goes to the wgmma kernel, float32 to the CUDA-core one
+    # bf16 goes to the wgmma kernel, float32 to the split-TF32 one
     assert flash_attention_fwd_kernel.wgmma_launches == \
         wgmma + (dtype == torch.bfloat16)
-    _assert_attention_close(out, attention_ref(q, k, v, causal=causal),
-                            dtype)
+    _assert_attention_close(out, _ref(q, k, v, causal), dtype)
+
+
+def _ref(q, k, v, causal):
+    """``attention_ref`` in full float32: with ``allow_tf32`` set, a
+    float32 matmul on the card would itself run in TF32."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    return attention_ref(q, k, v, causal=causal)
 
 
 def _assert_attention_close(out, ref, dtype):
@@ -1118,8 +1129,82 @@ def test_wgmma_flash_kernel_at_the_model_head_dim(cuda_device, shape):
     out = flash_attention_fwd_kernel(q, k, v, causal=shape[6])
     torch.cuda.synchronize()
     assert flash_attention_fwd_kernel.wgmma_launches == wgmma + 1
-    _assert_attention_close(out, attention_ref(q, k, v, causal=shape[6]),
-                            torch.bfloat16)
+    _assert_attention_close(out, _ref(q, k, v, shape[6]), torch.bfloat16)
+
+
+def _float32_launch(q, k, v, causal):
+    """The float32 kernel's output; exactly one launch, none of wgmma."""
+    launches = flash_attention_fwd_kernel.launches
+    wgmma = flash_attention_fwd_kernel.wgmma_launches
+    out = flash_attention_fwd_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.launches == launches + 1
+    assert flash_attention_fwd_kernel.wgmma_launches == wgmma
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,q_scale", [
+    ((2, 16, 16, 1024, 1024, 128, True), 1.0),
+    ((1, 16, 8, 1000, 1300, 128, True), 1.0),
+    ((1, 16, 8, 512, 4096, 128, False), 1.0),
+    ((1, 4, 2, 4096, 4096, 128, True), 1.0),
+    ((1, 8, 4, 512, 512, 128, True), 3.0)])
+def test_float32_flash_kernel_at_the_model_head_dim(cuda_device, shape,
+                                                    q_scale):
+    """The split-TF32 kernel at qwen3's head dim: the wgmma test's shapes,
+    then up to 4096 keys a query (where truncated accumulation on the
+    tensor cores would show), and scores up to |s| of about 16 (q times
+    3); tests/test_torch_flash_attention.py runs the same inputs through
+    the kernel's arithmetic on the CPU (tf32_recipe)."""
+    q, k, v = _qkv(*shape[:6], torch.float32, cuda_device,
+                   seed=shape[3] * 7 + shape[4])
+    q = q * q_scale
+    out = _float32_launch(q, k, v, shape[6])
+    _assert_attention_close(out, _ref(q, k, v, shape[6]), torch.float32)
+
+
+@pytest.mark.cuda
+def test_float32_flash_kernel_at_scores_near_30(cuda_device):
+    """q times 6 (|s| near 30): float32 no longer resolves 1e-5 there
+    (attention_ref lands past it from the float64 truth), so the kernel is
+    held within that tolerance of the truth beyond attention_ref's own
+    largest distance from it, as tf32_recipe is on the CPU."""
+    shape = (1, 8, 4, 512, 512, 128, True)
+    q, k, v = _qkv(*shape[:6], torch.float32, cuda_device,
+                   seed=shape[3] * 7 + shape[4])
+    q = q * 6.0
+    out = _float32_launch(q, k, v, True)
+    g = q.shape[1] // k.shape[1]
+    s = (q.double() @ k.double().repeat_interleave(g, 1).transpose(-1, -2)
+         / 128 ** 0.5)
+    mask = torch.ones(512, 512, dtype=torch.bool,
+                      device=cuda_device).tril()
+    truth = torch.softmax(s.masked_fill(~mask, -1e30), -1) \
+        @ v.double().repeat_interleave(g, 1)
+    ref_err = (_ref(q, k, v, True).double() - truth).abs()
+    tol = 1e-5 + 1e-5 * truth.abs()
+    err = (out.double() - truth).abs()
+    assert bool((err <= tol + ref_err.max()).all()), \
+        (float((err - tol).max()), float(ref_err.max()))
+
+
+@pytest.mark.cuda
+def test_float32_flash_kernel_on_unaligned_kv(cuda_device):
+    """k and v that start 4 bytes past a 16-byte boundary take the
+    kernel's 4-byte copies; the result holds the same contract."""
+    shape = (1, 4, 2, 300, 333, 64, True)
+    q, k, v = _qkv(*shape[:6], torch.float32, cuda_device, seed=5)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda_device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+    k, v = shifted(k), shifted(v)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    out = _float32_launch(q, k, v, True)
+    _assert_attention_close(out, _ref(q, k, v, True), torch.float32)
 
 
 @pytest.mark.cuda

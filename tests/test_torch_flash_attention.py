@@ -22,6 +22,17 @@ into bf16 terms for the P.V product, one rounding to bf16) and held against
 the JAX package's ``attention_ref`` at the card tests' shapes and seeds,
 within the card tests' bound.  Three terms (P's 24 bits) keep to it; two
 (16 bits) do not.
+
+The float32 kernel (``csrc/flash_attention_fwd.cu``) is emulated the same
+way (``tf32_recipe``: q scaled first, every operand split into hi and lo
+TF32 values rounded as ``cvt.rna.tf32.f32`` rounds, each product as three
+TF32 products small terms first, the online softmax over 32-key tiles,
+each tile's P.V added to O * alpha in f32) and held to the JAX package's
+float32 ``attention_ref`` within the card's rtol = atol = 1e-5 at the
+card tests' shapes and seeds, 512 queries over 4096 keys, and scores up
+to |s| of about 16; one TF32 product (hi.hi) misses it.  At |s| near 30
+float32 itself stops resolving 1e-5, and the recipe is held against a
+float64 truth instead.
 """
 import math
 
@@ -197,3 +208,130 @@ def test_two_bf16_terms_of_p_miss_the_bound():
     """Why the kernel splits P into three terms: with two, an output near 0
     of this shape lands past one ulp + 1e-6 of attention_ref."""
     assert _beyond_bound((1, 8, 8, 128, 128, 32, True), terms=2) > 1.0
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 stored mantissa bits) to nearest, ties
+    away from zero, on the bits as ``cvt.rna.tf32.f32`` does: add half of
+    the 13 dropped bits' unit to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """x as hi + lo, each a TF32 value: hi = rna(x), lo = rna(x - hi)."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, terms: int):
+    """a @ b from TF32 terms in float32: with three, lo.hi and hi.lo first,
+    hi.hi last; with one, hi.hi alone."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    if terms == 1:
+        return ah @ bh
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def tf32_recipe(q, k, v, causal, terms=3, block_k=32):
+    """The float32 kernel's arithmetic in float32 on the CPU: q scaled by
+    1/sqrt(D) before the product; S = q.k^T and each tile's P.V as
+    ``terms`` TF32 products (``tf32_product``); an online softmax over
+    ``block_k``-key tiles (m and l in f32, masked scores -1e30); each
+    tile's P.V added to O * alpha in f32; O / max(l, 1e-30)."""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    kf = k.repeat_interleave(g, 1)
+    vf = v.repeat_interleave(g, 1)
+    qs = q / torch.tensor(float(d)).sqrt()
+    m = torch.full((b, hq, sq, 1), -1e30)
+    l = torch.zeros(b, hq, sq, 1)
+    acc = torch.zeros(b, hq, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[2], block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = tf32_product(qs, kt.transpose(-1, -2), terms)
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = torch.where(keys <= rows, s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + tf32_product(p, vt, terms)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+# the float32 card tests' cases beyond CARD_SHAPES, (shape, q scale): 512
+# queries over 4096 keys (non-causal: causal masking is aligned top left),
+# and scores up to |s| of about 16 (q times 3)
+TF32_CASES = ([(shape, 1.0) for shape in CARD_SHAPES]
+              + [((1, 4, 2, 512, 4096, 128, False), 1.0),
+                 ((1, 8, 4, 512, 512, 128, True), 3.0)])
+
+
+def _tf32_vs(shape, q_scale, terms):
+    """The recipe and the JAX package's float32 attention_ref on the card
+    test's inputs (q times ``q_scale``)."""
+    b, hq, hk, sq, sk, d, causal = shape
+    arrs = _inputs(b, hq, hk, sq, sk, d, seed=sq * 7 + sk)
+    arrs[0] = arrs[0] * np.float32(q_scale)
+    j_out = np.asarray(j_attention_ref(*_jax(arrs, "float32"), causal=causal))
+    out = tf32_recipe(*_torch(arrs, "float32"), causal, terms=terms).numpy()
+    return out, j_out
+
+
+@pytest.mark.parametrize("shape,q_scale", TF32_CASES)
+def test_tf32_recipe_matches_jax(shape, q_scale):
+    out, j_out = _tf32_vs(shape, q_scale, terms=3)
+    np.testing.assert_allclose(out, j_out, rtol=1e-5, atol=1e-5)
+
+
+def test_one_tf32_term_misses_the_contract():
+    """Why the kernel takes three TF32 products: hi.hi alone (11
+    significant bits an operand) lands past rtol = atol = 1e-5."""
+    out, j_out = _tf32_vs((1, 4, 2, 300, 300, 128, True), 1.0, terms=1)
+    assert not np.allclose(out, j_out, rtol=1e-5, atol=1e-5)
+
+
+def attention_f64(q, k, v, causal):
+    """Attention in float64 (the truth the float32 versions round)."""
+    b, hq, sq, d = q.shape
+    g = hq // k.shape[1]
+    kf = k.double().repeat_interleave(g, 1)
+    vf = v.double().repeat_interleave(g, 1)
+    s = q.double() @ kf.transpose(-1, -2) / math.sqrt(d)
+    if causal:
+        mask = torch.arange(k.shape[2])[None, :] <= torch.arange(sq)[:, None]
+        s = torch.where(mask, s, torch.tensor(-1e30, dtype=torch.float64))
+    return torch.softmax(s, -1) @ vf
+
+
+def test_tf32_recipe_at_scores_near_30():
+    """At |s| near 30 (q times 6) a score's float32 ulp is 2e-6 and float32
+    itself no longer resolves rtol = atol = 1e-5: attention_ref lands past
+    it from the float64 truth, and a float32 softmax of exactly rounded
+    scores lands past attention_ref.  The recipe stays within that
+    tolerance of the truth beyond attention_ref's own largest distance
+    from it."""
+    b, hq, hk, sq, sk, d, causal = (1, 8, 4, 512, 512, 128, True)
+    arrs = _inputs(b, hq, hk, sq, sk, d, seed=sq * 7 + sk)
+    arrs[0] = arrs[0] * np.float32(6.0)
+    q, k, v = _torch(arrs, "float32")
+    truth = attention_f64(q, k, v, causal)
+    ref_err = (attention_ref(q, k, v, causal=causal).double() - truth).abs()
+    tol = 1e-5 + 1e-5 * truth.abs()
+    assert bool((ref_err > tol).any())
+    err = (tf32_recipe(q, k, v, causal).double() - truth).abs()
+    assert bool((err <= tol + ref_err.max()).all())
+    # nor does a float32 softmax of the exactly rounded scores keep 1e-5
+    # of attention_ref: the float32 sums differ by more than that
+    g = hq // hk
+    s = (q.double() @ k.double().repeat_interleave(g, 1).transpose(-1, -2)
+         / math.sqrt(d)).float()
+    mask = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None]
+    exact = torch.softmax(torch.where(mask, s, torch.tensor(-1e30)), -1) \
+        @ v.repeat_interleave(g, 1)
+    assert not torch.allclose(exact, attention_ref(q, k, v, causal=causal),
+                              rtol=1e-5, atol=1e-5)

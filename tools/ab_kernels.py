@@ -41,11 +41,13 @@ computed, to ids below or above their block's window, which both the
 kernel and the plain version clamp into it; ``dead_tail`` — the
 ``prefix`` tiles with their last quarter of rows dead: row id and every
 slot the sentinel, weight 0),
-``flash_attention_fwd`` (the float32 CUDA-core kernel, on seeded bf16
-inputs, causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py``
-(2, 16, 4096, 128), 20 launches a timing, and at one prefill_32k sequence
-(1, 16, 32768, 128), 3 launches) or ``flash_attention_fwd_wgmma`` (the
-bf16 tensor-core kernel, the same inputs and shapes).
+``flash_attention_fwd`` (the float32 kernel, on seeded float32 inputs,
+causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py`` (2, 16, 4096,
+128), 20 launches a timing, and at one prefill_32k sequence (1, 16, 32768,
+128), 3 launches; a tree whose C entry still takes a dtype code, as
+4aab1e7's and older do, is passed 0, float32) or
+``flash_attention_fwd_wgmma`` (the bf16 tensor-core kernel, the same
+shapes on bf16 inputs).
 
 Each CSRC_DIR holds the family's ``.cu`` sources and the headers they
 include (``src/repro_torch/kernels/csrc`` of a checkout; an older
@@ -54,10 +56,12 @@ commit's with ``git archive <commit> src/repro_torch/kernels/csrc | tar
 ``kernels/build.py`` into ``build/ab/<label>/``, every tree runs the same
 inputs, the outputs of all trees must be equal, and each kernel is timed
 with CUDA events over back-to-back launches in the order A B ... B A.
-The wgmma kernel's contract is a tolerance, so its trees' outputs are each
-held to ``attention_ref`` instead (one bf16 ulp of the larger value plus
-1e-6, at the prefill shape) and may differ from each other.  Needs one
-CUDA card and ``nvcc``.
+The flash kernels' contracts are tolerances, so their trees' outputs are
+each held to ``attention_ref`` instead (float32 within rtol = atol = 1e-5,
+bf16 within one bf16 ulp of the larger value plus 1e-6, at the prefill
+shape; at 32 768 keys, whose float32 scores alone take 64 GiB, only
+finite) and may differ from each other.  Needs one CUDA card and
+``nvcc``.
 """
 import argparse
 import ctypes
@@ -342,35 +346,49 @@ def within_bf16_ulp(a, r) -> bool:
                  <= torch.ldexp(torch.ones_like(a), e - 8) + 1e-6).all())
 
 
-def flash_attention_fwd(libs, labels, dev, name="flash_attention_fwd"):
-    """The float32 kernel (its dtype argument 1: bf16 in and out), or with
-    ``name="flash_attention_fwd_wgmma"`` the bf16 tensor-core kernel."""
+def takes_dtype(csrc) -> bool:
+    """Whether a tree's float32 flash kernel has the C entry of 4aab1e7
+    and older, with a dtype code between D and causal."""
+    text = (Path(csrc) / "flash_attention_fwd.cu").read_text()
+    return "int D, int dtype, int causal" in " ".join(text.split())
+
+
+def flash_attention_fwd(libs, trees, dev, name="flash_attention_fwd"):
+    """The float32 kernel on float32 inputs, or with
+    ``name="flash_attention_fwd_wgmma"`` the bf16 tensor-core kernel on
+    bf16 inputs."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     wgmma = name == "flash_attention_fwd_wgmma"
+    dt = torch.bfloat16 if wgmma else torch.float32
+    labels = [label for label, _ in trees]
+    old_entry = {label: not wgmma and takes_dtype(csrc)
+                 for label, csrc in trees}
     gen = torch.Generator(device=dev).manual_seed(0)
     for shape, reps in (((2, 16, 4096, 128), 20), ((1, 16, 32768, 128), 3)):
-        q, k, v = (torch.randn(shape, generator=gen, device=dev,
-                               dtype=torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=dt)
+                   for _ in range(3))
         o = torch.empty_like(q)
         b, hq, sq, d = shape
         head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
                 hq, k.shape[1], sq, k.shape[2], d)
         tail = (1, torch.cuda.current_stream().cuda_stream)
-        args = head + tail if wgmma else head + (1,) + tail
-        argtypes = [_P] * 4 + [_I] * (len(args) - 5) + [_P]
-        check = None
-        if wgmma and sq <= 4096:
+        if sq <= 4096:
             ref = attention_ref(q, k, v, causal=True)
-            check = (lambda out, ref=ref: within_bf16_ulp(out[0], ref))
-        elif wgmma:      # no reference: its float32 scores take 64 GiB
+            check = ((lambda out, ref=ref: within_bf16_ulp(out[0], ref))
+                     if wgmma else
+                     (lambda out, ref=ref: bool(torch.isclose(
+                         out[0], ref, rtol=1e-5, atol=1e-5).all())))
+        else:        # no reference: its float32 scores take 64 GiB
             check = (lambda out: bool(torch.isfinite(out[0]).all()))
 
         def launcher(label):
-            return entry(libs[(label, name)], name, argtypes, args)
+            args = head + (0,) + tail if old_entry[label] else head + tail
+            return entry(libs[(label, name)], name,
+                         [_P] * 4 + [_I] * (len(args) - 5) + [_P], args)
 
-        ab(labels, launcher, (o,), f"{name} {shape} bf16 causal", reps,
-           check)
+        ab(labels, launcher, (o,), f"{name} {shape} {str(dt)[6:]} causal",
+           reps, check)
 
 
 def main(argv):
@@ -401,7 +419,7 @@ def main(argv):
                             args.block_rows and [int(x)
                                                  for x in args.block_rows])
     else:
-        flash_attention_fwd(libs, labels, dev, args.kernel)
+        flash_attention_fwd(libs, trees, dev, args.kernel)
 
 
 if __name__ == "__main__":
