@@ -1,10 +1,11 @@
-// Louvain row scoring shared by the fused kernels (local_move_louvain.cu
-// resident, local_move_louvain_streamed.cu streamed) and the two-step
-// scoring kernel (delta_q.cu).  They differ only in where a row's
-// candidates and the row's own community terms come from (a row source
-// below) and in what they write (an output sink below); the floats are
-// added in the same order in all of them, so fused and two-step scoring
-// agree bit for bit on any weights.
+// Louvain row scoring of the fused kernels (local_move_louvain.cu
+// resident, local_move_louvain_streamed.cu streamed), and of the two-step
+// scoring kernel (delta_q.cu) on tiles wider than 1024 only: up to 1024 it
+// takes its own paths (tile_scoring.cuh), which add and round the same
+// floats in the same order (louvain_gain, below).  They differ only in
+// where a row's candidates and the row's own community terms come from (a
+// row source below) and in what they write (an output sink below), so
+// fused and two-step scoring agree bit for bit on any weights.
 //
 // Per row r (candidate community cand_k, weight w_k, candidate volume and
 // size vol_k, size_k, k < W; the row's community A, degree deg, A's volume
@@ -100,10 +101,10 @@ struct LouvainGathered {
   }
 };
 
-// Row source of the two-step kernel: pre-gathered (R, width) candidate,
-// weight, volume and size tiles, width <= W; staging entries past `width`
-// are padding (the sentinel, 0), which no valid candidate equals.  The
-// row's terms are its (R,) inputs.
+// Row source of the two-step kernel above width 1024: pre-gathered
+// (R, width) candidate, weight, volume and size tiles, width <= W; staging
+// entries past `width` are padding (the sentinel, 0), which no valid
+// candidate equals.  The row's terms are its (R,) inputs.
 struct LouvainTiles {
   const int* cand;
   const float* w;

@@ -1,9 +1,10 @@
-// PLP row scoring shared by the fused kernels (local_move_plp.cu resident,
-// local_move_plp_streamed.cu streamed) and the two-step scoring kernel
-// (label_argmax.cu).  They differ only in where a row's labels come from (a
-// row source below) and in what they write (an output sink below); the
-// floats are added in the same order in all of them, so fused and two-step
-// scoring agree bit for bit on any weights.
+// PLP row scoring of the fused kernels (local_move_plp.cu resident,
+// local_move_plp_streamed.cu streamed), and of the two-step scoring kernel
+// (label_argmax.cu) on tiles wider than 1024 only: up to 1024 it takes its
+// own paths (tile_scoring.cuh), which add the same floats in the same
+// order.  They differ only in where a row's labels come from (a row source
+// below) and in what they write (an output sink below), so fused and
+// two-step scoring agree bit for bit on any weights.
 //
 // Per row r (noise key row_r, labels lab_k, weights w_k, k < W):
 //   score  = sum_j w_j [lab_j == lab_k] + tie_noise(row_r, lab_k)
@@ -54,8 +55,8 @@ struct PlpGathered {
   }
 };
 
-// Row source of the two-step kernel: pre-gathered (R, width) label and
-// weight tiles, width <= W; staging entries past `width` are padding (the
+// Row source of the two-step kernel above width 1024: pre-gathered
+// (R, width) label and weight tiles, width <= W; staging entries past `width` are padding (the
 // sentinel label, weight 0), which no valid label equals, so they add
 // nothing.  The noise key and the current label are the row's inputs.
 struct PlpTiles {

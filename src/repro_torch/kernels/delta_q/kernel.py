@@ -8,10 +8,12 @@ outputs, launches on PyTorch's current stream, raises ``KernelError`` on a
 launch error, and counts its launches in ``delta_q_kernel.launches``;
 no rows, no launch.
 
-Widths: any W from 1 to ``MAX_WIDTH`` = 2048, the widest row whose staging
-(candidates, weights, volumes and sizes, 16·W bytes, plus the argmax
-scratch) fits the 48 KB of static shared memory a block gets; a wider tile
-raises ``ValueError`` before any launch.
+Widths: any W from 1 to ``MAX_WIDTH`` = 2048.  Up to 16 a lane scores a
+row, up to 1024 a warp with a hash table in shared memory, above that the
+fused kernels' block path, whose row staging (candidates, weights,
+volumes and sizes, 16·W bytes, plus the argmax scratch) must fit the 48 KB
+of static shared memory a block gets: 2048 is the widest that does.  A wider
+tile raises ``ValueError`` before any launch.
 """
 from __future__ import annotations
 

@@ -454,8 +454,9 @@ def test_wrappers_reject_bad_inputs(cuda_device):
 # ------------------------------------------------ scored tiles, segment sum
 
 # Every ELL width, and widths that are not one (they run in the next wider
-# instantiation), up to the widest each kernel takes.
-TILE_WIDTHS = (1, 8, 16, 40, 64, 128, 256, 1000, 1024)
+# instantiation), up to the widest each kernel takes: a lane a row up to
+# 16, a warp a row up to 1024 (csrc/tile_scoring.cuh).
+TILE_WIDTHS = (1, 8, 16, 17, 40, 64, 100, 128, 256, 300, 1000, 1024)
 
 
 def _plp_tiles(tiles, tabs, n):
@@ -514,17 +515,38 @@ def test_delta_q_kernel_matches_plain(cuda_device, width, weights,
         assert torch.equal(a, b)
 
 
+# The scored-tile sets that keep the tile contract (a sentinel row holds
+# no valid slot), which the fused kernels rely on: ``random`` is
+# ``_tiles``, the others ``_scored_set``'s.
+TWO_STEP_SETS = ("random", "one_run", "all_distinct", "mostly_padding",
+                 "empty_rows", "ties", "near_sentinel", "collide_mod",
+                 "collide_hash")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", (16, 64, 256, 1024))
-def test_two_step_equals_fused_on_f32_weights(cuda_device, width):
+@pytest.mark.parametrize("kind", TWO_STEP_SETS)
+@pytest.mark.parametrize("width", (16, 40, 64, 256, 1024))
+def test_two_step_equals_fused_on_f32_weights(cuda_device, width, kind):
     """Gather + scoring kernel ≡ the fused kernel, bit for bit, on uniform
-    float32 weights: both add the same floats in the same order."""
-    n = 512
-    tiles, tabs = _tiles(300, width, n, width + 5, "f32", cuda_device)
+    float32 weights: both add the same floats in the same order.  A width
+    that is no ELL width (40) is scored as it is and padded with the
+    sentinel to the next ELL width for the fused kernels."""
+    if kind == "random":
+        n = 512
+        tiles, tabs = _tiles(300, width, n, width + 5, "f32", cuda_device)
+    else:
+        n = SCORED_N
+        tiles, tabs = _lifted_set(kind, 120, width, width + 5, cuda_device)
+    ell = next(e for e in WIDTHS if e >= width)
+    pad = ell - width
+    fused_tiles = [tiles[0],
+                   torch.nn.functional.pad(tiles[1], (0, pad), value=n),
+                   torch.nn.functional.pad(tiles[2], (0, pad))]
+    tie_eps = 0.0 if kind == "ties" else 0.25
     lab, cur, keys = _plp_tiles(tiles, tabs, n)
-    best, bs, cs = label_argmax(lab, tiles[2], cur, keys, 3, tie_eps=0.25,
+    best, bs, cs = label_argmax(lab, tiles[2], cur, keys, 3, tie_eps=tie_eps,
                                 sentinel=n, use_pallas=True)
-    fused = local_move_plp_kernel(*tiles, tabs[0], 3, tie_eps=0.25,
+    fused = local_move_plp_kernel(*fused_tiles, tabs[0], 3, tie_eps=tie_eps,
                                   sentinel=n)
     assert torch.equal(best, fused[0])
     assert torch.equal((best >= 0) & (bs > cs), fused[1])
@@ -533,15 +555,16 @@ def test_two_step_equals_fused_on_f32_weights(cuda_device, width):
     vol_total = torch.tensor(977.0, device=cuda_device)
     cand, cur, deg, volc, volcur, sizec, sizecur = _louvain_tiles(
         tiles, composed, n)
-    best, gain = delta_q_argmax(cand, tiles[2], cur, deg, volc, volcur,
-                                sizec, sizecur, vol_total, sentinel=n,
-                                singleton_rule=True, use_pallas=True)
-    fused = local_move_louvain_kernel(*tiles, *composed,
-                                      (1.0 / vol_total).to(torch.float32),
-                                      sentinel=n, singleton_rule=True)
-    torch.cuda.synchronize()
-    assert torch.equal(best, fused[0])
-    assert torch.equal((best >= 0) & (gain > 0.0), fused[1])
+    for rule in (True, False):
+        best, gain = delta_q_argmax(cand, tiles[2], cur, deg, volc, volcur,
+                                    sizec, sizecur, vol_total, sentinel=n,
+                                    singleton_rule=rule, use_pallas=True)
+        fused = local_move_louvain_kernel(
+            *fused_tiles, *composed, (1.0 / vol_total).to(torch.float32),
+            sentinel=n, singleton_rule=rule)
+        torch.cuda.synchronize()
+        assert torch.equal(best, fused[0])
+        assert torch.equal((best >= 0) & (gain > 0.0), fused[1])
 
 
 ADVERSARIAL = ("one_label", "distinct", "sentinels", "ties")
@@ -734,6 +757,184 @@ def test_scored_tiles_at_their_widest_widths(cuda_device, weights, kind):
         else:
             _mass_contract(k, p, plain, args, n,
                            tiles[2].abs().sum(dim=1).clamp_min(1.0))
+
+
+# Adversarial tiles of the scored-tile kernels' own paths (label space).
+SCORED_SETS = ("one_run", "all_distinct", "mostly_padding", "empty_rows",
+               "sentinel_keys", "ties", "near_sentinel", "collide_mod",
+               "collide_hash")
+SCORED_WIDTHS = (1, 8, 16, 17, 40, 64, 100, 256, 300, 1000, 1024, 2048,
+                 4096)
+SCORED_N = 1 << 20                  # the sentinel of the scored sets
+
+
+def _hash_home(lab, width):
+    """The bucket where a label's probe starts in the warp-a-row path's
+    table at this width (csrc/tile_scoring.cuh ``SumTable::home``: a
+    Fibonacci hash into the 2W buckets of the instantiation W)."""
+    inst = next((w for w in (64, 256, 1024) if width <= w), 1024)
+    bits = int(np.log2(2 * inst))
+    return ((lab.astype(np.uint64) * 0x9E3779B1) % (1 << 32)) >> (32 - bits)
+
+
+def _scored_set(kind, rows, width, seed, weights):
+    """Tiles in label space, sentinel ``SCORED_N``: ``one_run`` — every
+    slot one label; ``all_distinct`` — every slot a different label;
+    ``mostly_padding`` — 95 % padding anywhere in the row, labels from 64;
+    ``empty_rows`` — prefixes of 1..W slots, every other row with no valid
+    slot under a real key; ``sentinel_keys`` — a third of the rows under
+    the sentinel key with valid labels, a third under it with none;
+    ``ties`` — two labels on alternating slots, equal weights and volumes
+    (exact ties: run it with tie_eps = 0); ``near_sentinel`` — labels
+    sentinel - 1 .. sentinel - 3; ``collide_mod`` — labels equal modulo
+    2P, P = pow2_ceil(W); ``collide_hash`` — labels whose probes all start
+    at one bucket of the warp path's table.  The current label is a
+    random slot's (present unless that slot is padding).  ``weights``:
+    ``int`` (1..4; 1 for ``ties``), ``equal`` or ``f32``
+    (uniform(0.5, 1.5)).  Returns numpy (lab, w, cur, keys) and the
+    delta_q terms (vol, size per slot; deg, vol_cur, size_cur)."""
+    rng = np.random.default_rng(seed)
+    n, R, W = SCORED_N, rows, width
+    keys = rng.choice(n, R, replace=False)
+    pad = np.zeros((R, W), bool)
+    lab = rng.integers(0, 64, (R, W))
+    if kind == "one_run":
+        lab[:] = 7
+    elif kind == "all_distinct":
+        stride = (n - 1) // W
+        lab = (np.argsort(rng.random((R, W)), axis=1) * stride
+               + rng.integers(0, stride, (R, 1)))
+    elif kind == "mostly_padding":
+        pad = rng.random((R, W)) < 0.95
+    elif kind == "empty_rows":
+        pad = np.arange(W)[None, :] >= rng.integers(1, W + 1, R)[:, None]
+        pad[::2] = True
+    elif kind == "sentinel_keys":
+        keys[::3] = n
+        keys[1::3] = n
+        pad[1::3] = True
+    elif kind == "ties":
+        lab[:, 0::2], lab[:, 1::2] = 5, 3
+    elif kind == "near_sentinel":
+        lab = n - 1 - rng.integers(0, 3, (R, W))
+    elif kind == "collide_mod":
+        step = 2 * (1 << int(np.ceil(np.log2(W)))) if W > 1 else 2
+        lab = 5 + step * rng.integers(0, (n - 6) // step, (R, W))
+    elif kind == "collide_hash":
+        pool = np.arange(n - 1)
+        pool = pool[_hash_home(pool, W) == 0]
+        lab = rng.choice(pool, (R, W))
+    cur = lab[np.arange(R), rng.integers(0, W, R)]
+    cur = np.where(pad[np.arange(R), 0] & (keys == n), n, cur)
+    lab = np.where(pad, n, lab)
+    w = {"int": lambda: rng.integers(1, 5, (R, W)),
+         "equal": lambda: np.ones((R, W)),
+         "f32": lambda: rng.uniform(0.5, 1.5, (R, W))}[weights]()
+    if kind == "ties" and weights == "int":
+        w = np.ones((R, W))
+    w = np.where(pad, 0.0, w)
+    vol = np.full((R, W), 20) if kind == "ties" else rng.integers(1, 40,
+                                                                  (R, W))
+    size = rng.integers(1, 3, (R, W))
+    terms = (rng.integers(1, 9, R).astype(np.float32),
+             rng.integers(1, 40, R).astype(np.float32),
+             rng.integers(1, 3, R).astype(np.int32))
+    return ((lab.astype(np.int32), w.astype(np.float32), cur.astype(np.int32),
+             keys.astype(np.int32)),
+            (np.where(pad, 0, vol).astype(np.float32),
+             np.where(pad, 0, size).astype(np.int32)) + terms)
+
+
+def _lifted_set(kind, rows, width, seed, dev):
+    """A ``_scored_set`` (float32 weights) as the fused kernels take it:
+    slot (r, k) holds vertex r·W + k (the sentinel where padded), row r is
+    vertex R·W + r (the sentinel where its key is), and the label table
+    gives each vertex its label; community volumes, sizes and degrees are
+    random.  Returns the (rows, nbr, w) tiles and the four tables."""
+    (lab, w, cur, keys), _ = _scored_set(kind, rows, width, seed, "f32")
+    rng = np.random.default_rng(seed + 1)
+    n, R, W = SCORED_N, rows, width
+    nbr = np.where(lab < n, np.arange(R * W).reshape(R, W), n)
+    row_ids = np.where(keys < n, R * W + np.arange(R), n)
+    labels = np.full(n + 1, n)
+    labels[:R * W] = lab.ravel()
+    labels[R * W:R * W + R] = cur
+    labels[n] = n
+    tabs = [labels.astype(np.int32),
+            np.append(rng.integers(1, 40, n), 0).astype(np.float32),
+            np.append(rng.integers(1, 3, n), 0).astype(np.int32),
+            np.append(rng.integers(1, 9, n), 0).astype(np.float32)]
+    return ([_card(x.astype(t), dev) for x, t in
+             ((row_ids, np.int32), (nbr, np.int32), (w, np.float32))],
+            [_card(t, dev) for t in tabs])
+
+
+def _scored_kernels(kind, rows, width, seed, weights, dev):
+    """Both scored-tile kernels (delta_q under both singleton rules, up to
+    its widest width, 2048) and their plain versions on one
+    ``_scored_set``: yields (kernel output, plain output, plain function,
+    its arguments)."""
+    n = SCORED_N
+    (lab, w, cur, keys), dq = _scored_set(kind, rows, width, seed, weights)
+    lab, w, cur, keys = (_card(x, dev) for x in (lab, w, cur, keys))
+    vol, size, deg, vol_cur, size_cur = (_card(x, dev) for x in dq)
+    tie_eps = 0.0 if kind == "ties" else 0.25
+    args = (lab, w, cur, keys, 13)
+    k = label_argmax_kernel(*args, tie_eps=tie_eps, sentinel=n)
+
+    def plain_la(*a):
+        return label_argmax_chunked(*a, tie_eps, n)
+    yield k, plain_la(*args), plain_la, args
+    if width > 2048:
+        return
+    inv = torch.tensor(1.0 / 977.0, dtype=torch.float32, device=dev)
+    args = (lab, w, cur, deg, vol, vol_cur, size, size_cur, inv)
+    for rule in (True, False):
+        k = delta_q_kernel(*args, sentinel=n, singleton_rule=rule)
+
+        def plain_dq(*a, rule=rule):
+            return delta_q_chunked(*a, n, rule)
+        yield k, plain_dq(*args), plain_dq, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["int", "equal", "f32"])
+@pytest.mark.parametrize("kind", SCORED_SETS)
+@pytest.mark.parametrize("width", SCORED_WIDTHS)
+def test_scored_tile_paths_on_adversarial_sets(cuda_device, width, kind,
+                                               weights):
+    """label_argmax and delta_q (a lane a row up to 16, a warp a row up to
+    1024, the block path above) against their plain versions on the
+    adversarial sets: bit for bit on integer and equal weights, the
+    weight-mass contract on float32."""
+    rows = 200 if width <= 100 else 40 if width <= 1024 else 8
+    for k, p, plain, args in _scored_kernels(kind, rows, width, width + 11,
+                                             weights, cuda_device):
+        torch.cuda.synchronize()
+        if weights == "f32":
+            _mass_contract(k, p, plain, args, SCORED_N,
+                           args[1].abs().sum(dim=1).clamp_min(1.0))
+        else:
+            for a, b in zip(k, p):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all_distinct", "one_run", "collide_hash",
+                                  "sentinel_keys"])
+@pytest.mark.parametrize("width", [40, 256, 1024])
+def test_scored_tile_warps_reuse_their_tables(cuda_device, width, kind):
+    """More rows than twice the warps of the warp-a-row path's grid (64 an
+    SM: ``warp_blocks`` in csrc/tile_scoring.cuh), so every warp scores at
+    least two rows in one table, emptied between them: bit for bit against
+    the plain versions on integer weights."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    rows = 2 * 64 * sms + 5
+    for k, p, _, _ in _scored_kernels(kind, rows, width, width, "int",
+                                      cuda_device):
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
 
 
 def _traced_case(width, weights, seed, dev):

@@ -70,20 +70,72 @@ def _close(j_out, t_out, exact, rtol):
 # ------------------------------------------------------------- label_argmax
 
 
+# Wide rows that stress the CUDA kernels' warp paths (csrc/tile_scoring.cuh),
+# as cases of the tests below: ``one_run`` — every slot one label;
+# ``all_distinct`` — every slot a different label; ``padding_rows`` —
+# every other row with no valid slot; ``sentinel_key`` — every other row
+# keyed by the sentinel with its labels valid; ``collide`` — labels equal
+# modulo 2P, P = pow2_ceil(width) (a table of 2P buckets indexed by the
+# label's low bits would put them all in one).  Their sentinel is 2^20.
+WIDE_SETS = ("one_run", "all_distinct", "padding_rows", "sentinel_key",
+             "collide")
+WIDE_SENTINEL = 1 << 20
+
+
+def _wide_labels(rng, kind, rows, width):
+    """(labels with the sentinel where padded, padding mask, rows keyed by
+    the sentinel) of a ``WIDE_SETS`` case."""
+    pad = np.zeros((rows, width), bool)
+    keyless = np.zeros(rows, bool)
+    if kind == "one_run":
+        lab = np.full((rows, width), 7)
+    elif kind == "all_distinct":
+        lab = (np.argsort(rng.random((rows, width)), axis=1) * 977
+               + rng.integers(0, 977, (rows, 1)))
+    elif kind == "collide":
+        lab = 5 + 2 * width * rng.integers(0, WIDE_SENTINEL // (2 * width)
+                                           - 1, (rows, width))
+    else:
+        lab = rng.integers(0, 9, (rows, width))
+        if kind == "padding_rows":
+            pad[::2] = True
+        else:
+            keyless[::2] = True
+    pad |= rng.random((rows, width)) < 0.1
+    return np.where(pad, WIDE_SENTINEL, lab).astype(np.int32), pad, keyless
+
+
+def _cases(narrow):
+    """The tests' (rows, width, kind) cases: the narrow random ones under
+    their old ids, then every ``WIDE_SETS`` case at widths 256 and 1024."""
+    return ([pytest.param(r, w, "random", id=f"{r}-{w}") for r, w in narrow]
+            + [pytest.param(4, w, k, id=f"4-{w}-{k}")
+               for w in (256, 1024) for k in WIDE_SETS])
+
+
 @pytest.mark.parametrize("jax_pallas", [False, True])
 @pytest.mark.parametrize("weights", ["int", "f32"])
-@pytest.mark.parametrize("rows,width", [(8, 8), (16, 32), (64, 16),
-                                        (128, 128), (33, 8), (40, 64)])
-def test_label_argmax_matches_jax(rows, width, weights, jax_pallas):
+@pytest.mark.parametrize("rows,width,kind", _cases(
+    [(8, 8), (16, 32), (64, 16), (128, 128), (33, 8), (40, 64)]))
+def test_label_argmax_matches_jax(rows, width, kind, weights, jax_pallas):
     rng = np.random.default_rng(rows * 1000 + width)
-    sentinel = 1000
-    lab = rng.integers(0, 7, (rows, width)).astype(np.int32)
-    pad = rng.random((rows, width)) < 0.2
-    lab = np.where(pad, sentinel, lab).astype(np.int32)
+    if kind == "random":
+        sentinel = 1000
+        lab = rng.integers(0, 7, (rows, width)).astype(np.int32)
+        pad = rng.random((rows, width)) < 0.2
+        lab = np.where(pad, sentinel, lab).astype(np.int32)
+        keyless = np.zeros(rows, bool)
+    else:
+        sentinel = WIDE_SENTINEL
+        lab, pad, keyless = _wide_labels(rng, kind, rows, width)
     w = np.where(pad, 0.0, _weights(rng, (rows, width), weights))
     w = w.astype(np.float32)
-    cur = rng.integers(0, 7, rows).astype(np.int32)
-    keys = np.arange(rows, dtype=np.int32)
+    if kind == "random":
+        cur = rng.integers(0, 7, rows).astype(np.int32)
+    else:       # a slot's label, or one absent from the row
+        cur = np.where(rng.random(rows) < 0.5, lab[:, 1], 11).astype(
+            np.int32)
+    keys = np.where(keyless, sentinel, np.arange(rows)).astype(np.int32)
     kw = dict(tie_eps=0.1, sentinel=sentinel)
     j_out = j_la_ops.label_argmax(
         jnp.asarray(lab), jnp.asarray(w), jnp.asarray(cur), jnp.asarray(keys),
@@ -102,18 +154,26 @@ def test_label_argmax_matches_jax(rows, width, weights, jax_pallas):
 @pytest.mark.parametrize("jax_pallas", [False, True])
 @pytest.mark.parametrize("weights", ["int", "f32"])
 @pytest.mark.parametrize("singleton_rule", [True, False])
-@pytest.mark.parametrize("rows,width", [(8, 8), (32, 64), (65, 16),
-                                        (16, 128), (24, 32)])
-def test_delta_q_matches_jax(rows, width, singleton_rule, weights,
+@pytest.mark.parametrize("rows,width,kind", _cases(
+    [(8, 8), (32, 64), (65, 16), (16, 128), (24, 32)]))
+def test_delta_q_matches_jax(rows, width, kind, singleton_rule, weights,
                              jax_pallas):
     rng = np.random.default_rng(rows + width)
-    sentinel = 997
-    cand = rng.integers(0, 9, (rows, width)).astype(np.int32)
-    pad = rng.random((rows, width)) < 0.15
-    cand = np.where(pad, sentinel, cand).astype(np.int32)
+    if kind == "random":
+        sentinel = 997
+        cand = rng.integers(0, 9, (rows, width)).astype(np.int32)
+        pad = rng.random((rows, width)) < 0.15
+        cand = np.where(pad, sentinel, cand).astype(np.int32)
+    else:
+        sentinel = WIDE_SENTINEL
+        cand, pad, _ = _wide_labels(rng, kind, rows, width)
     w = np.where(pad, 0.0, _weights(rng, (rows, width), weights))
     w = w.astype(np.float32)
-    cur = rng.integers(0, 9, rows).astype(np.int32)
+    if kind == "random":
+        cur = rng.integers(0, 9, rows).astype(np.int32)
+    else:       # a slot's community, or one absent from the row
+        cur = np.where(rng.random(rows) < 0.5, cand[:, 1], 11).astype(
+            np.int32)
     if weights == "int":
         deg = rng.integers(1, 9, rows).astype(np.float32)
         volc = rng.integers(1, 40, (rows, width)).astype(np.float32)

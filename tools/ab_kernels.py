@@ -41,6 +41,16 @@ computed, to ids below or above their block's window, which both the
 kernel and the plain version clamp into it; ``dead_tail`` — the
 ``prefix`` tiles with their last quarter of rows dead: row id and every
 slot the sentinel, weight 0),
+``label_argmax`` and ``delta_q`` (the scored-tile kernels of the two-step
+path, on seeded (R, W) tiles at the as-skitter stand-in's four level-0
+bucket shapes, as for ``local_move``; 50 launches a timing; sentinel 2^21;
+uniform(0.5, 1.5) weights; six sets per width: ``scattered``, ``prefix``,
+``long_runs`` and ``one_run`` as for ``local_move`` but with the labels in
+the tile, ``all_distinct`` — every slot valid and a different label (W
+runs of one), and ``padding_rows`` — the ``prefix`` tiles with a quarter
+of the rows holding no valid slot under the sentinel key; the current
+label is the row's first slot's on half the rows; ``delta_q`` with
+per-slot volumes and sizes, under both singleton rules),
 ``flash_attention_fwd`` (the float32 kernel, on seeded float32 inputs,
 causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py`` (2, 16, 4096,
 128), 20 launches a timing, and at one prefill_32k sequence (1, 16, 32768,
@@ -78,6 +88,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels import build  # noqa: E402
 
 SOURCES = {"local_move": ("local_move_plp", "local_move_louvain"),
+           "label_argmax": ("label_argmax",),
+           "delta_q": ("delta_q",),
            "local_move_streamed": ("local_move_plp_streamed",
                                    "local_move_louvain_streamed"),
            "flash_attention_fwd": ("flash_attention_fwd",),
@@ -337,6 +349,96 @@ def local_move_streamed(libs, labels, dev, sets=None, block_rows=None):
             ab(labels, launcher, (best, prop), f"{k} {what}", 50)
 
 
+TILE_SETS = ("scattered", "prefix", "long_runs", "one_run", "all_distinct",
+             "padding_rows")
+
+
+def tile_inputs(rng, W, R, kind):
+    """(keys, lab, w, cur) of one scored-tile set (module docstring)."""
+    keys = rng.choice(N, R, replace=False).astype(np.int64)
+    slot = np.arange(W)[None, :]
+    if kind == "scattered":
+        pad = rng.random((R, W)) < 0.3
+    elif kind == "all_distinct":
+        pad = np.zeros((R, W), bool)
+    else:
+        pad = slot >= rng.integers(W // 4 + 1, W + 1, R)[:, None]
+    if kind == "long_runs":
+        lab = rng.integers(0, 8, (R, W))
+    elif kind == "one_run":
+        lab = np.full((R, W), 3)
+    elif kind == "all_distinct":      # an odd stride keeps them distinct
+        perm = np.argsort(rng.random((R, W)), axis=1)
+        lab = (rng.integers(0, N, R)[:, None] + 7919 * perm) % N
+    else:
+        lab = rng.integers(0, 1 << 19, (R, W))
+    # the current label: the row's first slot's or another, half and half
+    cur = np.where(rng.random(R) < 0.5, lab[:, 0],
+                   rng.integers(0, 1 << 19, R))
+    if kind == "padding_rows":
+        dead = rng.random(R) < 0.25
+        pad[dead] = True
+        keys[dead] = N
+        cur[dead] = N
+    lab = np.where(pad, N, lab)
+    w = np.where(pad, 0.0, rng.uniform(0.5, 1.5, (R, W)))
+    return (keys.astype(np.int32), lab.astype(np.int32),
+            w.astype(np.float32), cur.astype(np.int32))
+
+
+def scored_tiles(libs, labels, dev, name, widths=None, sets=None):
+    """``label_argmax`` or ``delta_q`` on seeded tiles at the as-skitter
+    stand-in's level-0 bucket shapes (module docstring)."""
+    rng = np.random.default_rng(0)
+
+    def card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    inv = torch.tensor(1e-7, dtype=torch.float32, device=dev)
+    for (W, R), kind in itertools.product(
+            ((16, 810_488), (64, 118_136), (256, 54_888), (1024, 25_624)),
+            TILE_SETS):
+        if (widths and W not in widths) or (sets and kind not in sets):
+            continue
+        keys, lab, w, cur = (card(x) for x in tile_inputs(rng, W, R, kind))
+        what = f"{name} W={W} rows={R} {kind}"
+        if name == "label_argmax":
+            outs = (torch.empty(R, dtype=torch.int32, device=dev),
+                    torch.empty(R, dtype=torch.float32, device=dev),
+                    torch.empty(R, dtype=torch.float32, device=dev))
+
+            def launcher(label):
+                return entry(libs[(label, name)], name,
+                             [_P] * 4 + [ctypes.c_uint32, ctypes.c_float, _I,
+                                         ctypes.c_longlong, _I, _P, _P, _P,
+                                         _P],
+                             (lab.data_ptr(), w.data_ptr(), cur.data_ptr(),
+                              keys.data_ptr(), 7, 1e-10, N, R, W,
+                              *(o.data_ptr() for o in outs), stream))
+            ab(labels, launcher, outs, what, 50)
+            continue
+        pad = lab == N
+        vol_c = card(rng.integers(1, 50, (R, W))).float().masked_fill(pad, 0)
+        size_c = card(rng.integers(1, 3, (R, W))).int().masked_fill(pad, 0)
+        terms = (card(rng.integers(1, 9, R)).float(),        # deg
+                 card(rng.integers(1, 50, R)).float(),       # vol(A)
+                 card(rng.integers(1, 3, R)).int())          # |A|
+        outs = (torch.empty(R, dtype=torch.int32, device=dev),
+                torch.empty(R, dtype=torch.float32, device=dev))
+        for rule in (1, 0):
+            def launcher(label, rule=rule):
+                return entry(libs[(label, name)], name,
+                             [_P] * 9 + [_I, _I, ctypes.c_longlong, _I, _P,
+                                         _P, _P],
+                             (lab.data_ptr(), w.data_ptr(), vol_c.data_ptr(),
+                              size_c.data_ptr(), cur.data_ptr(),
+                              *(t.data_ptr() for t in terms), inv.data_ptr(),
+                              rule, N, R, W,
+                              *(o.data_ptr() for o in outs), stream))
+            ab(labels, launcher, outs, f"{what} rule={rule}", 50)
+
+
 def within_bf16_ulp(a, r) -> bool:
     """|a - r| within one bf16 ulp of the larger of the two plus 1e-6
     everywhere (``chip_smoke.py``'s bound for the bf16 kernel)."""
@@ -398,7 +500,8 @@ def main(argv):
     parser.add_argument("trees", nargs="+", metavar="LABEL=CSRC_DIR")
     for opt in ("--widths", "--sets", "--block-rows"):
         parser.add_argument(opt, type=lambda v: v.split(","),
-                            help="local_move(_streamed) only: keep the "
+                            help="local_move(_streamed), label_argmax, "
+                            "delta_q only: keep the "
                             "named ones (--block-rows: the streamed "
                             "windows' rows per block)")
     args = parser.parse_intermixed_args(argv)
@@ -414,6 +517,9 @@ def main(argv):
     if args.kernel == "local_move":
         widths = args.widths and [int(x) for x in args.widths]
         local_move(libs, labels, dev, widths, args.sets)
+    elif args.kernel in ("label_argmax", "delta_q"):
+        widths = args.widths and [int(x) for x in args.widths]
+        scored_tiles(libs, labels, dev, args.kernel, widths, args.sets)
     elif args.kernel == "local_move_streamed":
         local_move_streamed(libs, labels, dev, args.sets,
                             args.block_rows and [int(x)
