@@ -102,7 +102,12 @@ Phases, each failing loudly (exit code 1, no result line):
    kernels' ``coarse_levels`` sum one sweep of each of its coarse levels,
    their ``launches`` read from the kernel's counter), com-dblp's
    streamed buckets for the streamed ones, and the R-MAT graph's 28 M
-   sorted edge sources for ``block_segment_sums``.  The card's clocks,
+   sorted edge sources for ``block_segment_sums``.  ``bin_rank`` is
+   checked and timed on the first and the last call of the first graph
+   that launched it, each logged with its edges, width and rows read;
+   its row keeps the first call's numbers and carries the launch floor
+   (``floor_ms``: a one-element ``add_`` timed as the kernels are).  The
+   card's clocks,
    temperature and power draw are printed before and after this phase.
 5. LM: ``qwen3-1.7b`` at full width and depth (28 layers, d_model 2048,
    16 query heads over 8 KV heads repeated to 16, head dim 128, vocab
@@ -275,7 +280,8 @@ def device_ms(fn, reps: int, torch) -> float:
         fn()
     spin_s = max(2 * (time.perf_counter() - t), SPIN_MIN_S)
     torch.cuda.synchronize()
-    where = f"chip_smoke.py:{sys._getframe(1).f_lineno}"
+    caller = sys._getframe(1)
+    where = f"{Path(caller.f_code.co_filename).name}:{caller.f_lineno}"
     for _ in range(SPIN_TRIES):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -1055,29 +1061,39 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
     if not rec_bin.calls:
         fail("bin_rank recorded no main-path call")
     bin_graph = next(iter(rec_bin.calls))   # the first graph that launched it
-    (a, kw), _ = rec_bin.calls[bin_graph]
-    keys, cs, cd = a
-    ko = rec_bin.fn(keys, cs, cd, **kw)
-    po = rt.agg_ref.bin_rank_ref(keys, cs, cd, **kw)
-    torch.cuda.synchronize()
-    bin_err = max_abs_err(ko, po)
-    if bin_err != 0.0:
-        fail("bin_rank: kernel and plain differ")
-    b_k = device_ms(lambda: rec_bin.fn(keys, cs, cd, **kw), reps, torch)
-    b_p = loop_ms(lambda: rt.agg_ref.bin_rank_ref(keys, cs, cd, **kw),
-                  reps, torch)
-    m, W = cs.shape[0], kw["width"]
-    # bytes: cs, cd and the rank output once each, and the bin rows the
-    # edges name (this level's communities, plus the sink row of the
-    # masked edges) — not the whole (n+1)-row table, most of whose rows
-    # belong to no community at a late level.  Operations: a binary search
-    # per edge in a sorted row, and the rows' sort.
-    rows_read = int(torch.unique(cs).numel())
-    b_b, b_kind = bound_ms(12 * m + 4 * W * rows_read,
-                           (m + rows_read * W) * math.log2(W))
-    log(f"[kernels] bin_rank {bin_graph} W={W} edges={m} rows read "
-        f"{rows_read}: kernel {b_k:.4f} ms, plain {b_p:.4f} ms, bound "
-        f"{b_b:.4f} ms ({b_kind})")
+    # the launch floor: a one-element add_, timed as the kernel is
+    one = torch.zeros(1, device=rec_bin.calls[bin_graph][0][0][0].device)
+    floor_ms = device_ms(lambda: one.add_(1), reps, torch)
+    bin_err, bin_det = 0.0, []
+    for tag, (a, kw) in zip(("first", "last"), rec_bin.calls[bin_graph]):
+        keys, cs, cd = a
+        ko = rec_bin.fn(keys, cs, cd, **kw)
+        po = rt.agg_ref.bin_rank_ref(keys, cs, cd, **kw)
+        torch.cuda.synchronize()
+        bin_err = max(bin_err, max_abs_err(ko, po))
+        if bin_err != 0.0:
+            fail(f"bin_rank ({tag} call): kernel and plain differ")
+        b_k = device_ms(lambda: rec_bin.fn(keys, cs, cd, **kw), reps, torch)
+        b_p = loop_ms(lambda: rt.agg_ref.bin_rank_ref(keys, cs, cd, **kw),
+                      reps, torch)
+        m, W = cs.shape[0], kw["width"]
+        # bytes: cs, cd and the rank output once each, and the bin rows
+        # the edges name (this level's communities, plus the sink row of
+        # the masked edges) — not the whole (n+1)-row table, most of whose
+        # rows belong to no community at a late level.  Operations: a
+        # binary search per edge in a sorted row, and the rows' sort.
+        rows_read = int(torch.unique(cs).numel())
+        b_b, b_kind = bound_ms(12 * m + 4 * W * rows_read,
+                               (m + rows_read * W) * math.log2(W))
+        bin_det.append({"graph": bin_graph, "call": tag, "width": W,
+                        "edges": m, "rows_read": rows_read, "ms": b_k,
+                        "plain_ms": b_p, "bound_ms": b_b, "bound_by": b_kind,
+                        "floor_ms": floor_ms})
+        log(f"[kernels] bin_rank {bin_graph} ({tag} call) W={W} edges={m} "
+            f"rows read {rows_read}: kernel {b_k:.4f} ms, plain {b_p:.4f} "
+            f"ms, bound {b_b:.4f} ms ({b_kind}), launch floor (one-element "
+            f"add_) {floor_ms:.4f} ms")
+    bin_row = bin_det[0]         # the first call, as earlier runs logged
 
     def row(name, source, replaces, tot, err, kinds, detail):
         out = {"name": name, "route": "cuda", "source": source,
@@ -1117,10 +1133,9 @@ def phase_kernels(args, torch, rt, recs, launches, coarse_launches):
         lv_s_kinds, lv_s_det))
     rows_out.append(row(
         "bin_rank", "src/repro_torch/kernels/csrc/bin_rank.cu",
-        "src/repro/kernels/aggregation/kernel.py:62",
-        {"ms": b_k, "plain_ms": b_p, "bound_ms": b_b}, bin_err, {b_kind: b_b},
-        [{"graph": bin_graph, "width": W, "edges": m, "rows_read": rows_read,
-          "ms": b_k, "plain_ms": b_p, "bound_ms": b_b, "bound_by": b_kind}]))
+        "src/repro/kernels/aggregation/kernel.py:62", bin_row, bin_err,
+        {bin_row["bound_by"]: bin_row["bound_ms"]}, bin_det))
+    rows_out[-1]["floor_ms"] = floor_ms
     return rows_out
 
 

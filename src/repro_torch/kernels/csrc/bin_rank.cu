@@ -15,9 +15,23 @@
 // rows of one community are read by all its edges.  Design: one thread per
 // edge, consecutive threads on consecutive edges (coalesced cs/cd/out);
 // rows are read through the read-only path as 16-byte int4 loads (W is a
-// multiple of 4 and rows start 16-byte aligned), so edges of one community
-// hit L2 after the first.  The TPU kernel's VMEM-resident table copy has no
-// counterpart.
+// multiple of 4 and rows start 16-byte aligned), so the edges of one
+// community, which sit next to each other on the main path, read their row
+// from L1 after the first.  The TPU kernel's VMEM-resident table copy has
+// no counterpart.
+//
+// Measured against warp designs that read each row once per group of
+// edges naming it (tools/ab_kernels.py bin_rank against the trees in
+// tools/ab_variants/, NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): at the
+// com-dblp stand-in's third stage (127 409 edges, W = 64, edges grouped
+// by row) this kernel takes 0.0047 ms against a 0.0020 ms launch floor;
+// ranking a group's edges with a warp reduction each (bin_rank_warp_reduce)
+// took 0.0091 ms, and staging each group's row in shared memory for its
+// lanes to scan (bin_rank_warp_slots) 0.0061.  With no row load at all
+// (bin_rank_norows) this kernel takes 0.0037.  Every design compares each
+// edge with each key of its row: one thread an edge makes 32 of those
+// compares a warp instruction, a warp reduction an edge adds instructions
+// to them, and a lane reads from L1 the row that its neighbours also read.
 #include <cuda_runtime.h>
 
 namespace {

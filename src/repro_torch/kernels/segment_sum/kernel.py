@@ -8,10 +8,11 @@ output, launches on PyTorch's current stream, raises ``KernelError`` on a
 launch error, and counts its launches in
 ``block_segment_sums_kernel.launches``; no keys, no launch.
 
-Callers pad to a multiple of ``block`` (1 ≤ block ≤ 1024, one CUDA thread
-per position) and pass non-decreasing keys: the kernel sums each
-contiguous run of equal keys, which for sorted keys is every equal key of
-the block.
+Callers pad to a multiple of ``block`` (1 ≤ block ≤ 1024, one warp a
+block) and pass non-decreasing keys: the kernel sums each contiguous run
+of equal keys, which for sorted keys is every equal key of the block, as
+the left fold of the run's values in position order (the same bits on
+float values at every block size).
 """
 from __future__ import annotations
 

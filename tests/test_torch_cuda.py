@@ -19,7 +19,11 @@ scored-tile kernels (``label_argmax``, ``delta_q``) also run at widths
 that are not ELL widths, and the two-step path (gather the tiles, then
 score them) must equal the fused kernels bit for bit on float32 weights
 too; ``sorted_segment_sum`` runs with runs longer than two blocks and
-lengths that are not a block multiple.
+lengths that are not a block multiple, and its block pass must give, on
+float32 values, the left fold of each run in position order bit for bit
+at every block size from 1 to 1024.  ``bin_rank`` meets edges grouped by
+row and shuffled, all on the sink row, full rows, fewer than a warp and
+600 000, at W = 4 to 1024.
 
 The sort-and-run scoring of the wide rows meets adversarial rows — one
 run of W, W runs of one, mostly padding, exact ties — at every width and
@@ -436,6 +440,59 @@ def test_bin_rank_kernel_matches_plain(cuda_device, width):
     args = [_card(x, cuda_device) for x in (keys.reshape(-1), cs, cd)]
     assert torch.equal(bin_rank_kernel(*args, width=width, empty=n),
                        bin_rank_ref(*args, width=width, empty=n))
+
+
+def _bin_case(kind, width, seed):
+    """(keys, cs, cd, n) of one ``bin_rank`` layout: a table of n + 1 rows
+    (the last the sink, empty unless ``sink_holds_keys``), live rows with
+    1..W distinct keys (W in ``full_rows``), edges in runs of 1-40 on one
+    row (a src-sorted coarse graph's order), 5 % of the runs masked onto
+    the sink, half the keys taken from the edge's row and half anywhere
+    in [0, n]."""
+    rng = np.random.default_rng([seed, width])
+    n = max(700, 2 * width)
+    keys = np.full((n + 1, width), n, np.int32)
+    occ = (np.full(n, width) if kind == "full_rows"
+           else rng.integers(1, width + 1, n))
+    for row in range(n):
+        keys[row, rng.choice(width, occ[row], replace=False)] = rng.choice(
+            n, occ[row], replace=False)
+    if kind == "sink_holds_keys":
+        keys[n, ::2] = rng.choice(n, width // 2, replace=False)
+    m = {"below_a_warp": 7, "many_edges": 600_000}.get(kind, 5000)
+    lengths = rng.integers(1, 41, m)
+    rows = np.where(rng.random(m) < 0.05, n, rng.integers(0, n, m))
+    if kind in ("all_sink", "sink_holds_keys"):
+        rows[:] = n
+    cs = np.repeat(rows, lengths)[:m]
+    held = keys[cs, rng.integers(0, width, m)]
+    cd = np.where(rng.random(m) < 0.5, held, rng.integers(0, n + 1, m))
+    cd = np.where((cs == n) & (kind != "sink_holds_keys"), n, cd)
+    if kind == "shuffled":
+        order = rng.permutation(m)
+        cs, cd = cs[order], cd[order]
+    return keys.reshape(-1), cs.astype(np.int32), cd.astype(np.int32), n
+
+
+BIN_KINDS = ("grouped", "shuffled", "all_sink", "sink_holds_keys",
+             "full_rows", "below_a_warp", "many_edges")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", BIN_KINDS)
+@pytest.mark.parametrize("width", [4, 16, 64, 256, 1024])
+def test_bin_rank_kernel_on_grouped_and_edge_layouts(cuda_device, width,
+                                                     kind):
+    """Edges grouped by row as a src-sorted coarse graph gives them and
+    shuffled, every edge on the sink row (empty, or holding keys), full
+    rows, fewer edges than a warp and more than the card runs at once
+    (600 000); bit for bit against the plain version."""
+    keys, cs, cd, n = _bin_case(kind, width, 7)
+    args = [_card(x, cuda_device) for x in (keys, cs, cd)]
+    launches = bin_rank_kernel.launches
+    out = bin_rank_kernel(*args, width=width, empty=n)
+    assert bin_rank_kernel.launches == launches + 1
+    assert torch.equal(out, bin_rank_ref(*args, width=width, empty=n))
 
 
 @pytest.mark.cuda
@@ -1153,6 +1210,59 @@ def test_sorted_segment_sum_kernel_matches_plain(cuda_device, m, block):
     vp = torch.cat([v_t, v_t.new_zeros(pad)])
     assert torch.equal(block_segment_sums_kernel(kp, vp, block=block),
                        block_segment_sums_ref(kp, vp, block))
+
+
+def _left_folds(keys, vals, block):
+    """Per position, the float32 left fold of its run inside its block:
+    the last element of ``np.cumsum(run, dtype=np.float32)``, which numpy
+    adds in position order."""
+    out = np.empty_like(vals)
+    for b0 in range(0, keys.size, block):
+        k = keys[b0:b0 + block]
+        heads = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+        for s, e in zip(heads, np.r_[heads[1:], k.size]):
+            out[b0 + s:b0 + e] = np.cumsum(vals[b0 + s:b0 + e],
+                                           dtype=np.float32)[-1]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 16, 33, 100, 128, 256, 512, 1024])
+def test_block_segment_sums_kernel_left_folds_float_runs(cuda_device, block):
+    """The block pass on float32 values, bit for bit against the left fold
+    of each run in position order from 0.0: runs of one, runs across
+    32-position rows, hub runs over whole blocks, INT32_MAX padding, and
+    values of both signs over six decades, at every block size the
+    wrapper takes a shape of (not a multiple of 4 or of 32 included)."""
+    rng = np.random.default_rng(block)
+    m = block * max(8, 6000 // block)
+    kind = rng.random(m)
+    lengths = np.where(kind < 0.3, 1, np.where(
+        kind < 0.95, rng.integers(2, 71, m), rng.integers(1, 3 * block + 1,
+                                                         m)))
+    lengths[3] = 2 * block + 37                    # whole blocks of one run
+    keys = np.repeat(np.arange(m), lengths)[:m].astype(np.int32)
+    keys[m - max(1, block // 3):] = 2**31 - 1       # the entry's padding
+    vals = (rng.standard_normal(m) * 10.0 ** rng.uniform(-3, 3, m)).astype(
+        np.float32)
+    k_t, v_t = _card(keys, cuda_device), _card(vals, cuda_device)
+    out = block_segment_sums_kernel(k_t, v_t, block=block).cpu().numpy()
+    assert out.tobytes() == _left_folds(keys, vals, block).tobytes()
+
+
+@pytest.mark.cuda
+def test_block_segment_sums_kernel_on_unaligned_inputs(cuda_device):
+    """Keys and values that start 4 bytes past a 16-byte boundary take
+    the kernel's 4-byte staging: the same bits as aligned ones."""
+    rng = np.random.default_rng(3)
+    m, block = 512 * 40, 512
+    keys = np.sort(rng.integers(0, 300, m)).astype(np.int32)
+    vals = rng.standard_normal(m).astype(np.float32)
+    k_t = _card(np.r_[np.int32(0), keys], cuda_device)[1:]
+    v_t = _card(np.r_[np.float32(0), vals], cuda_device)[1:]
+    assert k_t.data_ptr() % 16 and v_t.data_ptr() % 16
+    out = block_segment_sums_kernel(k_t, v_t, block=block).cpu().numpy()
+    assert out.tobytes() == _left_folds(keys, vals, block).tobytes()
 
 
 @pytest.mark.cuda

@@ -167,7 +167,7 @@ def _bin_table(seed, n, m, width):
     return keys.reshape(-1), cs, cd
 
 
-@pytest.mark.parametrize("width", [16, 64, 256])
+@pytest.mark.parametrize("width", [4, 16, 64, 256])
 def test_bin_rank_plain_matches_jax_ref(width):
     n = 300
     keys, cs, cd = _bin_table(width, n, 2000, width)
@@ -177,6 +177,28 @@ def test_bin_rank_plain_matches_jax_ref(width):
     _eq(j, t)
     # masked edges route to the sink row and rank 0
     assert int(t[_t(cs) == n].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("order", ["grouped", "shuffled"])
+@pytest.mark.parametrize("width", [4, 16])
+def test_bin_rank_kernel_matches_jax_ref(width, order):
+    """The wrapper (its plain version on the CPU) against the JAX
+    ``bin_rank_ref`` on edges in runs of one row, as a src-sorted coarse
+    graph gives them, and shuffled."""
+    n = 300
+    keys, cs, cd = _bin_table(width + 1, n, 2000, width)
+    rng = np.random.default_rng(width)
+    run_rows = np.repeat(rng.integers(0, n + 1, 2000), rng.integers(1, 41,
+                                                                    2000))
+    cs = run_rows[:2000].astype(np.int32)
+    cd = np.where(cs < n, cd, n).astype(np.int32)
+    if order == "shuffled":
+        perm = rng.permutation(cs.size)
+        cs, cd = cs[perm], cd[perm]
+    j = j_bin_rank_ref(jnp.asarray(keys), jnp.asarray(cs), jnp.asarray(cd),
+                       width=width, empty=n)
+    t = bin_rank_kernel(_t(keys), _t(cs), _t(cd), width=width, empty=n)
+    _eq(j, t)
 
 
 def test_bin_rank_plain_matches_jax_pallas_interpret():

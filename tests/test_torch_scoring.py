@@ -221,14 +221,16 @@ def test_sorted_segment_sum_matches_jax(m, block, weights, jax_pallas):
         _close(j_out, t_out, weights == "int", 1e-5)
 
 
-@pytest.mark.parametrize("block", [16, 128, 512])
+@pytest.mark.parametrize("block", [1, 16, 33, 100, 128, 512])
 def test_block_segment_sums_matches_jax_pallas(block):
     """The block pass alone: the port's wrapper (its plain version on the
     CPU) against the JAX Pallas kernel in interpret mode, bit for bit on
-    integer values, padding with INT32_MAX included."""
+    integer values, padding with INT32_MAX included; block sizes that are
+    not a multiple of 4 or of 32 too."""
     rng = np.random.default_rng(block)
     m = 6 * block
-    keys = np.sort(rng.integers(0, 3 * block // 4, m)).astype(np.int32)
+    keys = np.sort(rng.integers(0, max(1, 3 * block // 4), m)).astype(
+        np.int32)
     keys[-block // 2:] = 2**31 - 1
     vals = rng.integers(-8, 9, m).astype(np.float32)
     j_out = block_segment_sums_pallas(jnp.asarray(keys), jnp.asarray(vals),

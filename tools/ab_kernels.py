@@ -2,7 +2,8 @@
 """Time one CUDA kernel family of several source trees, interleaved.
 
     python3 tools/ab_kernels.py KERNEL [--widths=64,...] [--sets=traced,...] \
-        [--block-rows=128,...] LABEL=CSRC_DIR LABEL=CSRC_DIR ...
+        [--block-rows=128,...] [--blocks=512,...] [--unchecked=LABEL,...] \
+        LABEL=CSRC_DIR LABEL=CSRC_DIR ...
 
 KERNEL is ``local_move`` (the resident ``local_move_plp`` and
 ``local_move_louvain`` kernels, on seeded random inputs at the as-skitter
@@ -57,7 +58,25 @@ causal, at the qwen3-1.7b prefill shape of ``chip_smoke.py`` (2, 16, 4096,
 128), 3 launches; a tree whose C entry still takes a dtype code, as
 4aab1e7's and older do, is passed 0, float32) or
 ``flash_attention_fwd_wgmma`` (the bf16 tensor-core kernel, the same
-shapes on bf16 inputs).
+shapes on bf16 inputs),
+``block_segment_sums`` (the block pass of ``sorted_segment_sum`` at
+``--blocks``, default 512 and 256; float32 values from a normal draw,
+so the trees must agree on the order of their adds; keys padded with
+INT32_MAX to a block multiple, as the entry pads them; 50 launches a
+timing; three sets: ``skitter`` — the src-sorted edge sources of the
+as-skitter stand-in at scale 1.0 (``graph/datasets.py``; 28.45 M keys,
+hub runs of tens of thousands), ``distinct`` — as many keys, all
+different, and ``one_run`` — as many keys, each key block one run) or
+``bin_rank`` (the rank pass of the binned aggregation at the com-dblp
+stand-in's third cascade stage: a table of 19 819 rows, the last the
+sink, of which 10 000 hold keys, 127 409 edges; W = 16, 64 and 256; each
+live row holds 1..W distinct keys below the 19 818 communities; the
+edges come in runs of 1–40 (a source vertex's edges), each run on one
+row, every live row named, 5 % of the runs masked onto the sink row, and
+each edge names one of its row's keys; two sets: ``grouped`` — the runs
+one after another, as a src-sorted coarse graph gives them, and
+``shuffled`` — the same edges in a random order; 200 launches a timing;
+and the launch floor: a one-element ``add_`` timed the same way).
 
 Each CSRC_DIR holds the family's ``.cu`` sources and the headers they
 include (``src/repro_torch/kernels/csrc`` of a checkout; an older
@@ -65,13 +84,17 @@ commit's with ``git archive <commit> src/repro_torch/kernels/csrc | tar
 -x -C <dir>``).  Each tree is built with the flags of
 ``kernels/build.py`` into ``build/ab/<label>/``, every tree runs the same
 inputs, the outputs of all trees must be equal, and each kernel is timed
-with CUDA events over back-to-back launches in the order A B ... B A.
+in the order A B ... B A by ``chip_smoke.py``'s ``device_ms``: CUDA events
+over back-to-back launches enqueued behind a spin kernel, so the host's
+enqueue time is not in the time.
 The flash kernels' contracts are tolerances, so their trees' outputs are
 each held to ``attention_ref`` instead (float32 within rtol = atol = 1e-5,
 bf16 within one bf16 ulp of the larger value plus 1e-6, at the prefill
 shape; at 32 768 keys, whose float32 scores alone take 64 GiB, only
-finite) and may differ from each other.  Needs one CUDA card and
-``nvcc``.
+finite) and may differ from each other.  ``--unchecked`` names trees
+that are timed but whose outputs are not compared: variant trees with a
+part of the kernel taken out, to split its time by removal.  Needs one
+CUDA card and ``nvcc``.
 """
 import argparse
 import ctypes
@@ -84,7 +107,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+from chip_smoke import device_ms  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 SOURCES = {"local_move": ("local_move_plp", "local_move_louvain"),
@@ -93,10 +117,16 @@ SOURCES = {"local_move": ("local_move_plp", "local_move_louvain"),
            "local_move_streamed": ("local_move_plp_streamed",
                                    "local_move_louvain_streamed"),
            "flash_attention_fwd": ("flash_attention_fwd",),
-           "flash_attention_fwd_wgmma": ("flash_attention_fwd_wgmma",)}
+           "flash_attention_fwd_wgmma": ("flash_attention_fwd_wgmma",),
+           "block_segment_sums": ("block_segment_sums",),
+           "bin_rank": ("bin_rank",)}
 N = 2_097_152
 # the com-dblp stand-in's W = 16 bucket: rows, vertices (the sentinel)
 DBLP_ROWS, DBLP_N = 316_776, 317_080
+# the com-dblp stand-in's third cascade stage: communities (the sink row
+# and the empty key), edges, rows that hold keys
+BIN_N, BIN_EDGES, BIN_LIVE = 19_818, 127_409, 10_000
+INT32_MAX = 2**31 - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -131,28 +161,17 @@ def entry(lib, name, argtypes, args):
     return run
 
 
-def events_ms(fn, reps):
-    fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def ab(labels, launcher, outputs, what, reps, check=None):
+def ab(labels, launcher, outputs, what, reps, check=None, unchecked=()):
     """Runs every tree once and checks ``outputs`` — equal across the
-    trees, or each passing ``check(outputs)`` where one is given — then
-    times each tree in the order A B ... B A."""
+    trees, or each passing ``check(outputs)`` where one is given; trees in
+    ``unchecked`` are left out — then times each tree in the order A B ...
+    B A with ``chip_smoke.device_ms``."""
     outs = []
     for label in labels:
         launcher(label)()
         torch.cuda.synchronize()
-        outs.append([t.clone() for t in outputs])
+        if label not in unchecked:
+            outs.append([t.clone() for t in outputs])
     if check is None:
         ok = all(torch.equal(x, y) for o in outs for x, y in zip(o, outs[0]))
         verdict = f"outputs equal: {ok}"
@@ -161,7 +180,7 @@ def ab(labels, launcher, outputs, what, reps, check=None):
         verdict = f"outputs within tolerance: {ok}"
     times = {label: [] for label in labels}
     for label in labels + labels[::-1]:
-        times[label].append(events_ms(launcher(label), reps))
+        times[label].append(device_ms(launcher(label), reps, torch))
     print(f"{what}, {reps} launches a timing: {verdict}; ms "
           + ", ".join(f"{lb} {t[0]:.4f} / {t[1]:.4f}"
                       for lb, t in times.items()), flush=True)
@@ -493,17 +512,110 @@ def flash_attention_fwd(libs, trees, dev, name="flash_attention_fwd"):
            reps, check)
 
 
+def segment_keys(dev, kind, m):
+    """The sorted int32 keys of one ``block_segment_sums`` set (module
+    docstring; ``one_run`` divides them by the block); ``m`` is the
+    ``skitter`` set's length."""
+    if kind == "skitter":
+        from repro_torch.graph import datasets
+        return datasets.load("as-skitter", scale=1.0, device=dev).graph.src
+    return torch.arange(m, dtype=torch.int32, device=dev)
+
+
+def block_segment_sums(libs, labels, dev, sets=None, blocks=None,
+                       unchecked=()):
+    stream = torch.cuda.current_stream().cuda_stream
+    m = None
+    for kind in ("skitter", "distinct", "one_run"):
+        keys = segment_keys(dev, kind, m)
+        m = keys.numel()
+        if sets and kind not in sets:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(0)
+        vals = torch.randn(m, generator=gen, device=dev)
+        for block in blocks or (512, 256):
+            kb = keys // block if kind == "one_run" else keys
+            pad = (-m) % block
+            kp = torch.cat([kb, kb.new_full((pad,), INT32_MAX)])
+            vp = torch.cat([vals, vals.new_zeros(pad)])
+            out = torch.empty_like(vp)
+            runs = int(torch.unique_consecutive(kp).numel())
+
+            def launcher(label):
+                name = "block_segment_sums"
+                return entry(libs[(label, name)], name,
+                             [_P, _P, ctypes.c_longlong, _I, _P, _P],
+                             (kp.data_ptr(), vp.data_ptr(), kp.numel(), block,
+                              out.data_ptr(), stream))
+            ab(labels, launcher, (out,), f"block_segment_sums {kind} "
+               f"m={kp.numel()} runs={runs} block={block}", 50,
+               unchecked=unchecked)
+
+
+def bin_inputs(rng, W, kind):
+    """(keys, cs, cd) of one ``bin_rank`` set (module docstring)."""
+    n = BIN_N
+    keys = np.full((n + 1, W), n, np.int32)
+    live = np.sort(rng.choice(n, BIN_LIVE, replace=False))
+    occ = rng.integers(1, W + 1, BIN_LIVE)
+    for row, k in zip(live, occ):
+        keys[row, rng.choice(W, k, replace=False)] = rng.choice(
+            n, k, replace=False)
+    # a run a source vertex, 1-40 edges (mean ~6.4, as 127 409 edges of
+    # 19 818 vertices), each on its community's row; every live row named
+    lengths = np.minimum(40, rng.geometric(1 / 6.4, 2 * BIN_EDGES // 6))
+    runs = int(np.searchsorted(np.cumsum(lengths), BIN_EDGES)) + 1
+    rows = np.concatenate([live, rng.choice(live, runs - BIN_LIVE)])
+    rows = np.where(rng.random(runs) < 0.05, n, rng.permutation(rows))
+    cs, cd = [], []
+    for row, run in zip(rows, lengths[:runs]):
+        held = keys[row][keys[row] != n] if row < n else np.array([n])
+        cs.append(np.full(run, row))
+        cd.append(rng.choice(held, run))
+    cs = np.concatenate(cs)[:BIN_EDGES].astype(np.int32)
+    cd = np.concatenate(cd)[:BIN_EDGES].astype(np.int32)
+    if kind == "shuffled":
+        order = rng.permutation(BIN_EDGES)
+        cs, cd = cs[order], cd[order]
+    return keys.reshape(-1), cs, cd
+
+
+def bin_rank(libs, labels, dev, widths=None, sets=None, unchecked=()):
+    stream = torch.cuda.current_stream().cuda_stream
+    one = torch.zeros(1, device=dev)
+    print(f"launch floor (one-element add_): "
+          f"{device_ms(lambda: one.add_(1), 200, torch):.4f} ms",
+          flush=True)
+    for W, kind in itertools.product((16, 64, 256), ("grouped", "shuffled")):
+        if (widths and W not in widths) or (sets and kind not in sets):
+            continue
+        rng = np.random.default_rng([W, kind == "shuffled"])
+        keys, cs, cd = (torch.from_numpy(x).to(dev)
+                        for x in bin_inputs(rng, W, kind))
+        out = torch.empty_like(cs)
+        rows = int(torch.unique(cs).numel())
+
+        def launcher(label):
+            return entry(libs[(label, "bin_rank")], "bin_rank",
+                         [_P, _P, _P, ctypes.c_longlong, _I, _I, _P, _P],
+                         (keys.data_ptr(), cs.data_ptr(), cd.data_ptr(),
+                          cs.numel(), W, BIN_N, out.data_ptr(), stream))
+        ab(labels, launcher, (out,), f"bin_rank W={W} edges={cs.numel()} "
+           f"rows read {rows} {kind}", 200, unchecked=unchecked)
+
+
 def main(argv):
     parser = argparse.ArgumentParser(
         usage=__doc__.split("\n\n")[1].strip())
     parser.add_argument("kernel", choices=sorted(SOURCES))
     parser.add_argument("trees", nargs="+", metavar="LABEL=CSRC_DIR")
-    for opt in ("--widths", "--sets", "--block-rows"):
+    for opt in ("--widths", "--sets", "--block-rows", "--blocks",
+                "--unchecked"):
         parser.add_argument(opt, type=lambda v: v.split(","),
-                            help="local_move(_streamed), label_argmax, "
-                            "delta_q only: keep the "
-                            "named ones (--block-rows: the streamed "
-                            "windows' rows per block)")
+                            help="keep the named ones (--block-rows: the "
+                            "streamed windows' rows per block; --blocks: "
+                            "block_segment_sums' block sizes; --unchecked: "
+                            "trees timed, outputs not compared)")
     args = parser.parse_intermixed_args(argv)
     trees = [t.split("=", 1) for t in args.trees]
     if len(trees) < 2 or any(len(t) != 2 for t in trees) \
@@ -514,7 +626,15 @@ def main(argv):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     labels, dev = [t[0] for t in trees], torch.device("cuda")
-    if args.kernel == "local_move":
+    unchecked = args.unchecked or ()
+    if args.kernel == "block_segment_sums":
+        block_segment_sums(libs, labels, dev, args.sets,
+                           args.blocks and [int(x) for x in args.blocks],
+                           unchecked)
+    elif args.kernel == "bin_rank":
+        widths = args.widths and [int(x) for x in args.widths]
+        bin_rank(libs, labels, dev, widths, args.sets, unchecked)
+    elif args.kernel == "local_move":
         widths = args.widths and [int(x) for x in args.widths]
         local_move(libs, labels, dev, widths, args.sets)
     elif args.kernel in ("label_argmax", "delta_q"):
