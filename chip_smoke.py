@@ -47,6 +47,34 @@ Phases, each failing loudly (exit code 1, no result line):
    ``table_mode="resident"`` on com-dblp: every run of a graph must agree
    on labels, iterations, levels, Q, every per-level history and the
    cascade's stages.
+3a. Leiden, resume and faults (``[leiden]`` lines), on phase 3's two
+   graphs already on the card.  ``leiden(g, LouvainConfig(backend=
+   "pallas"))`` with the default cascade on each: the five main-path
+   kernels' launch counters are set to 0 just before the run and read
+   just after it, and ``local_move_louvain``'s are read around each
+   local-moving phase (level = it0 // LEVEL_IT_STRIDE; the refinement,
+   at it0 = level · 1000 + 500, runs the segment evaluator and launches
+   nothing).  ``local_move_louvain`` must have launched at level 0 and
+   on the coarse levels of each graph, all inside local-moving phases;
+   ``local_move_louvain_streamed`` on com-dblp only; ``bin_rank`` once
+   per level whose ``aggregation_per_level`` is ``"binned"`` (the
+   refined coarsening); no PLP kernel; the report with no retry,
+   degradation or fault (its watchdog warnings are logged).  Then
+   ``leiden(backend="ell")`` on each graph must agree with it in labels,
+   Q, levels, communities, every per-level history, aggregation and
+   stages.  Wall times and the timer split (local moving, refinement,
+   aggregation) of both runs are logged, Leiden's Q beside phase 3's
+   Louvain Q (logged, not gated).  Then com-dblp's
+   ``louvain(backend="pallas")`` with ``checkpoint_dir`` in a temporary
+   directory and ``preempt_stage`` armed must raise ``Preempted`` after
+   the first stage boundary committed; the rerun without the fault must
+   resume once (``louvain.ckpt_resume``), equal phase 3's uninterrupted
+   ``pallas`` run field by field and leave no ``step_*`` directory.  Last,
+   com-dblp's ``louvain(backend="pallas")`` under ``vmem_starve`` and
+   under ``binned_overflow``: labels and Q equal to the clean run's, the
+   fault's counter moved (the table modes taken and the aggregation
+   paths are logged: under a 1 KB budget the W = 16 bucket goes
+   resident, under the overflow every level takes the sort fallback).
 3b. Two-step scoring, the path the fused local_move kernels replaced: on
    every non-empty level-0 bucket of both graphs, the first and the last
    recorded sweep of PLP and Louvain, the (rows, W) tiles are gathered
@@ -160,9 +188,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -649,7 +679,172 @@ def phase_main(torch, rt):
     out = {"graphs": {k: v[2] for k, v in graphs.items()},
            "launches": launches, "coarse_launches": coarse,
            "peak_mem_gib": peak}
-    return out, recs, graphs
+    return out, recs, graphs, runs
+
+
+# ------------------------------------------------ phase 3a: Leiden, resume
+
+
+def timer_split(res) -> dict:
+    """The run's timer: local moving, refinement, aggregation (s)."""
+    t = res.timer.totals
+    return {k: round(t.get(k, 0.0), 4)
+            for k in ("local_moving", "refinement", "aggregation")}
+
+
+def timed_run(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def phase_leiden(torch, rt, graphs, runs):
+    """Leiden on both graphs through the kernels and through the plain
+    backend, then com-dblp's stage checkpoint killed and resumed, and two
+    fault points, on the card."""
+    import numpy as np
+
+    lm, agg = rt.lm_kernel, rt.agg_kernel
+    counters = {"local_move_plp": lm.local_move_plp_kernel,
+                "local_move_louvain": lm.local_move_louvain_kernel,
+                "bin_rank": agg.bin_rank_kernel,
+                "local_move_plp_streamed": lm.local_move_plp_streamed_kernel,
+                "local_move_louvain_streamed":
+                    lm.local_move_louvain_streamed_kernel}
+    louvain_k = counters["local_move_louvain"]
+    run_phase = rt.SweepEngine.run_phase
+    per_level: dict = {}
+
+    def tagged_run_phase(self, labels, active, *, it0=0, **kw):
+        before = louvain_k.launches
+        out = run_phase(self, labels, active, it0=it0, **kw)
+        level = it0 // rt.LEVEL_IT_STRIDE
+        per_level[level] = per_level.get(level, 0) + louvain_k.launches \
+            - before
+        return out
+
+    out = {"graphs": {}}
+    for name, (g, _ell, _info) in graphs.items():
+        louvain_res = runs[name][1]
+        per_level.clear()
+        rt.SweepEngine.run_phase = tagged_run_phase
+        for c in counters.values():
+            c.launches = 0
+        res, wall = timed_run(torch, lambda: rt.leiden(
+            g, rt.LouvainConfig(backend="pallas")))
+        launches = {k: c.launches for k, c in counters.items()}
+        rt.SweepEngine.run_phase = run_phase
+        rep = res.run_report
+        paths = res.aggregation_per_level
+        ell_res, ell_wall = timed_run(torch, lambda: rt.leiden(
+            g, rt.LouvainConfig(backend="ell")))
+        compare_runs(res, ell_res, LOUVAIN_FIELDS,
+                     f"{name}: leiden pallas and ell")
+        coarse = sum(v for lvl, v in per_level.items() if lvl)
+        info = {"wall_s": wall, "ell_wall_s": ell_wall,
+                "timer_s": timer_split(res),
+                "ell_timer_s": timer_split(ell_res), "launches": launches,
+                "local_move_louvain_per_level": dict(per_level),
+                "modularity": res.modularity,
+                "louvain_modularity": louvain_res.modularity,
+                "levels": res.levels, "communities": res.n_communities,
+                "n_comm_per_level": res.n_comm_per_level,
+                "sweeps_per_level": res.sweeps_per_level,
+                "aggregation_per_level": paths,
+                "cascade_stages": res.cascade_stages,
+                "warnings": rep.warnings}
+        out["graphs"][name] = info
+        log(f"[leiden] {name}: leiden(pallas) {wall:.2f} s, timer "
+            f"{info['timer_s']}; leiden(ell) {ell_wall:.2f} s, timer "
+            f"{info['ell_timer_s']}; both agree in labels, Q, levels, "
+            f"communities, every history, aggregation and stages")
+        log(f"[leiden] {name}: Q={res.modularity!r} (louvain "
+            f"{louvain_res.modularity!r}), {res.levels} levels, "
+            f"{res.n_communities} communities, stages {res.cascade_stages}, "
+            f"communities per level {res.n_comm_per_level}, aggregation "
+            f"{paths}, warnings {rep.warnings}")
+        log(f"[leiden] {name}: launches {launches}; local_move_louvain per "
+            f"level {dict(per_level)}")
+        if rep.retries or rep.degradations or rep.faults:
+            fail(f"{name} leiden report not clean: {rep.as_dict()}")
+        if per_level.get(0, 0) <= 0 or coarse <= 0:
+            fail(f"{name} leiden: local_move_louvain launched {per_level} "
+                 f"times per level; level 0 and the coarse levels must "
+                 f"launch it")
+        if sum(per_level.values()) != launches["local_move_louvain"]:
+            fail(f"{name} leiden: local_move_louvain launched outside a "
+                 f"local-moving phase")
+        if launches["bin_rank"] != paths.count("binned"):
+            fail(f"{name} leiden: bin_rank launched {launches['bin_rank']} "
+                 f"times for {paths.count('binned')} binned levels")
+        if launches["local_move_plp"] or launches["local_move_plp_streamed"]:
+            fail(f"{name} leiden launched a PLP kernel")
+        streamed = launches["local_move_louvain_streamed"]
+        if (name == COMMUNITY_GRAPH[0]) != (streamed > 0):
+            fail(f"{name} leiden: {streamed} streamed launches (com-dblp "
+                 f"must stream its W = 16 bucket, as-skitter must not)")
+
+    name = COMMUNITY_GRAPH[0]
+    g = graphs[name][0]
+    clean = runs[name][1]
+    cfg = rt.LouvainConfig(backend="pallas")
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg_ck = cfg.replace(checkpoint_dir=ckpt)
+        saves = rt.telemetry.get("louvain.ckpt_save")
+        resumes = rt.telemetry.get("louvain.ckpt_resume")
+        try:
+            with rt.faultinject.inject("preempt_stage"):
+                rt.louvain(g, cfg_ck)
+            fail(f"{name}: preempt_stage did not stop the run")
+        except rt.Preempted as err:
+            steps = sorted(p for p in os.listdir(ckpt)
+                           if p.startswith("step_"))
+            log(f"[leiden] {name} resume: killed ({err}); committed "
+                f"{steps}")
+        if not steps or rt.telemetry.get("louvain.ckpt_save") - saves != 1:
+            fail(f"{name}: the kill came before a boundary committed")
+        resumed, wall = timed_run(torch, lambda: rt.louvain(g, cfg_ck))
+        n_resumed = rt.telemetry.get("louvain.ckpt_resume") - resumes
+        if n_resumed != 1:
+            fail(f"{name}: the rerun resumed {n_resumed} times, not once")
+        compare_runs(clean, resumed, LOUVAIN_FIELDS,
+                     f"{name}: uninterrupted and resumed pallas runs")
+        left = [p for p in os.listdir(ckpt) if p.startswith("step_")]
+        if left:
+            fail(f"{name}: the resumed run left {left} behind")
+    out["resume"] = {"graph": name, "resumed_wall_s": wall,
+                     "stages": resumed.cascade_stages}
+    log(f"[leiden] {name} resume: the rerun resumed once ({wall:.2f} s) and "
+        f"equals phase 3's uninterrupted pallas run field by field; no "
+        f"step_* left")
+
+    out["faults"] = {}
+    for fault, counter in (("vmem_starve", "fault.vmem_starve.budget_clamped"),
+                           ("binned_overflow",
+                            "fault.binned_overflow.forced")):
+        before = rt.telemetry.get(counter)
+        modes = rt.telemetry.snapshot()
+        with rt.faultinject.inject(fault):
+            res, wall = timed_run(torch, lambda: rt.louvain(g, cfg))
+        moved = rt.telemetry.get(counter) - before
+        taken = table_modes(rt.telemetry, modes)
+        if not np.array_equal(res.labels, clean.labels) \
+                or res.modularity != clean.modularity:
+            fail(f"{name} under {fault}: labels or Q differ from the clean "
+                 f"run")
+        if moved <= 0 or res.run_report.faults != [fault]:
+            fail(f"{name} under {fault}: counter {counter} moved {moved}, "
+                 f"report faults {res.run_report.faults}")
+        out["faults"][fault] = {"wall_s": wall, "counter": moved,
+                                "table_modes": taken,
+                                "aggregation": res.aggregation_per_level}
+        log(f"[leiden] {name} under {fault}: {wall:.2f} s, labels and Q "
+            f"equal to the clean run; {counter} +{moved}; table modes "
+            f"taken (level 0 and the coarse tiles) {taken}; aggregation "
+            f"{res.aggregation_per_level}")
+    return out
 
 
 # ------------------------------------------------ phase 3b: two-step scoring
@@ -1749,7 +1944,7 @@ def main(argv) -> int:
         import repro_torch.graph.datasets as datasets
         from repro_torch.core.engine import SweepEngine
         from repro_torch.core.louvain import (LEVEL_IT_STRIDE, LouvainConfig,
-                                              louvain)
+                                              leiden, louvain)
         from repro_torch.core.plp import PLPConfig, plp
         from repro_torch.graph.ell import (build_ell, compute_windows,
                                            tile_contract)
@@ -1770,7 +1965,8 @@ def main(argv) -> int:
         from repro_torch.kernels.segment_sum import kernel as ss_kernel
         from repro_torch.kernels.segment_sum import ops as ss_ops
         from repro_torch.kernels.segment_sum import ref as ss_ref
-        from repro_torch.utils import telemetry
+        from repro_torch.utils import faultinject, telemetry
+        from repro_torch.utils.resilience import Preempted
         from repro_torch import configs
         from repro_torch.kernels.flash_attention import kernel as fa_kernel
         from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1782,6 +1978,7 @@ def main(argv) -> int:
         fail(f"the repro_torch package is not next to this script ({err})")
     rt = argparse.Namespace(
         datasets=datasets, LouvainConfig=LouvainConfig, louvain=louvain,
+        leiden=leiden, faultinject=faultinject, Preempted=Preempted,
         SweepEngine=SweepEngine, LEVEL_IT_STRIDE=LEVEL_IT_STRIDE,
         PLPConfig=PLPConfig, plp=plp, build_ell=build_ell,
         compute_windows=compute_windows, tile_contract=tile_contract,
@@ -1797,7 +1994,8 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     phase_build(build)
-    main_out, recs, graphs = phase_main(torch, rt)
+    main_out, recs, graphs, runs = phase_main(torch, rt)
+    main_out["leiden"] = phase_leiden(torch, rt, graphs, runs)
     main_out["two_step"], captured, seg_inputs = phase_two_step(
         args, torch, rt, recs, graphs)
     clocks("before phase 4")

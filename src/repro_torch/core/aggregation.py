@@ -160,26 +160,33 @@ def remap_and_coarsen(g: Graph, com: torch.Tensor
 
 
 def remap_and_coarsen_binned(g: Graph, com: torch.Tensor, *,
-                             width: int | None = None, impl: str = "kernel"
+                             width: int | None = None, impl: str = "kernel",
+                             force_overflow: bool = False
                              ) -> Tuple[torch.Tensor, int, Graph]:
     """Sort-free remap + coarsen; bit-for-bit the ``remap_and_coarsen``
-    oracle.  Returns ``(new_com, n_comm, coarse_graph)``."""
+    oracle.  Returns ``(new_com, n_comm, coarse_graph)``.
+    ``force_overflow`` is the ``binned_overflow`` fault
+    (``kernels.aggregation.ops.binned_coarsen``)."""
     new_com, n_comm = remap_communities(com, g.vertex_mask())
-    cg = binned_coarsen(g, new_com, n_comm, width=width, impl=impl)
+    cg = binned_coarsen(g, new_com, n_comm, width=width, impl=impl,
+                        force_overflow=force_overflow)
     return new_com, n_comm, cg
 
 
 def remap_and_coarsen_by(method: str, g: Graph, com: torch.Tensor, *,
-                         impl: str = "kernel"
+                         impl: str = "kernel", faults=()
                          ) -> Tuple[torch.Tensor, int, Graph]:
     """One aggregation step by method name (``LouvainConfig.aggregation``);
-    ``impl`` picks the binned path's rank pass."""
+    ``impl`` picks the binned path's rank pass.  ``faults`` is the run's
+    armed fault set (``utils.faultinject``), threaded down from the
+    driver: ``binned_overflow`` in it forces the binned path's fallback."""
     if method not in AGGREGATION_METHODS:
         raise ValueError(
             f"unknown aggregation {method!r}, want one of {AGGREGATION_METHODS}")
     if method == "sort":
         return remap_and_coarsen(g, com)
-    return remap_and_coarsen_binned(g, com, impl=impl)
+    return remap_and_coarsen_binned(
+        g, com, impl=impl, force_overflow="binned_overflow" in faults)
 
 
 def coarsen_graph(g: Graph, new_com: torch.Tensor, n_comm: int) -> Graph:

@@ -24,7 +24,7 @@ sweep — the loop condition needs it — so both give identical results;
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ from repro_torch.core.common import luby_move_gate, neighbor_or_self_changed
 from repro_torch.graph.ell import build_ell, grid_view, traced_ell_tile
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.local_move import ops as lm_ops
+from repro_torch.utils.faultinject import FAULT_POINTS
 
 # Per-evaluator Luby coin stream constants (the JAX package's values).
 _GATE_CONST = {"plp": (0x85EBCA6B, 313), "louvain": (0x9E3779B1, 101)}
@@ -61,6 +62,11 @@ class EngineSpec(ConfigBase):
     # tile of this width per level on the device (the cascade's coarse
     # levels, ``graph.ell.traced_ell_tile``).  0 = host-built layout.
     ell_width: int = 0
+    # Armed fault-injection points that act in the sweep
+    # (``utils.faultinject``): "oscillation" pins the reported ΔN above the
+    # threshold; "vmem_starve" rides along, its site being the table-layout
+    # policy.  The drivers keep only ``core.louvain.ENGINE_FAULTS`` here.
+    faults: tuple = ()
 
     def __post_init__(self):
         if self.evaluator not in EVALUATORS:
@@ -69,6 +75,8 @@ class EngineSpec(ConfigBase):
             raise ValueError(f"unknown backend {self.backend!r}, want one of "
                              f"{BACKENDS}")
         lm_ops.check_table_mode(self.table_mode)
+        if any(f not in FAULT_POINTS for f in self.faults):
+            raise ValueError(f"unknown fault point(s) in {self.faults!r}")
         if self.ell_width < 0:
             raise ValueError(f"ell_width must be >= 0, got {self.ell_width}")
         if self.ell_width > 0 and self.backend not in ("ell", "pallas"):
@@ -92,8 +100,10 @@ class PhaseResult:
 
 
 def _evaluate_segment(spec: EngineSpec, g: Graph, level, labels, active,
-                      it: int, seed: int):
-    """Sort+segment evaluator over the full edge list."""
+                      it: int, seed: int, restrict=None):
+    """Sort+segment evaluator over the full edge list.  ``restrict``
+    (Louvain only; Leiden's refinement) keeps the edges whose endpoints
+    share its value, so no move leaves the enclosing macro community."""
     n = g.n_max
     valid = g.edge_mask & active[torch.clamp(g.dst, 0, n - 1)]
     if spec.evaluator == "plp":
@@ -104,6 +114,9 @@ def _evaluate_segment(spec: EngineSpec, g: Graph, level, labels, active,
 
     vmask, deg, vol_v = level
     vol_com, size_com = moves.community_aux(labels, deg, vmask, n)
+    if restrict is not None:
+        valid = valid & (restrict[torch.clamp(g.src, 0, n - 1)]
+                         == restrict[torch.clamp(g.dst, 0, n - 1)])
     best_gain, best_cand = moves.louvain_best_moves(
         g.src, g.dst, g.w, valid, labels, deg, vol_com, size_com, vol_v, n,
         singleton_rule=spec.singleton_rule)
@@ -245,7 +258,8 @@ def _traced_tile(g: Graph, width: int):
 
 def make_step(spec: EngineSpec, g: Graph, ell):
     """The shared sweep step: evaluate → gate → adopt → frontier.  Returns
-    ``step(labels, active, it, seed) -> (labels, active, ΔN tensor)``."""
+    ``step(labels, active, it, seed, restrict=None) -> (labels, active,
+    ΔN tensor)``; ``restrict`` reaches the segment evaluator only."""
     n = g.n_max
     mult, salt = _GATE_CONST[spec.evaluator]
     vmask = g.vertex_mask()
@@ -258,10 +272,10 @@ def make_step(spec: EngineSpec, g: Graph, ell):
         # loop-invariant within a level too: one tile build per phase
         tile = _traced_tile(g, spec.ell_width)
 
-    def step(labels, active, it: int, seed: int):
+    def step(labels, active, it: int, seed: int, restrict=None):
         if spec.backend == "segment":
             proposal, propose = _evaluate_segment(spec, g, level, labels,
-                                                  active, it, seed)
+                                                  active, it, seed, restrict)
         elif tile is not None:
             proposal, propose = _evaluate_ell_traced(spec, g, level, tile,
                                                      labels, active, it, seed)
@@ -275,6 +289,10 @@ def make_step(spec: EngineSpec, g: Graph, ell):
         new_labels = torch.where(adopt, proposal, labels)
         changed = adopt & (new_labels != labels)
         delta_n = torch.sum(changed.to(torch.int32))
+        if "oscillation" in spec.faults:
+            # the convergence signal never reports a fixpoint; labels and
+            # frontier are untouched, so the phase runs to max_sweeps
+            delta_n = torch.clamp(delta_n, min=spec.threshold + 1)
         next_active = (neighbor_or_self_changed(g, changed)
                        if spec.use_frontier else vmask)
         return new_labels, next_active, delta_n
@@ -303,17 +321,25 @@ class SweepEngine:
                 self.g.vertex_mask())
 
     def run_phase(self, labels: torch.Tensor, active: torch.Tensor, *,
-                  it0: int = 0, seed: int = 0, fused: bool = True
-                  ) -> PhaseResult:
+                  it0: int = 0, seed: int = 0,
+                  restrict: Optional[torch.Tensor] = None,
+                  fused: bool = True) -> PhaseResult:
         """Run one local-moving phase to convergence (ΔN ≤ threshold or the
-        sweep budget).  ``fused`` selects the same loop either way."""
+        sweep budget).  ``restrict`` confines Louvain moves to vertices that
+        share its value (Leiden's macro communities; segment backend only).
+        ``fused`` selects the same loop either way."""
         del fused
         spec = self.spec
+        if restrict is not None and spec.backend != "segment":
+            raise ValueError(
+                "restrict (Leiden macro confinement) is only implemented for "
+                f"the segment backend, not {spec.backend!r}")
         dn_hist, act_hist = [], []
         s = 0
         while s < spec.max_sweeps:
             labels, active, dn = self._step(labels, active,
-                                            (it0 + s) & 0xFFFFFFFF, seed)
+                                            (it0 + s) & 0xFFFFFFFF, seed,
+                                            restrict)
             dn_hist.append(dn)
             act_hist.append(torch.sum(active.to(torch.int32)))
             s += 1

@@ -1,10 +1,15 @@
-"""Parallel Louvain (paper Alg. 2 + Alg. 3) — port of ``repro.core.louvain``.
+"""Parallel Louvain (paper Alg. 2 + Alg. 3) and Leiden — port of
+``repro.core.louvain``.
 
   * singleton init with comID = vertexID (Alg. 2 l.3-8)
   * local-moving: per-vertex parallel Δ𝑄 evaluation over neighboring
     communities (Eq. 1), greedy argmax move when Δ𝑄 > 0 (l.9-24), with the
     needCheck frontier (l.11, l.21, l.25)
   * level loop: local-moving then aggregation until |C| == |V| (Alg. 3)
+  * ``refine=True`` (``leiden()``): each level not yet done refines its
+    communities from singletons with moves confined to them (the segment
+    evaluator's ``restrict`` mask), coarsens by the REFINED partition and
+    seeds the next level with each super-vertex's macro community.
 
 Two drivers, as in the JAX package, bit-identical to each other:
 
@@ -19,7 +24,9 @@ Two drivers, as in the JAX package, bit-identical to each other:
   through one vertex-aligned ELL tile rebuilt per level on the device
   (``graph.ell.traced_ell_tile``) at the stage's width; outside one, and
   in the per-level driver, coarse levels run the segment evaluator.
-  ``LouvainResult.cascade_stages`` lists the capacities entered.
+  ``LouvainResult.cascade_stages`` lists the capacities entered.  With
+  ``checkpoint_dir`` every stage boundary is saved (``train.checkpoint``)
+  and a rerun with the same config and graph resumes from the last one.
 * otherwise the per-level driver (``_louvain_per_level``) runs, with
   ``cascade_stages == []``.
 
@@ -29,20 +36,23 @@ Level 0 runs the configured backend (``pallas`` = the CUDA kernels) on the
 host-built ELL layout, whose ``table_mode`` (``auto``/``resident``/
 ``streamed``) picks the table layout.  Aggregation's ``bin_rank`` pass
 uses its CUDA kernel when the backend is ``pallas`` and its plain version
-otherwise.
+otherwise.  Leiden's refinement runs the segment evaluator on every
+backend, as in the JAX package.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): Leiden refinement (``refine=True``) and stage-boundary
-checkpointing.  The backend-descent ladder is left out too: a kernel
-failure raises ``KernelError`` instead of quietly running another backend.
-A ``CapacityError`` from the cascade is retried once on
-``capacity_schedule="none"``, as in the JAX package.
+Fault points (``utils.faultinject``) are read once per run and listed in
+``run_report.faults``.  The backend-descent ladder of the JAX package is
+left out on purpose: a kernel failure raises ``KernelError`` instead of
+quietly running another backend.  A ``CapacityError`` from the cascade is
+retried once on ``capacity_schedule="none"``, as in the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
+import os
+import shutil
 from typing import Optional, Tuple
 
 import numpy as np
@@ -55,14 +65,22 @@ from repro_torch.core.modularity import modularity
 from repro_torch.graph.ell import build_ell
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels.common import accum_needs_promotion, pick_ell_width
-from repro_torch.utils import telemetry
+from repro_torch.train import checkpoint
+from repro_torch.utils import faultinject, resilience, telemetry
 from repro_torch.utils.errors import (CapacityError, CommunityDetectionError,
                                       NumericError, RunReport)
 from repro_torch.utils.timing import Timer
 
-# Sweep-counter stride per level: level L's local-moving phase hashes tie
-# noise / Luby gates from it0 = L·LEVEL_IT_STRIDE (the JAX package's value).
+# Fault points that act inside the sweep and ride ``EngineSpec.faults``;
+# the others act at the aggregation and driver layers.
+ENGINE_FAULTS = ("oscillation", "vmem_starve")
+
+# Sweep-counter stride per level and the refinement phase's offset within a
+# level: level L's local-moving phase hashes tie noise / Luby gates from
+# it0 = L·LEVEL_IT_STRIDE, Leiden's refinement from it0 + REFINE_IT_OFFSET
+# (the JAX package's values).
 LEVEL_IT_STRIDE = 1000
+REFINE_IT_OFFSET = 500
 
 
 # ------------------------------------------------------------ capacity schedule
@@ -140,10 +158,14 @@ class LouvainConfig(ConfigBase):
     # the cascade's schedule: "auto" (bounded, from (n_max, m_max)), "none"
     # (one capacity) or a tuple of descending (n_cap, m_cap) pairs
     capacity_schedule: "str | Tuple[Tuple[int, int], ...]" = "auto"
-    refine: bool = False        # Leiden refinement: not ported
+    # Leiden: refine each level's communities before aggregating, and seed
+    # the next level with the macro partition (``leiden()`` sets it)
+    refine: bool = False
     refine_sweeps: int = 8
     per_level_timing: bool = False
-    checkpoint_dir: Optional[str] = None  # not ported
+    # the cascade saves every stage boundary here, and a rerun with the same
+    # config and graph resumes from the last one; cleared on success
+    checkpoint_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.max_levels < 1:
@@ -177,21 +199,26 @@ class LouvainResult:
     # per-level driver
     cascade_stages: list = dataclasses.field(default_factory=list)
     run_report: RunReport = dataclasses.field(default_factory=RunReport)
-    # per level: "binned", "sort_fallback" (the bin gate overflowed) or "sort"
+    # per level, the coarsening that built the next level's graph:
+    # "binned", "sort_fallback" (the bin gate overflowed) or "sort".  Under
+    # Leiden it is the REFINED partition's, and the level that ends the run
+    # coarsens nothing: "none".  (Louvain's last level still coarsens.)
     aggregation_per_level: list = dataclasses.field(default_factory=list)
 
 
-def engine_spec(cfg: LouvainConfig, backend: Optional[str] = None
-                ) -> EngineSpec:
+def engine_spec(cfg: LouvainConfig, backend: Optional[str] = None,
+                max_sweeps: Optional[int] = None,
+                faults: frozenset = frozenset()) -> EngineSpec:
     return EngineSpec(
         evaluator="louvain",
         backend=backend or cfg.backend,
-        max_sweeps=cfg.max_sweeps,
+        max_sweeps=cfg.max_sweeps if max_sweeps is None else max_sweeps,
         threshold=cfg.sweep_threshold,
         move_prob=float(cfg.move_prob),
         use_frontier=cfg.use_need_check,
         singleton_rule=cfg.singleton_rule,
         table_mode=cfg.table_mode,
+        faults=tuple(sorted(f for f in faults if f in ENGINE_FAULTS)),
     )
 
 
@@ -220,25 +247,23 @@ def _resolve_schedule(cfg: LouvainConfig, g: Graph
     return tuple(caps)
 
 
-def _cascade_coarse_spec(cfg: LouvainConfig, cascade: bool, width: int
-                         ) -> EngineSpec:
+def _cascade_coarse_spec(cfg: LouvainConfig, cascade: bool, width: int,
+                         faults: frozenset = frozenset()) -> EngineSpec:
     """Coarse-level spec of one stage: inside a cascade the ``ell``/
     ``pallas`` backends keep the local_move family on the traced tile of
     the stage's ``width``; outside one the segment evaluator runs."""
     if cascade and cfg.backend in ("ell", "pallas"):
-        return engine_spec(cfg).replace(ell_width=width)
-    return engine_spec(cfg, backend=_coarse_backend(cfg.backend))
+        return engine_spec(cfg, faults=faults).replace(ell_width=width)
+    return engine_spec(cfg, backend=_coarse_backend(cfg.backend),
+                       faults=faults)
 
 
-def _check_supported(cfg: LouvainConfig) -> None:
-    if cfg.refine:
-        raise NotImplementedError(
-            "Leiden refinement (refine=True) is not ported yet: ROADMAP "
-            "Queue 1 #2")
-    if cfg.checkpoint_dir is not None:
-        raise NotImplementedError(
-            "stage-boundary checkpointing is not ported yet: ROADMAP "
-            "Queue 1 #3")
+def _refine_spec(cfg: LouvainConfig,
+                 faults: frozenset = frozenset()) -> EngineSpec:
+    """Leiden's refinement phase: the segment evaluator (the only one with
+    the ``restrict`` mask), ``refine_sweeps`` sweeps, threshold 0."""
+    return engine_spec(cfg, backend="segment", max_sweeps=cfg.refine_sweeps,
+                       faults=faults).replace(threshold=0)
 
 
 def _trivial_result(report: RunReport) -> LouvainResult:
@@ -264,16 +289,24 @@ def _finalize_report(res: LouvainResult, cfg: LouvainConfig,
     return res
 
 
+def leiden(g: Graph, cfg: LouvainConfig = LouvainConfig(),
+           g_original: Optional[Graph] = None) -> LouvainResult:
+    """Leiden = Louvain + a refinement phase + macro-seeded levels."""
+    return louvain(g, cfg.replace(refine=True), g_original)
+
+
 def louvain(g: Graph, cfg: LouvainConfig = LouvainConfig(),
             g_original: Optional[Graph] = None) -> LouvainResult:
-    """Run Louvain on the device of ``g``: the capacity cascade
-    (``pipeline_fused`` and ``fused``) or the per-level driver.  A
-    ``CapacityError`` from the cascade is retried once on the single
-    capacity (``capacity_schedule="none"``) and recorded in
-    ``result.run_report.retries``; the float32-accumulation warning and
-    the watchdog accounting land there too, as in the JAX package."""
-    _check_supported(cfg)
-    report = RunReport()
+    """Run Louvain (Leiden with ``refine``) on the device of ``g``: the
+    capacity cascade (``pipeline_fused`` and ``fused``) or the per-level
+    driver.  The armed fault points are read once and listed in
+    ``run_report.faults``.  A ``CapacityError`` from the cascade is retried
+    once on the single capacity (``capacity_schedule="none"``) and
+    recorded in ``result.run_report.retries``; the float32-accumulation
+    warning and the watchdog accounting land there too, as in the JAX
+    package.  Every other error propagates with the report attached."""
+    faults = frozenset(faultinject.active())
+    report = RunReport(faults=sorted(faults))
     if g.n_max == 0:
         return _trivial_result(report)
     promote = accum_needs_promotion(g.m_max)
@@ -283,9 +316,11 @@ def louvain(g: Graph, cfg: LouvainConfig = LouvainConfig(),
     while True:
         try:
             if cfg_try.pipeline_fused and cfg_try.fused:
-                res = _louvain_pipeline(g, cfg_try, g_original, promote)
+                res = _louvain_pipeline(g, cfg_try, g_original, promote,
+                                        faults)
             else:
-                res = _louvain_per_level(g, cfg_try, g_original, promote)
+                res = _louvain_per_level(g, cfg_try, g_original, promote,
+                                         faults)
             break
         except CapacityError as err:
             if cfg_try.capacity_schedule == "none":
@@ -334,40 +369,104 @@ class _Run:
     g0: Graph
     impl: str                 # bin_rank pass: "kernel" (pallas) or "ref"
     promote: bool
+    faults: frozenset         # the armed fault points, read once
     timer: Timer
     hist: _Levels
 
 
+def _refine_partition(cur: Graph, com_macro: torch.Tensor,
+                      cfg: LouvainConfig, level: int,
+                      faults: frozenset = frozenset()) -> torch.Tensor:
+    """Leiden refinement: greedy modularity merges restricted to the macro
+    communities ``com_macro``, starting from singletons, so every
+    aggregated super-vertex lies inside (and is connected within) one
+    macro community."""
+    engine = SweepEngine(cur, _refine_spec(cfg, faults))
+    res = engine.run_phase(
+        *engine.singleton_state(),
+        it0=level * LEVEL_IT_STRIDE + REFINE_IT_OFFSET, seed=cfg.seed,
+        restrict=com_macro, fused=cfg.fused)
+    return res.labels
+
+
+def _aggregate(run: _Run, cur: Graph, com: torch.Tensor):
+    """``remap_and_coarsen_by`` on the run's method, ``bin_rank`` impl and
+    faults; returns ``(new_com, n_comm, coarse, path)``."""
+    cfg = run.cfg
+    fallbacks = telemetry.get("agg.sort_fallback")
+    new_com, n_comm, coarse = aggregation.remap_and_coarsen_by(
+        cfg.aggregation, cur, com, impl=run.impl, faults=run.faults)
+    path = ("sort" if cfg.aggregation == "sort"
+            else "sort_fallback"
+            if telemetry.get("agg.sort_fallback") > fallbacks
+            else "binned")
+    return new_com, n_comm, coarse, path
+
+
+def _macro_seed(new_com: torch.Tensor, new_ref: torch.Tensor,
+                vmask: torch.Tensor) -> torch.Tensor:
+    """Leiden's next-level seed: each refined group's CONTIGUIZED macro id
+    (all members of a group share it), the JAX package's
+    ``clip(segment_max(where(vmask, new_com, -1), clip(new_ref)), 0, n-1)``.
+    Empty segments start at int32's minimum and clip to 0, as JAX's do."""
+    n = new_com.shape[0]
+    out = torch.full((n,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                     device=new_com.device)
+    out.scatter_reduce_(0, torch.clamp(new_ref, 0, n - 1).long(),
+                        torch.where(vmask, new_com, -1).to(torch.int32),
+                        "amax")
+    return torch.clamp(out, 0, n - 1)
+
+
 def _run_level(run: _Run, cur: Graph, assign, init_com, level: int,
                spec: EngineSpec, ell=None):
-    """One level: local moving from ``init_com`` → remap + coarsen →
-    modularity.  Returns ``(next_graph, next_assign, next_init,
-    macro_assign, done)``; when done the graph, assignment and seed stay
-    (Alg. 3 l.6), as the JAX package's ``stay`` branch keeps them."""
+    """One level: local moving from ``init_com`` → remap (+ coarsen) →
+    modularity; under Leiden, when the level is not done, refinement →
+    coarsen by the refined partition → macro seed.  Returns
+    ``(next_graph, next_assign, next_init, macro_assign, done)``; when
+    done the graph, assignment and seed stay (Alg. 3 l.6), as the JAX
+    package's ``stay`` branch keeps them."""
     cfg, timer = run.cfg, run.timer
+    per_level = cfg.per_level_timing
     n = cur.n_max
+    if "nan_weight" in run.faults and level == 1:
+        # fault injection: poison one weight of level 1's graph, on a copy
+        w = cur.w.clone()
+        w[0] = float("nan")
+        cur = dataclasses.replace(cur, w=w)
     # numeric guard rail: non-finite weights poison every sum silently
     if bool(torch.any(cur.edge_mask & ~torch.isfinite(cur.w))):
         raise NumericError(
             f"non-finite edge weight detected at level {level}")
+    vmask = cur.vertex_mask()
     with timer.phase("ell_build") if ell is None and spec.ell_width == 0 \
             and spec.backend in ("ell", "pallas") \
             else contextlib.nullcontext():
         engine = SweepEngine(cur, spec, ell)
-    with _tphase(timer, "local_moving", level, cfg.per_level_timing):
-        res = engine.run_phase(init_com, cur.vertex_mask(),
+    with _tphase(timer, "local_moving", level, per_level):
+        res = engine.run_phase(init_com, vmask,
                                it0=level * LEVEL_IT_STRIDE, seed=cfg.seed,
                                fused=cfg.fused)
-    with _tphase(timer, "aggregation", level, cfg.per_level_timing):
-        fallbacks = telemetry.get("agg.sort_fallback")
-        new_com, n_comm, coarse = aggregation.remap_and_coarsen_by(
-            cfg.aggregation, cur, res.labels, impl=run.impl)
-        path = ("sort" if cfg.aggregation == "sort"
-                else "sort_fallback"
-                if telemetry.get("agg.sort_fallback") > fallbacks
-                else "binned")
+    com = res.labels
+    with _tphase(timer, "aggregation", level, per_level):
+        if cfg.refine:
+            # Leiden coarsens by the REFINED partition below
+            new_com, n_comm = aggregation.remap_communities(com, vmask)
+            path = "none"
+        else:
+            new_com, n_comm, coarse, path = _aggregate(run, cur, com)
         macro_assign = new_com[torch.clamp(assign, 0, n - 1)]
     done = n_comm == cur.n_valid              # Alg. 3 l.6 convergence
+    if cfg.refine and not done:
+        with _tphase(timer, "refinement", level, per_level):
+            ref = _refine_partition(cur, com, cfg, level, run.faults)
+        with _tphase(timer, "aggregation", level, per_level):
+            new_ref, _n_ref, coarse, path = _aggregate(run, cur, ref)
+            next_assign = new_ref[torch.clamp(assign, 0, n - 1)]
+            next_init = _macro_seed(new_com, new_ref, vmask)
+    elif not done:
+        next_assign = macro_assign
+        next_init = torch.arange(n, dtype=torch.int32, device=cur.device)
     hist = run.hist
     hist.sweeps.append(res.sweeps)
     hist.delta_n.append(res.delta_n_history)
@@ -378,17 +477,17 @@ def _run_level(run: _Run, cur: Graph, assign, init_com, level: int,
                                                 promote=run.promote)))
     if done:
         return cur, assign, init_com, macro_assign, True
-    arange_n = torch.arange(n, dtype=torch.int32, device=cur.device)
-    return coarse, macro_assign, arange_n, macro_assign, False
+    return coarse, next_assign, next_init, macro_assign, False
 
 
 def _new_run(g: Graph, cfg: LouvainConfig, g_original: Optional[Graph],
-             promote: bool) -> _Run:
+             promote: bool, faults: frozenset) -> _Run:
     # the pallas backend ranks bins with the bin_rank wrapper, which
     # launches its kernel on the card; every other backend stays plain
     return _Run(cfg=cfg, g0=g_original if g_original is not None else g,
                 impl="kernel" if cfg.backend == "pallas" else "ref",
-                promote=promote, timer=Timer(), hist=_Levels())
+                promote=promote, faults=faults, timer=Timer(),
+                hist=_Levels())
 
 
 def _result(run: _Run, macro, levels: int, stages: list) -> LouvainResult:
@@ -414,16 +513,17 @@ def _result(run: _Run, macro, levels: int, stages: list) -> LouvainResult:
 
 def _louvain_per_level(g: Graph, cfg: LouvainConfig,
                        g_original: Optional[Graph],
-                       promote: bool = False) -> LouvainResult:
+                       promote: bool = False,
+                       faults: frozenset = frozenset()) -> LouvainResult:
     """Per-level driver: one local-moving phase per level, then aggregation
     and the Alg. 3 convergence check; level 0 on the configured backend,
     coarse levels on the segment evaluator."""
-    run = _new_run(g, cfg, g_original, promote)
+    run = _new_run(g, cfg, g_original, promote, faults)
     assign = torch.arange(g.n_max, dtype=torch.int32, device=g.device)
     init_com, cur = assign, g
     for level in range(cfg.max_levels):
         spec = engine_spec(cfg, backend=cfg.backend if level == 0
-                           else _coarse_backend(cfg.backend))
+                           else _coarse_backend(cfg.backend), faults=faults)
         cur, assign, init_com, macro, done = _run_level(
             run, cur, assign, init_com, level, spec)
         if done:
@@ -455,8 +555,9 @@ def _run_stage(run: _Run, spec0: Optional[EngineSpec],
     ``_build_stage``).  ``spec0`` marks stage 0: level 0 is peeled out —
     the only level that may use the host-built ELL ``ell``.  The level
     loop then runs ``spec_coarse`` until the run is done, the level budget
-    is spent, or the carried graph fits ``next_caps`` (the next capacity),
-    and hands control back to the scheduler."""
+    is spent, or the carried graph (Leiden's: the one coarsened by the
+    refined partition) fits ``next_caps`` (the next capacity), and hands
+    control back to the scheduler."""
     cur, done = g, False
     if spec0 is not None:
         cur, assign, init_com, macro, done = _run_level(
@@ -481,30 +582,130 @@ def _run_stage(run: _Run, spec0: Optional[EngineSpec],
     return _Stage(cur, assign, init_com, macro, level, done, max_deg)
 
 
+# ------------------------------------------------- stage checkpoint/resume
+
+
+def _ckpt_fingerprint(cfg: LouvainConfig, g: Graph) -> dict:
+    """Identity of a checkpointable run: the full config (minus the
+    checkpoint location) and a cheap graph identity (capacities, live
+    counts, masked weight sum).  A checkpoint whose fingerprint differs is
+    IGNORED (``louvain.ckpt_mismatch_ignored``): resuming another run's
+    state would be a silent wrong answer.  The json round trip turns
+    tuples into lists, so the comparison with the manifest is exact."""
+    d = cfg.to_dict()
+    d.pop("checkpoint_dir", None)
+    return json.loads(json.dumps({
+        "cfg": d,
+        "graph": {"n_max": int(g.n_max), "m_max": int(g.m_max),
+                  "n_valid": int(g.n_valid), "m_valid": int(g.m_valid),
+                  "w_sum": float(torch.sum(
+                      torch.where(g.edge_mask, g.w, 0.0)))}}))
+
+
+def _ckpt_save_stage(ckpt_dir: str, fp: dict, k: int, width: int,
+                     stage_idxs, g_k: Graph, assign, init_com, macro,
+                     level: int, hist: _Levels) -> None:
+    """Save the carried state at a cascade stage boundary — the graph
+    entering stage ``k`` (after its shrink), the assignment chain, the
+    next level's seed, the last macro partition and the level counter —
+    through the atomic write-then-rename checkpointer, so a crash mid-save
+    never corrupts the last committed boundary.  The host-side histories,
+    ``k``, the traced-tile width and the stages entered ride the
+    manifest."""
+    tree = {"graph": [g_k.src, g_k.dst, g_k.w, g_k.edge_mask,
+                      np.int64(g_k.n_valid), np.int64(g_k.m_valid)],
+            "assign": assign, "init_com": init_com, "macro": macro,
+            "level": np.int64(level)}
+    meta = {"fingerprint": fp,
+            "stage": {"k": int(k), "width": int(width),
+                      "stage_idxs": [int(j) for j in stage_idxs]},
+            "hist": dataclasses.asdict(hist)}
+    checkpoint.save(ckpt_dir, len(stage_idxs), tree,
+                    config_json=json.dumps(meta), keep=2)
+    telemetry.bump("louvain.ckpt_save")
+
+
+def _ckpt_try_resume(cfg: LouvainConfig, caps, n0: int, fp: dict,
+                     device: torch.device):
+    """The latest committed stage boundary, restored onto ``device`` (the
+    graph's), or None: no checkpoint, or one of another run."""
+    ckpt_dir = cfg.checkpoint_dir
+    step = checkpoint.latest_step(ckpt_dir)
+    if step is None:
+        return None
+    meta = checkpoint.read_config(ckpt_dir, step)
+    if meta.get("fingerprint") != fp:
+        telemetry.bump("louvain.ckpt_mismatch_ignored")
+        return None
+    stage = meta["stage"]
+    k, width = int(stage["k"]), int(stage["width"])
+    stage_idxs = [int(j) for j in stage["stage_idxs"]]
+    if not 0 < k < len(caps):
+        telemetry.bump("louvain.ckpt_mismatch_ignored")
+        return None
+    n_k, m_k = caps[k]
+
+    def spec(size, dtype=torch.int32):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    like = {"graph": [spec(m_k), spec(m_k), spec(m_k, torch.float32),
+                      spec(m_k, torch.bool), np.int64(0), np.int64(0)],
+            "assign": spec(n0), "init_com": spec(n_k), "macro": spec(n0),
+            "level": np.int64(0)}
+    tree = checkpoint.restore(ckpt_dir, step, like, device=device)
+    src, dst, w, em, nv, mv = tree["graph"]
+    g_k = Graph(src=src, dst=dst, w=w, edge_mask=em, n_valid=int(nv),
+                m_valid=int(mv), n_max=n_k, m_max=m_k, sorted_by="src")
+    return (k, width, stage_idxs, g_k, tree["assign"], tree["init_com"],
+            tree["macro"], int(tree["level"]), _Levels(**meta["hist"]))
+
+
+def _ckpt_clear(ckpt_dir: str) -> None:
+    """Drop the committed stage checkpoints after a successful run, so the
+    next run in this directory starts fresh."""
+    for s in checkpoint.all_steps(ckpt_dir):
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
 def _louvain_pipeline(g: Graph, cfg: LouvainConfig,
                       g_original: Optional[Graph],
-                      promote: bool = False) -> LouvainResult:
+                      promote: bool = False,
+                      faults: frozenset = frozenset()) -> LouvainResult:
     """The capacity cascade (the JAX package's ``_louvain_pipeline``): at
     most ``len(schedule)`` stages, each descending to the SMALLEST
     capacity the carried graph fits, with the next stage's traced-tile
     width re-picked from the carried graph's largest degree.  A one-entry
-    schedule is the single-capacity pipeline, ≡ the per-level driver."""
-    run = _new_run(g, cfg, g_original, promote)
+    schedule is the single-capacity pipeline, ≡ the per-level driver.
+    With ``checkpoint_dir`` each boundary is saved after the shrink, and a
+    run finding a checkpoint of its own config and graph resumes there: a
+    resumed stage k > 0 scores its coarse levels on traced tiles, so it
+    needs no host-built ELL."""
+    run = _new_run(g, cfg, g_original, promote, faults)
     caps = _resolve_schedule(cfg, g)
     cascade = len(caps) > 1
-    spec0 = engine_spec(cfg)
+    spec0 = engine_spec(cfg, faults=faults)
     arange0 = torch.arange(g.n_max, dtype=torch.int32, device=g.device)
     assign = init_com = macro = arange0
     k, level, g_k, ell_k = 0, 0, g, None
     width = pick_ell_width(None, *caps[0])
     stage_idxs: list = []
-    if cfg.backend in ("ell", "pallas"):
+    # only a cascading schedule has boundaries to commit
+    ckpt_fp = None
+    if cfg.checkpoint_dir and cascade:
+        ckpt_fp = _ckpt_fingerprint(cfg, g)
+        resumed = _ckpt_try_resume(cfg, caps, g.n_max, ckpt_fp, g.device)
+        if resumed is not None:
+            (k, width, stage_idxs, g_k, assign, init_com, macro, level,
+             run.hist) = resumed
+            telemetry.bump("louvain.ckpt_resume")
+    if k == 0 and cfg.backend in ("ell", "pallas"):
         with run.timer.phase("ell_build"):
             ell_k = build_ell(g)
     with run.timer.phase("pipeline"):
         while True:
             st = _run_stage(run, spec0 if k == 0 else None,
-                            _cascade_coarse_spec(cfg, cascade, width),
+                            _cascade_coarse_spec(cfg, cascade, width, faults),
                             caps[k + 1] if k + 1 < len(caps) else None,
                             g_k, ell_k, assign, init_com, macro, level)
             assign, init_com, macro, level = (st.assign, st.init_com,
@@ -525,7 +726,21 @@ def _louvain_pipeline(g: Graph, cfg: LouvainConfig,
                     f"done/budget and ({nv}, {mv}) fits no capacity in "
                     f"{caps[k + 1:]}")
             g_k = aggregation.shrink_graph(st.graph, *caps[k2])
+            # Leiden's seed is a contiguized macro id < n_comm <= nv, so it
+            # stays valid in the smaller capacity
             init_com = init_com[:caps[k2][0]]
             ell_k, k = None, k2
             width = pick_ell_width(st.max_deg, *caps[k])
+            if ckpt_fp is not None:
+                _ckpt_save_stage(cfg.checkpoint_dir, ckpt_fp, k, width,
+                                 stage_idxs, g_k, assign, init_com, macro,
+                                 level, run.hist)
+            if faultinject.consume("preempt_stage"):
+                # AFTER the checkpoint committed: a kill between stages,
+                # the window the resume path must cover
+                raise resilience.Preempted(
+                    "injected preemption at cascade stage boundary "
+                    f"(entering stage k={k})")
+    if ckpt_fp is not None:
+        _ckpt_clear(cfg.checkpoint_dir)
     return _result(run, macro, level, [caps[j] for j in stage_idxs])

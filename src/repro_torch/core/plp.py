@@ -12,8 +12,11 @@ sweep with seeded hash tie noise and a Luby move gate, as in the JAX
 package.  ``plp()`` runs on the device of the graph it is given.
 
 The JAX package's ``pallas → ell → segment`` backend-descent ladder is left
-out of this slice (ROADMAP Queue 1 #6.5): a kernel that fails to build or
-launch raises ``KernelError`` instead of quietly running another backend.
+out on purpose: a kernel that fails to build or launch raises
+``KernelError`` instead of quietly running another backend.  Armed fault
+points (``utils.faultinject``) are read once per run; the sweep's
+(``oscillation``) ride ``EngineSpec.faults`` and all of them are listed in
+``result.run_report.faults``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import numpy as np
 
 from repro_torch.config import ConfigBase
 from repro_torch.core.engine import EngineSpec, SweepEngine
+from repro_torch.core.louvain import ENGINE_FAULTS
 from repro_torch.graph.structure import Graph
+from repro_torch.utils import faultinject
 from repro_torch.utils.errors import RunReport
 from repro_torch.utils.timing import Timer
 
@@ -53,7 +58,8 @@ class PLPResult:
     run_report: RunReport = dataclasses.field(default_factory=RunReport)
 
 
-def engine_spec(cfg: PLPConfig) -> EngineSpec:
+def engine_spec(cfg: PLPConfig, faults: frozenset = frozenset()
+                ) -> EngineSpec:
     return EngineSpec(
         evaluator="plp",
         backend=cfg.backend,
@@ -64,6 +70,7 @@ def engine_spec(cfg: PLPConfig) -> EngineSpec:
         use_frontier=cfg.use_frontier,
         reshuffle_ties=cfg.reshuffle_ties,
         table_mode=cfg.table_mode,
+        faults=tuple(sorted(f for f in faults if f in ENGINE_FAULTS)),
     )
 
 
@@ -71,12 +78,13 @@ def plp(g: Graph, cfg: PLPConfig = PLPConfig(), ell_graph=None) -> PLPResult:
     """Run Parallel Label Propagation; returns final labels + history.
     Iteration-budget exhaustion is flagged as a watchdog warning in
     ``result.run_report``."""
-    report = RunReport()
+    faults = frozenset(faultinject.active())
+    report = RunReport(faults=sorted(faults))
     if g.n_max == 0:
         return PLPResult(labels=np.zeros((0,), np.int32), iterations=0,
                          delta_n_history=[], active_history=[], timer=Timer(),
                          run_report=report)
-    spec = engine_spec(cfg)
+    spec = engine_spec(cfg, faults)
     timer = Timer()
     with timer.phase("ell_build") if cfg.backend in ("ell", "pallas") \
             else contextlib.nullcontext():

@@ -102,6 +102,7 @@ def binned_coarsen(
     width: Optional[int] = None,
     impl: str = "kernel",
     max_rounds: Optional[int] = None,
+    force_overflow: bool = False,
 ) -> Graph:
     """Sort-free coarse graph for CONTIGUOUS community ids ``new_com``;
     bit-for-bit the one-sort ``core.aggregation.coarsen_graph`` output.
@@ -110,7 +111,11 @@ def binned_coarsen(
     (which launches the CUDA kernel for tensors on the card and runs the
     plain version for tensors on the CPU), ``"ref"`` the plain version on
     any device.  The JAX package also weighed a VMEM budget here; the
-    card's kernel reads the bin table from device memory, so none applies."""
+    card's kernel reads the bin table from device memory, so none applies.
+
+    ``force_overflow`` (the ``binned_overflow`` fault) pins the overflow
+    predicate true, bumps ``fault.binned_overflow.forced`` and sends the
+    level to the one-sort fallback — whose result is the same graph."""
     if impl not in BIN_IMPLS:
         raise ValueError(f"unknown bin impl {impl!r}, want one of {BIN_IMPLS}")
     n, m = g.n_max, g.m_max
@@ -119,8 +124,12 @@ def binned_coarsen(
     active = g.edge_mask
 
     cs, cd = community_edge_keys(g, new_com)
-    keys, _resolved, overflow, _rounds = insert_bins(
-        g, cs, cd, width=W, max_rounds=max_rounds)
+    if force_overflow:
+        telemetry.bump("fault.binned_overflow.forced")
+        keys, overflow = None, True
+    else:
+        keys, _resolved, overflow, _rounds = insert_bins(
+            g, cs, cd, width=W, max_rounds=max_rounds)
     w_act = torch.where(active, g.w, 0.0)
 
     if overflow:

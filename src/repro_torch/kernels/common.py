@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.utils import telemetry
+from repro_torch.utils import faultinject, telemetry
 
 # Largest integer float32 accumulates exactly (24-bit mantissa).
 F32_ACCUM_SAFE = 1 << 24
@@ -102,18 +102,38 @@ def row_chunks(R: int, W: int):
     return [(i, min(R, i + step)) for i in range(0, R, step)] or [(0, 0)]
 
 
+def smem_budget_bytes(budget_bytes: int | None = None) -> int:
+    """The shared-memory budget the table-layout policy weighs against:
+    ``budget_bytes``, else ``SMEM_BUDGET_BYTES``.  Under the ``vmem_starve``
+    fault it is clamped to ``min(b, 1024)`` and
+    ``fault.vmem_starve.budget_clamped`` is bumped — the JAX package's rule
+    for its VMEM budget, applied to the card's.
+
+    The clamp does not land where the TPU's starved regime did: ``auto``
+    streams a bucket only when its windows fit half the budget
+    (``local_move.ops._resolve_mode``), which no window does under 1 KB, so
+    every bucket stays RESIDENT.  What the fault holds is the JAX
+    package's contract: labels and Q equal to the clean run's, and the
+    counter moved."""
+    b = SMEM_BUDGET_BYTES if budget_bytes is None else int(budget_bytes)
+    if faultinject.is_active("vmem_starve"):
+        telemetry.bump("fault.vmem_starve.budget_clamped")
+        b = min(b, 1024)
+    return b
+
+
 def resolve_table_mode(mode: str, table_bytes: int,
                        budget_bytes: int | None = None) -> str:
     """Resident-vs-streamed policy for the local_move per-vertex tables:
     ``auto`` keeps them resident while they fit half the shared-memory
-    budget (default ``SMEM_BUDGET_BYTES``), the JAX package's rule with
-    the card's budget, and streams per-block windows beyond that."""
+    budget (``smem_budget_bytes``), the JAX package's rule with the card's
+    budget, and streams per-block windows beyond that."""
     if mode not in TABLE_MODES:
         raise ValueError(
             f"unknown table_mode {mode!r}, want one of {TABLE_MODES}")
     if mode != "auto":
         return mode
-    budget = SMEM_BUDGET_BYTES if budget_bytes is None else int(budget_bytes)
+    budget = smem_budget_bytes(budget_bytes)
     return "resident" if table_bytes <= budget // 2 else "streamed"
 
 

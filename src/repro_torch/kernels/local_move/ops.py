@@ -53,7 +53,9 @@ def _resolve_mode(table_mode: str, windows, n_tables: int, sentinel: int,
 
     Explicit ``"streamed"`` is honored unchecked, as in the JAX package; on
     the card a window over the block's shared memory then raises
-    ``KernelError``."""
+    ``KernelError``.  Under the ``vmem_starve`` fault the budget is 1 KB
+    (``kernels.common.smem_budget_bytes``), no window fits half of it, and
+    ``auto`` keeps every bucket resident."""
     if windows is None:
         if table_mode == "streamed":
             raise ValueError(

@@ -29,9 +29,8 @@ class RunReport:
     * ``warnings``      — bounded-but-suspicious outcomes, e.g.
                           ``"watchdog:max_sweeps:level3"``,
                           ``"precision:f32_accum_risk"``
-    * ``faults``        — fault-injection points active during the run
-                          (always empty in the port, which has no fault
-                          injection yet)
+    * ``faults``        — fault-injection points armed for the run
+                          (``utils.faultinject``), sorted
     """
 
     repairs: Optional[Any] = None

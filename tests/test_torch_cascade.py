@@ -261,10 +261,10 @@ def test_capacity_retry_matches_jax(monkeypatch):
             raise jmod.CapacityError("synthetic cascade capacity bust")
         return jreal(g, cfg, g0, faults, promote)
 
-    def busted(g, cfg, g0, promote=False):
+    def busted(g, cfg, g0, promote=False, faults=frozenset()):
         if cfg.capacity_schedule != "none":
             raise CapacityError("synthetic cascade capacity bust")
-        return real(g, cfg, g0, promote)
+        return real(g, cfg, g0, promote, faults)
 
     monkeypatch.setattr(jmod, "_louvain_pipeline", jbusted)
     monkeypatch.setattr(louvain_mod, "_louvain_pipeline", busted)

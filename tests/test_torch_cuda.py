@@ -30,7 +30,11 @@ run of W, W runs of one, mostly padding, exact ties — at every width and
 at the scored-tile kernels' widest (4096, 2048): bit for bit on integer
 weights, the weight-mass contract on uniform(0.5, 1.5) weights.  A
 ``pallas`` cascade on a 6144-vertex graph equals the ``ell`` and
-``segment`` runs, ``cascade_stages`` included.
+``segment`` runs, ``cascade_stages`` included.  On an 8192-vertex banded
+graph that streams its W = 16 bucket and cascades, ``leiden(pallas)``
+equals ``leiden(ell)``; ``vmem_starve`` and ``binned_overflow`` give the
+clean run's answer on ``pallas``; and a ``pallas`` run killed at its first
+stage boundary and rerun resumes and equals the uninterrupted run.
 
 The resident Louvain kernel relies on the tile contract (``graph/ell.py``:
 a sentinel row holds only sentinels of weight 0): it meets traced tiles
@@ -1185,6 +1189,112 @@ def test_cascade_on_the_card_agrees_across_backends(cuda_device):
         np.testing.assert_array_equal(res.labels, ref.labels)
         for f in fields + (("cascade_stages",) if key[1] == "auto" else ()):
             assert getattr(res, f) == getattr(ref, f), (key, f)
+
+
+def _banded_on_card(dev, n=8192):
+    """A banded graph whose Louvain tables pass half the shared-memory
+    budget (level 0's W = 16 bucket streams under ``auto``) and whose
+    cascade descends two capacities."""
+    from repro_torch.graph.builders import from_numpy_edges
+
+    rng = np.random.default_rng(5)
+    u = np.repeat(np.arange(n), 3)
+    v = np.clip(u + rng.integers(1, 40, size=u.size), 0, n - 1)
+    u, v = u[u != v], v[u != v]
+    return from_numpy_edges(np.concatenate([u, v]), np.concatenate([v, u]),
+                            n=n, device=dev)
+
+
+LEIDEN_FIELDS = ("n_communities", "levels", "modularity",
+                 "modularity_history", "sweeps_per_level", "n_comm_per_level",
+                 "delta_n_per_level", "aggregation_per_level",
+                 "cascade_stages")
+
+
+def _assert_runs_equal(a, b, fields=LEIDEN_FIELDS):
+    np.testing.assert_array_equal(a.labels, b.labels)
+    for f in fields:
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.cuda
+def test_leiden_on_the_card_pallas_equals_ell(cuda_device):
+    """``leiden(pallas)`` ≡ ``leiden(ell)`` on the card, every field; the
+    kernels run at level 0 (the streamed one too) and on the coarse
+    levels, ``bin_rank`` once per binned (refined) coarsening."""
+    from repro_torch.core.louvain import LouvainConfig, leiden
+
+    g = _banded_on_card(cuda_device)
+    kernels = (local_move_louvain_kernel, local_move_louvain_streamed_kernel,
+               bin_rank_kernel)
+    before = [k.launches for k in kernels]
+    res = leiden(g, LouvainConfig(backend="pallas"))
+    lv, lv_s, br = (k.launches - b for k, b in zip(kernels, before))
+    ref = leiden(g, LouvainConfig(backend="ell"))
+    _assert_runs_equal(res, ref)
+    assert len(res.cascade_stages) >= 2
+    # every level-0 sweep launches the streamed kernel once per streamed
+    # bucket
+    assert lv > 0 and lv_s > 0 and lv_s % res.sweeps_per_level[0] == 0
+    assert br == res.aggregation_per_level.count("binned") > 0
+    assert "refinement" in res.timer.totals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,counter", [
+    ("vmem_starve", "fault.vmem_starve.budget_clamped"),
+    ("binned_overflow", "fault.binned_overflow.forced")])
+def test_faults_on_the_card_equal_the_clean_run(cuda_device, fault, counter):
+    """On ``pallas`` each fault gives the clean labels and Q, and its
+    counter moves; under ``vmem_starve`` the W = 16 bucket that streams
+    when clean stays resident (the 1 KB budget fits no window)."""
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.utils import faultinject, telemetry
+
+    g = _banded_on_card(cuda_device)
+    cfg = LouvainConfig(backend="pallas")
+    streamed = local_move_louvain_streamed_kernel.launches
+    clean = louvain(g, cfg)
+    assert local_move_louvain_streamed_kernel.launches > streamed
+    moved, streamed = (telemetry.get(counter),
+                       local_move_louvain_streamed_kernel.launches)
+    with faultinject.inject(fault):
+        res = louvain(g, cfg)
+    np.testing.assert_array_equal(res.labels, clean.labels)
+    assert res.modularity == clean.modularity
+    assert res.n_comm_per_level == clean.n_comm_per_level
+    assert telemetry.get(counter) > moved
+    assert res.run_report.faults == [fault]
+    if fault == "vmem_starve":
+        assert local_move_louvain_streamed_kernel.launches == streamed
+    else:
+        assert set(res.aggregation_per_level) == {"sort_fallback"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [False, True])
+def test_kill_and_resume_on_the_card(cuda_device, tmp_path, refine):
+    """A ``pallas`` cascade killed by ``preempt_stage`` right after its
+    first boundary committed, then rerun, resumes once (onto the card)
+    and equals the uninterrupted run; nothing is left behind."""
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.utils import faultinject, telemetry
+    from repro_torch.utils.resilience import Preempted
+
+    g = _banded_on_card(cuda_device)
+    cfg = LouvainConfig(backend="pallas", refine=refine)
+    clean = louvain(g, cfg)
+    assert len(clean.cascade_stages) >= 2
+    cfg_ck = cfg.replace(checkpoint_dir=str(tmp_path))
+    with pytest.raises(Preempted):
+        with faultinject.inject("preempt_stage"):
+            louvain(g, cfg_ck)
+    assert [p.name for p in tmp_path.iterdir()] == ["step_00000001"]
+    resumes = telemetry.get("louvain.ckpt_resume")
+    res = louvain(g, cfg_ck)
+    assert telemetry.get("louvain.ckpt_resume") == resumes + 1
+    _assert_runs_equal(res, clean)
+    assert list(tmp_path.iterdir()) == []
 
 
 @pytest.mark.cuda

@@ -113,10 +113,26 @@ def test_weighted_graph_modularity_matches_jax():
     ({"refine": True}, "Queue 1 #2"),
     ({"checkpoint_dir": "ckpt"}, "Queue 1 #3"),
 ])
-def test_unported_options_raise(override, item):
+def test_unported_options_raise(override, item, tmp_path):
+    """The two options the port once refused (Leiden refinement and the
+    stage checkpoint) now run.  ``refine=True`` is ``leiden()`` on both
+    drivers (held against the JAX package in ``test_torch_leiden.py``);
+    the ring graph is one stage, so ``checkpoint_dir`` saves nothing and
+    changes nothing."""
+    from repro_torch.core.louvain import leiden
+
     g = to_torch(_graph("ring"))
-    with pytest.raises(NotImplementedError, match=item):
-        louvain(g, LouvainConfig(**override))
+    if "checkpoint_dir" in override:
+        override = {"checkpoint_dir": str(tmp_path / override[
+            "checkpoint_dir"])}
+        want = louvain(g, LouvainConfig())
+    else:
+        want = leiden(g, LouvainConfig(pipeline_fused=False))
+    res = louvain(g, LouvainConfig(**override))
+    np.testing.assert_array_equal(want.labels, res.labels)
+    for f in INT_FIELDS[:-1] + ("modularity", "modularity_history"):
+        assert getattr(res, f) == getattr(want, f), f
+    assert not (tmp_path / "ckpt").exists()
 
 
 @pytest.fixture(autouse=True)

@@ -5,7 +5,9 @@
   and no source file of the port names either in an import.
 * Without a card, the entry points refuse to build on the CPU silently:
   ``from_numpy_edges``/``datasets.load``, the language model's
-  ``init_params`` and ``ServeEngine`` with no ``device`` raise.
+  ``init_params`` and ``ServeEngine`` with no ``device`` raise, and so
+  does ``train.checkpoint.restore``; the cascade's resume restores onto
+  the device of the graph it resumes.
 """
 import ast
 import os
@@ -54,7 +56,9 @@ def test_every_module_is_visited():
               "repro_torch.models.attention",
               "repro_torch.models.transformer", "repro_torch.models.api",
               "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.qwen3_8b",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.utils.faultinject",
+              "repro_torch.utils.resilience", "repro_torch.utils.logging",
+              "repro_torch.train.checkpoint"):
         assert m in mods
 
 
@@ -115,3 +119,50 @@ def test_model_entry_points_default_to_the_card():
     with pytest.raises(ValueError, match="lies on cpu"):
         ServeEngine(c, params, device="meta")
     assert ServeEngine(c, params, device="cpu").device.type == "cpu"
+
+
+def test_checkpoint_restore_defaults_to_the_card(tmp_path):
+    """``restore`` puts tensor leaves on the device it is given, the card
+    when none is; the cascade's resume passes the graph's device."""
+    from repro_torch.train import checkpoint
+
+    checkpoint.save(str(tmp_path), 1, {"a": torch.arange(3)})
+    like = {"a": torch.empty(3, dtype=torch.int64, device="meta")}
+    if torch.cuda.is_available():
+        assert checkpoint.restore(str(tmp_path), 1, like)["a"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            checkpoint.restore(str(tmp_path), 1, like)
+    out = checkpoint.restore(str(tmp_path), 1, like, device="cpu")
+    assert out["a"].device.type == "cpu"
+
+
+def test_resume_restores_onto_the_graphs_device(tmp_path, monkeypatch):
+    from repro_torch.core import louvain as louvain_mod
+    from repro_torch.utils import faultinject
+
+    n, k = 600, 20
+    edges = [(c * k + i, c * k + j) for c in range(n // k)
+             for i in range(k) for j in range(i + 1, k)]
+    edges += [(c * k, ((c + 1) % (n // k)) * k) for c in range(n // k)]
+    e = np.array(edges)
+    g = from_numpy_edges(e[:, 0], e[:, 1], n=n, device="cpu")
+    cfg = louvain_mod.LouvainConfig(capacity_schedule=((256, 2048),),
+                                    checkpoint_dir=str(tmp_path))
+    with pytest.raises(BaseException, match="preemption"):
+        with faultinject.inject("preempt_stage"):
+            louvain_mod.louvain(g, cfg)
+    seen = []
+    real = louvain_mod._ckpt_try_resume
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(louvain_mod, "_ckpt_try_resume", spy)
+    louvain_mod.louvain(g, cfg)
+    (k_, _w, _s, g_k, assign, init_com, macro, _lvl, _h), = seen
+    assert k_ == 1
+    for t in (g_k.src, g_k.w, assign, init_com, macro):
+        assert t.device == g.device
