@@ -75,6 +75,42 @@ Phases, each failing loudly (exit code 1, no result line):
    fault's counter moved (the table modes taken and the aggregation
    paths are logged: under a 1 KB budget the W = 16 bucket goes
    resident, under the overflow every level takes the sort fallback).
+3c. Batch and serve (``[serve]`` lines).  256 ego-net stand-ins built on
+   the card with the port's ``sbm`` (the JAX package's serving recipe,
+   ``benchmarks/perf_variants.py``'s ``_egonet_standins``: sizes 25, 35,
+   45, 3..5 blocks, p_in 0.35, p_out 0.03, per-graph seed seed + 7919·i,
+   seed 0), all on one capacity signature (64, 256, W = 16), 32 chunks of
+   8.  The five main-path kernels' launch counters are set to 0 just
+   before ``louvain_batch(gs, LouvainConfig(backend="pallas"))`` and
+   ``plp_batch(gs, PLPConfig(backend="pallas"))`` and read just after:
+   ``local_move_louvain`` and ``local_move_plp`` must have launched, no
+   streamed kernel (the lanes' traced tiles are resident), ``bin_rank``
+   once per ``"binned"`` entry of the lanes' ``aggregation_per_level``;
+   ``batch.unsorted_segment_fallback`` must not move and no lane's report
+   may show a degradation, retry or fault.  Every lane must equal the
+   single-graph ``louvain``/``plp`` run of its graph on ``pallas`` and the
+   ``ell`` batch's lane in labels, Q, levels, communities, sweeps and every
+   history.  On a second wave of 256 ego-nets (seed 1) the batched calls
+   are timed against a loop of the single-graph drivers over the same
+   graphs (graphs per second, logged with the card, not gated) and must
+   equal them.  Then
+   ``CommunityServeEngine(device="cuda", max_batch=8, max_retries=2)``
+   with ``pallas`` configs serves the JAX side's service smoke traffic (12
+   requests, n 24 / 96 — two signatures, W = 16 and 64 — m = 3n random
+   ids, ``louvain`` when i % 3 else ``plp``, 60 s deadlines): every
+   response ``ok`` and equal to its request's single-graph run, the
+   sequential-ladder counters (``serve.batch_fallback_sequential``,
+   ``serve.breaker_routed_sequential``) at 0; latencies logged.  One flush
+   under ``transient_batch_fail`` with fuel 1: every request ``ok``,
+   ``serve.retry`` moved.  Last, two requests with 500 ms deadlines under a
+   6 s ``slow_dispatch`` stall must come back as ``DeadlineError`` within
+   5 s; the abandoned watchdog workers (they sleep out the stall, then run
+   their work on the card) are joined before the phase ends.  Expert
+   placement at qwen3-moe-30b-a3b's router shape (128 experts, top-8) over
+   65 536 skewed tokens (``tests/test_expert_placement.py``'s recipe, 16
+   latent topics) onto 8 groups: ``louvain_placement`` on the card must be
+   balanced (max − min ≤ 1) with a smaller cross-group share than
+   ``random_placement``'s; both shares are logged.
 3b. Two-step scoring, the path the fused local_move kernels replaced: on
    every non-empty level-0 bucket of both graphs, the first and the last
    recorded sweep of PLP and Louvain, the (rows, W) tiles are gathered
@@ -193,6 +229,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -203,6 +240,24 @@ ROOT = Path(__file__).resolve().parent
 # community-rich com-dblp stand-in, whose later levels pass it.
 MAIN_GRAPH = ("as-skitter", 1.0)
 COMMUNITY_GRAPH = ("com-dblp", 1.0)
+
+# Phase 3c ([serve]): ego-net stand-ins, the JAX package's serving recipe
+# (benchmarks/perf_variants.py, _egonet_standins): sizes drawn from
+# SERVE_SIZES, 3..5 planted blocks, p_in 0.35, p_out 0.03, per-graph seed
+# seed + 7919·i — com-dblp-scale ego-nets of tens of vertices and a few
+# hundred directed edges.  Two waves (seeds 0 and 1).
+SERVE_EGONETS = 256
+SERVE_SIZES = (25, 35, 45)
+SERVE_SEED_STRIDE = 7919
+# the service's last case: two requests of this deadline under a stalled
+# dispatch must come back as DeadlineError within SERVE_ANSWER_S
+SERVE_DEADLINE_MS = 500.0
+SERVE_STALL_S = 6.0
+SERVE_ANSWER_S = 5.0
+# expert placement at qwen3-moe-30b-a3b's router shape (128 experts,
+# top-8), over skewed routing with 16 latent topics, onto 8 groups
+PLACEMENT = {"experts": 128, "top_k": 8, "tokens": 65536, "topics": 16,
+             "groups": 8}
 
 # Rows per block at which each streamed bucket is also timed.
 STREAM_BLOCK_ROWS_SWEEP = (64, 128, 256, 512, 1024, 2048)
@@ -844,6 +899,305 @@ def phase_leiden(torch, rt, graphs, runs):
             f"equal to the clean run; {counter} +{moved}; table modes "
             f"taken (level 0 and the coarse tiles) {taken}; aggregation "
             f"{res.aggregation_per_level}")
+    return out
+
+
+# ------------------------------------------------ phase 3c: batch and serve
+
+SERVE_LOUVAIN_FIELDS = ("labels", "modularity", "levels", "n_communities",
+                        "sweeps_per_level", "modularity_history",
+                        "delta_n_per_level", "n_comm_per_level")
+
+
+def egonets(rt, dev, count: int, seed: int):
+    """The serving recipe's ego-net stand-ins, built on ``dev``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        n = int(rng.choice(SERVE_SIZES))
+        k = int(rng.integers(3, 6))
+        u, v, _w, _t = rt.sbm(n, k, p_in=0.35, p_out=0.03,
+                              seed=seed + SERVE_SEED_STRIDE * i)
+        out.append(rt.from_numpy_edges(u, v, n=n, device=dev))
+    return out
+
+
+def skewed_routing(n_tokens, n_experts, top_k, n_latent, seed=0):
+    """tests/test_expert_placement.py's routing recipe: each token draws
+    its top-k from one latent topic's experts (80 %) or uniformly."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    topic_of_expert = rng.integers(0, n_latent, n_experts)
+    pools = [np.where(topic_of_expert == t)[0] for t in range(n_latent)]
+    out = np.zeros((n_tokens, top_k), np.int32)
+    for i in range(n_tokens):
+        pool = pools[rng.integers(0, n_latent)]
+        if rng.random() < 0.2 or pool.size < top_k:
+            out[i] = rng.choice(n_experts, top_k, replace=False)
+        else:
+            out[i] = rng.choice(pool, top_k, replace=pool.size < top_k)
+    return out
+
+
+def _latency_ms(responses) -> dict:
+    import numpy as np
+
+    lat = np.array([r.latency_s for r in responses]) * 1e3
+    return {"min": float(lat.min()), "median": float(np.median(lat)),
+            "max": float(lat.max())}
+
+
+def _timer_split(results) -> dict:
+    """The results' timer entries summed over the graphs (s)."""
+    out: dict = {}
+    for r in results:
+        for k, v in r.timer.totals.items():
+            if "/" not in k:
+                out[k] = round(out.get(k, 0.0) + v, 4)
+    return out
+
+
+def _watchdog_workers(before):
+    """The watchdog worker threads started since ``before``."""
+    return [t for t in threading.enumerate()
+            if t not in before and t.name == "repro-watchdog-worker"]
+
+
+def phase_serve(torch, rt, card: str):
+    """The batched engine on ego-net traffic through the kernels, its
+    parity with the single-graph runs and the ``ell`` batch, its rate
+    against the single-graph loop, the service (clean, a transient failure, a stalled dispatch) and
+    expert placement, on the card."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    out = {"card": card}
+    lcfg = rt.LouvainConfig(backend="pallas")
+    pcfg = rt.PLPConfig(backend="pallas")
+    lm, agg = rt.lm_kernel, rt.agg_kernel
+    counters = {"local_move_plp": lm.local_move_plp_kernel,
+                "local_move_louvain": lm.local_move_louvain_kernel,
+                "bin_rank": agg.bin_rank_kernel,
+                "local_move_plp_streamed": lm.local_move_plp_streamed_kernel,
+                "local_move_louvain_streamed":
+                    lm.local_move_louvain_streamed_kernel}
+
+    # ego-net traffic on the kernels
+    t = time.perf_counter()
+    gs = egonets(rt, dev, SERVE_EGONETS, 0)
+    torch.cuda.synchronize()
+    sigs = sorted({tuple(rt.capacity_signature(g.n_max, g.m_max))[:3]
+                   for g in gs})
+    log(f"[serve] {len(gs)} ego-nets on the card in "
+        f"{time.perf_counter() - t:.2f} s: n {min(g.n_max for g in gs)}.."
+        f"{max(g.n_max for g in gs)}, directed edges "
+        f"{min(g.m_valid for g in gs)}..{max(g.m_valid for g in gs)}; "
+        f"signatures (n_cap, m_cap, W) {sigs}")
+    unsorted = rt.telemetry.get("batch.unsorted_segment_fallback")
+    for c in counters.values():
+        c.launches = 0
+    lv, lv_wall = timed_run(torch, lambda: rt.louvain_batch(gs, lcfg))
+    pl, pl_wall = timed_run(torch, lambda: rt.plp_batch(gs, pcfg))
+    launches = {k: c.launches for k, c in counters.items()}
+    binned = sum(r.aggregation_per_level.count("binned") for r in lv)
+    out["launches"] = launches
+    log(f"[serve] wave 0: louvain_batch(pallas) {lv_wall:.2f} s, "
+        f"plp_batch(pallas) {pl_wall:.2f} s; launches {launches}; binned "
+        f"coarsenings {binned}; levels "
+        f"{sorted(set(r.levels for r in lv))}")
+    if not (launches["local_move_louvain"] > 0
+            and launches["local_move_plp"] > 0):
+        fail(f"[serve] the batch did not launch local_move: {launches}")
+    if launches["local_move_plp_streamed"] \
+            or launches["local_move_louvain_streamed"]:
+        fail(f"[serve] a streamed kernel launched on traced tiles: "
+             f"{launches}")
+    if launches["bin_rank"] != binned:
+        fail(f"[serve] bin_rank launched {launches['bin_rank']} times for "
+             f"{binned} binned coarsenings")
+    if rt.telemetry.get("batch.unsorted_segment_fallback") != unsorted:
+        fail("[serve] batch.unsorted_segment_fallback moved")
+    for r in lv + pl:
+        rep = r.run_report
+        if rep.degradations or rep.retries or rep.faults:
+            fail(f"[serve] a lane's report is not clean: {rep.as_dict()}")
+
+    # parity on the card: each lane ≡ the single-graph pallas run ≡ the
+    # ell batch
+    seq_l, seq_l_wall = timed_run(torch, lambda: [rt.louvain(g, lcfg)
+                                                  for g in gs])
+    seq_p, seq_p_wall = timed_run(torch, lambda: [rt.plp(g, pcfg)
+                                                  for g in gs])
+    lv_ell = rt.louvain_batch(gs, rt.LouvainConfig(backend="ell"))
+    pl_ell = rt.plp_batch(gs, rt.PLPConfig(backend="ell"))
+    for i in range(len(gs)):
+        for ref, what in ((seq_l[i], "louvain(pallas)"),
+                          (lv_ell[i], "louvain_batch(ell)")):
+            compare_runs(lv[i], ref, SERVE_LOUVAIN_FIELDS,
+                         f"[serve] ego-net {i}: louvain_batch(pallas) and "
+                         f"{what}")
+        for ref, what in ((seq_p[i], "plp(pallas)"),
+                          (pl_ell[i], "plp_batch(ell)")):
+            compare_runs(pl[i], ref, PLP_FIELDS,
+                         f"[serve] ego-net {i}: plp_batch(pallas) and "
+                         f"{what}")
+    log(f"[serve] every lane of both batches equals its single-graph "
+        f"pallas run and the ell batch in labels, Q, levels, communities, "
+        f"sweeps and every history; single-graph loops: louvain "
+        f"{seq_l_wall:.2f} s, plp {seq_p_wall:.2f} s")
+
+    # batched against sequential graphs per second, on a second wave
+    gs2 = egonets(rt, dev, SERVE_EGONETS, 1)
+    lv2, lv2_wall = timed_run(torch, lambda: rt.louvain_batch(gs2, lcfg))
+    pl2, pl2_wall = timed_run(torch, lambda: rt.plp_batch(gs2, pcfg))
+    seq_l2, seq_l2_wall = timed_run(torch, lambda: [rt.louvain(g, lcfg)
+                                                    for g in gs2])
+    seq_p2, seq_p2_wall = timed_run(torch, lambda: [rt.plp(g, pcfg)
+                                                    for g in gs2])
+    for i in range(len(gs2)):
+        compare_runs(lv2[i], seq_l2[i], SERVE_LOUVAIN_FIELDS,
+                     f"[serve] wave 1 ego-net {i}: louvain batch and single")
+        compare_runs(pl2[i], seq_p2[i], PLP_FIELDS,
+                     f"[serve] wave 1 ego-net {i}: plp batch and single")
+    n2 = len(gs2)
+    rates = {"louvain_batched_gps": n2 / lv2_wall,
+             "louvain_sequential_gps": n2 / seq_l2_wall,
+             "plp_batched_gps": n2 / pl2_wall,
+             "plp_sequential_gps": n2 / seq_p2_wall}
+    splits = {"louvain_batched": _timer_split(lv2),
+              "louvain_sequential": _timer_split(seq_l2),
+              "plp_batched": _timer_split(pl2),
+              "plp_sequential": _timer_split(seq_p2)}
+    out.update(rates, timer_s=splits)
+    log(f"[serve] wave 1 (seed 1): graphs/s on {card}: louvain batched "
+        f"{rates['louvain_batched_gps']!r} ({lv2_wall:.3f} s) vs sequential "
+        f"{rates['louvain_sequential_gps']!r} ({seq_l2_wall:.3f} s); plp "
+        f"batched {rates['plp_batched_gps']!r} ({pl2_wall:.3f} s) vs "
+        f"sequential {rates['plp_sequential_gps']!r} ({seq_p2_wall:.3f} s)")
+    log(f"[serve] wave 1 timers summed over the graphs (s): {splits}")
+
+    # the service: the reference smoke's traffic, clean
+    ladder = ("serve.batch_fallback_sequential",
+              "serve.breaker_routed_sequential")
+    ladder0 = {k: rt.telemetry.get(k) for k in ladder}
+    eng = rt.CommunityServeEngine(lcfg, pcfg, max_batch=8, max_retries=2,
+                                  device=dev)
+    reqs = rt.smoke_requests(12, 60000.0)
+    for c in counters.values():
+        c.launches = 0
+    for r in reqs:
+        if eng.submit(r) is not None:
+            fail(f"[serve] request {r.request_id} was not accepted")
+    resp, wall = timed_run(torch, eng.flush)
+    flush_launches = {k: c.launches for k, c in counters.items()}
+    widths = sorted({r.signature[2] for r in resp if r.signature})
+    for req, r in zip(reqs, resp):
+        if not r.ok or r.request_id != req.request_id:
+            fail(f"[serve] request {req.request_id}: {r.error}")
+        g = rt.from_numpy_edges(req.u, req.v, n=req.n, device=dev)
+        if req.algo == "louvain":
+            compare_runs(r.result, rt.louvain(g, lcfg), SERVE_LOUVAIN_FIELDS,
+                         f"[serve] service {req.request_id} and louvain")
+        else:
+            compare_runs(r.result, rt.plp(g, pcfg), PLP_FIELDS,
+                         f"[serve] service {req.request_id} and plp")
+    moved = {k: rt.telemetry.get(k) - ladder0[k] for k in ladder}
+    if any(moved.values()) or any(rt.telemetry.get(k) for k in ladder):
+        fail(f"[serve] clean traffic took the sequential ladder: {moved}")
+    out["service"] = {"flush_s": wall, "latency_ms": _latency_ms(resp),
+                      "widths": widths, "launches": flush_launches,
+                      "dispatches": eng.stats()["dispatches"]}
+    log(f"[serve] service: 12 requests on {eng.device}, one flush "
+        f"{wall:.3f} s, {eng.stats()['dispatches']} dispatches, tile widths "
+        f"{widths}; latency ms {out['service']['latency_ms']}; launches "
+        f"{flush_launches}; every response ok and equal to its "
+        f"single-graph run; sequential ladder {moved}")
+
+    # one transient batch failure: retried, every request ok
+    retries = rt.telemetry.get("serve.retry")
+    for r in reqs:
+        eng.submit(r)
+    rt.faultinject.arm("transient_batch_fail")
+    rt.faultinject.set_fuel("transient_batch_fail", 1)
+    try:
+        resp, wall = timed_run(torch, eng.flush)
+    finally:
+        rt.faultinject.disarm("transient_batch_fail")
+    retried = rt.telemetry.get("serve.retry") - retries
+    if not all(r.ok for r in resp) or retried < 1:
+        fail(f"[serve] under transient_batch_fail: ok "
+             f"{sum(r.ok for r in resp)}/{len(resp)}, serve.retry +{retried}")
+    out["service"]["transient"] = {"flush_s": wall, "retries": retried,
+                                   "latency_ms": _latency_ms(resp)}
+    log(f"[serve] under transient_batch_fail (fuel 1): every request ok, "
+        f"serve.retry +{retried}, flush {wall:.3f} s")
+
+    # last: a stalled dispatch past two requests' deadlines
+    env = os.environ.get(rt.faultinject.SLOW_DISPATCH_ENV)
+    os.environ[rt.faultinject.SLOW_DISPATCH_ENV] = str(SERVE_STALL_S)
+    before = set(threading.enumerate())
+    # two louvain requests of one signature: one batched dispatch
+    for r in rt.smoke_requests(6, SERVE_DEADLINE_MS, seed=1)[1::4]:
+        eng.submit(r)
+    try:
+        with rt.faultinject.inject("slow_dispatch"):
+            t = time.perf_counter()
+            resp = eng.flush()
+            answered = time.perf_counter() - t
+    finally:
+        if env is None:
+            os.environ.pop(rt.faultinject.SLOW_DISPATCH_ENV)
+        else:
+            os.environ[rt.faultinject.SLOW_DISPATCH_ENV] = env
+    # the abandoned worker sleeps out its stall, then runs its batch on the
+    # card: wait for it, so its launches land in no other phase
+    t = time.perf_counter()
+    workers = _watchdog_workers(before)
+    for w in workers:
+        w.join()
+    torch.cuda.synchronize()
+    waited = time.perf_counter() - t
+    if len(resp) != 2 or any(r.ok or "DeadlineError" not in r.error
+                             for r in resp):
+        fail(f"[serve] stalled requests: {[(r.ok, r.error) for r in resp]}")
+    if answered > SERVE_ANSWER_S:
+        fail(f"[serve] stalled requests answered in {answered:.2f} s")
+    out["service"]["deadline"] = {"answered_s": answered,
+                                  "abandoned_workers": len(workers),
+                                  "waited_s": waited}
+    log(f"[serve] {SERVE_STALL_S:.0f} s stall, {SERVE_DEADLINE_MS:.0f} ms "
+        f"deadlines: both requests answered DeadlineError in "
+        f"{answered:.3f} s; waited {waited:.2f} s for {len(workers)} "
+        f"abandoned worker(s)")
+
+    # expert placement at the MoE router's shape
+    pc = PLACEMENT
+    t = time.perf_counter()
+    routing = skewed_routing(pc["tokens"], pc["experts"], pc["top_k"],
+                             pc["topics"])
+    g = rt.coactivation_graph(routing, pc["experts"], device=dev)
+    placement, place_wall = timed_run(torch, lambda: rt.louvain_placement(
+        g, pc["experts"], pc["groups"]))
+    counts = np.bincount(placement, minlength=pc["groups"])
+    t_louv = rt.placement_traffic(routing, placement, pc["groups"])
+    t_rand = rt.placement_traffic(
+        routing, rt.random_placement(pc["experts"], pc["groups"]),
+        pc["groups"])
+    if counts.max() - counts.min() > 1 or not t_louv < t_rand:
+        fail(f"[serve] placement: group sizes {counts.tolist()}, traffic "
+             f"{t_louv!r} against random {t_rand!r}")
+    out["placement"] = {"traffic": t_louv, "random_traffic": t_rand,
+                        "edges": g.m_valid, "louvain_s": place_wall,
+                        "group_sizes": counts.tolist()}
+    log(f"[serve] expert placement: {pc['experts']} experts, top-"
+        f"{pc['top_k']}, {pc['tokens']} tokens, {pc['groups']} groups; "
+        f"co-activation graph {g.m_valid} directed edges "
+        f"({time.perf_counter() - t:.2f} s in all, louvain_placement "
+        f"{place_wall:.3f} s); cross-group share {t_louv!r} against random "
+        f"{t_rand!r}; group sizes {counts.tolist()}")
     return out
 
 
@@ -1972,6 +2326,15 @@ def main(argv) -> int:
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.flash_attention import ref as fa_ref
         from repro_torch.launch.serve import Request, ServeEngine
+        from repro_torch.core.batch import louvain_batch, plp_batch
+        from repro_torch.core.expert_placement import (
+            coactivation_graph, louvain_placement, placement_traffic,
+            random_placement)
+        from repro_torch.graph.builders import from_numpy_edges
+        from repro_torch.graph.generators import sbm
+        from repro_torch.kernels.common import capacity_signature
+        from repro_torch.launch.community_serve import (
+            CommunityServeEngine, smoke_requests)
         from repro_torch.models import api as model_api
         from repro_torch.models.common import init_params, param_count
     except ImportError as err:
@@ -1990,12 +2353,22 @@ def main(argv) -> int:
         telemetry=telemetry, configs=configs, fa_kernel=fa_kernel,
         fa_ops=fa_ops, fa_ref=fa_ref, Request=Request,
         ServeEngine=ServeEngine, model_api=model_api,
-        init_params=init_params, param_count=param_count)
+        init_params=init_params, param_count=param_count,
+        louvain_batch=louvain_batch,
+        plp_batch=plp_batch, coactivation_graph=coactivation_graph,
+        louvain_placement=louvain_placement,
+        placement_traffic=placement_traffic,
+        random_placement=random_placement,
+        from_numpy_edges=from_numpy_edges, sbm=sbm,
+        capacity_signature=capacity_signature,
+        CommunityServeEngine=CommunityServeEngine,
+        smoke_requests=smoke_requests)
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     phase_build(build)
     main_out, recs, graphs, runs = phase_main(torch, rt)
     main_out["leiden"] = phase_leiden(torch, rt, graphs, runs)
+    main_out["serve"] = phase_serve(torch, rt, card)
     main_out["two_step"], captured, seg_inputs = phase_two_step(
         args, torch, rt, recs, graphs)
     clocks("before phase 4")

@@ -30,6 +30,9 @@ Two drivers, as in the JAX package, bit-identical to each other:
 * otherwise the per-level driver (``_louvain_per_level``) runs, with
   ``cascade_stages == []``.
 
+The batched engine (``core.batch``) runs one stage of the cascade's form
+per graph, at its bucket's capacity (``_single_stage_run``).
+
 The JAX package fuses a stage into one compiled program; here a stage is
 a Python loop over eager levels that reads back per sweep and per level.
 Level 0 runs the configured backend (``pallas`` = the CUDA kernels) on the
@@ -473,8 +476,10 @@ def _run_level(run: _Run, cur: Graph, assign, init_com, level: int,
     hist.n_comm.append(n_comm)
     hist.aggregation.append(path)
     if cfg.track_modularity:
-        hist.modularity.append(float(modularity(run.g0, macro_assign,
-                                                promote=run.promote)))
+        # a batch lane's g0 is the request's own graph, below the lane's
+        # capacity: its vertices are the prefix of the lane's
+        hist.modularity.append(float(modularity(
+            run.g0, macro_assign[:run.g0.n_max], promote=run.promote)))
     if done:
         return cur, assign, init_com, macro_assign, True
     return coarse, next_assign, next_init, macro_assign, False
@@ -494,7 +499,7 @@ def _result(run: _Run, macro, levels: int, stages: list) -> LouvainResult:
     """The final remap on the original vertices, Q and the histories."""
     g0 = run.g0
     final_assign, n_final = aggregation.remap_communities(
-        macro, g0.vertex_mask())
+        macro[:g0.n_max], g0.vertex_mask())
     h = run.hist
     return LouvainResult(
         labels=final_assign.cpu().numpy(),
@@ -580,6 +585,29 @@ def _run_stage(run: _Run, spec0: Optional[EngineSpec],
                              minlength=cur.n_max)
         max_deg = int(deg[:cur.n_valid].max()) if cur.n_valid else 0
     return _Stage(cur, assign, init_com, macro, level, done, max_deg)
+
+
+def _single_stage_run(g: Graph, cfg: LouvainConfig, spec0: EngineSpec,
+                      spec_coarse: EngineSpec, g_original: Graph,
+                      promote: bool, faults: frozenset) -> LouvainResult:
+    """The single-capacity whole-run stage on ``g`` (the JAX package's
+    ``_build_stage(..., next_caps=None)``): level 0 on ``spec0`` with no
+    host-built ELL, then ``spec_coarse`` until the run is done or
+    ``max_levels`` is spent — the batched engine's Louvain lane.
+
+    ``g`` is the request ``g_original`` padded to its bucket's capacity.
+    Labels, Q and its history are taken on ``g_original``: the padded
+    vertices are the suffix of ``g``'s, and ``torch.sum`` over an array
+    with trailing zeros may round otherwise than over the array without
+    them, so Q on the padded graph could differ from the single-graph
+    run's in its last bits.  ``cascade_stages`` is ``g``'s capacity.  No
+    report is attached (the caller finalizes it)."""
+    run = _new_run(g, cfg, g_original, promote, faults)
+    ar = torch.arange(g.n_max, dtype=torch.int32, device=g.device)
+    with run.timer.phase("pipeline"):
+        st = _run_stage(run, spec0, spec_coarse, None, g, None, ar, ar, ar,
+                        0)
+    return _result(run, st.macro, st.level, [(g.n_max, g.m_max)])
 
 
 # ------------------------------------------------- stage checkpoint/resume

@@ -44,3 +44,22 @@ def modularity(g: Graph, com: torch.Tensor, *, promote: bool = False
     safe = torch.where(vol_v > 0, vol_v, torch.ones_like(vol_v))
     q = w_in / safe - torch.sum((vol_c / safe) ** 2)
     return torch.where(vol_v > 0, q, torch.zeros_like(q)).to(torch.float32)
+
+
+def modularity_dense_reference(adj, com) -> float:
+    """O(n²) dense numpy oracle for tests: ``adj`` is a symmetric matrix
+    with doubled diagonal (the Graph convention), ``com`` a label per
+    row."""
+    import numpy as np
+
+    adj = np.asarray(adj, dtype=np.float64)
+    com = np.asarray(com)
+    vol_v = adj.sum()
+    deg = adj.sum(axis=1)
+    q = 0.0
+    for c in np.unique(com):
+        idx = com == c
+        w_in = adj[np.ix_(idx, idx)].sum()
+        vol_c = deg[idx].sum()
+        q += w_in / vol_v - (vol_c / vol_v) ** 2
+    return float(q)

@@ -26,7 +26,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.config import ConfigBase
-from repro_torch.core.engine import EngineSpec, SweepEngine
+from repro_torch.core.engine import EngineSpec, PhaseResult, SweepEngine
 from repro_torch.core.louvain import ENGINE_FAULTS
 from repro_torch.graph.structure import Graph
 from repro_torch.utils import faultinject
@@ -74,6 +74,30 @@ def engine_spec(cfg: PLPConfig, faults: frozenset = frozenset()
     )
 
 
+def _trivial_result(report: RunReport) -> PLPResult:
+    """Degenerate zero-capacity graph: nothing to label, nothing to run."""
+    return PLPResult(labels=np.zeros((0,), np.int32), iterations=0,
+                     delta_n_history=[], active_history=[], timer=Timer(),
+                     run_report=report)
+
+
+def _result(res: PhaseResult, n: int, cfg: PLPConfig, timer: Timer,
+            report: RunReport) -> PLPResult:
+    """The phase's labels of the first ``n`` vertices (a batch lane's
+    graph is padded past its request's ``n_max``) and its histories, with
+    the iteration watchdog recorded in ``report``."""
+    if res.sweeps >= cfg.max_iterations:
+        report.warnings.append("watchdog:max_iterations")
+    return PLPResult(
+        labels=res.labels[:n].cpu().numpy(),
+        iterations=res.sweeps,
+        delta_n_history=res.delta_n_history,
+        active_history=res.active_history,
+        timer=timer,
+        run_report=report,
+    )
+
+
 def plp(g: Graph, cfg: PLPConfig = PLPConfig(), ell_graph=None) -> PLPResult:
     """Run Parallel Label Propagation; returns final labels + history.
     Iteration-budget exhaustion is flagged as a watchdog warning in
@@ -81,9 +105,7 @@ def plp(g: Graph, cfg: PLPConfig = PLPConfig(), ell_graph=None) -> PLPResult:
     faults = frozenset(faultinject.active())
     report = RunReport(faults=sorted(faults))
     if g.n_max == 0:
-        return PLPResult(labels=np.zeros((0,), np.int32), iterations=0,
-                         delta_n_history=[], active_history=[], timer=Timer(),
-                         run_report=report)
+        return _trivial_result(report)
     spec = engine_spec(cfg, faults)
     timer = Timer()
     with timer.phase("ell_build") if cfg.backend in ("ell", "pallas") \
@@ -92,13 +114,4 @@ def plp(g: Graph, cfg: PLPConfig = PLPConfig(), ell_graph=None) -> PLPResult:
     labels, active = engine.singleton_state()
     with timer.phase("move"):
         res = engine.run_phase(labels, active, seed=cfg.seed, fused=cfg.fused)
-    if res.sweeps >= cfg.max_iterations:
-        report.warnings.append("watchdog:max_iterations")
-    return PLPResult(
-        labels=res.labels.cpu().numpy(),
-        iterations=res.sweeps,
-        delta_n_history=res.delta_n_history,
-        active_history=res.active_history,
-        timer=timer,
-        run_report=report,
-    )
+    return _result(res, g.n_max, cfg, timer, report)

@@ -8,6 +8,8 @@ compute the same hashes in native ``uint32_t``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -154,6 +156,62 @@ def pick_bin_width(n_cap: int, m_cap: int) -> int:
     Rows that exceed it at run time take the one-sort fallback, so the
     width changes speed, never results."""
     return pick_ell_width(None, n_cap, m_cap)
+
+
+# ------------------------------------------------------------ capacity buckets
+
+# Static capacity menu of the batched many-graph engine (``core.batch``), the
+# JAX package's: doubling steps up from ego-net-scale floors.  A graph is
+# padded to the smallest menu capacity that holds it, so the set of distinct
+# padded shapes — and of cached bucket runners — grows logarithmically in
+# the largest graph served, not with the number of distinct sizes.  The
+# step is 2 (not the cascade's 4) to bound the padding every lane pays for
+# at < 2x.
+BUCKET_N_FLOOR = 64
+BUCKET_M_FLOOR = 256
+BUCKET_STEP = 2
+
+
+def bucket_capacity(x: int, floor: int, step: int = BUCKET_STEP) -> int:
+    """Smallest menu capacity >= x, menu = floor · step^k (k >= 0)."""
+    if x < 0:
+        raise ValueError(f"capacity must be >= 0, got {x}")
+    cap = int(floor)
+    while cap < x:
+        cap *= step
+    return cap
+
+
+class CapacitySignature(NamedTuple):
+    """Hashable identity of one batch bucket: the padded capacities
+    (``n_cap``, ``m_cap``), the traced-tile width they pick
+    (``ell_width``) and the capacity schedule the padded graph would
+    cascade through.  Graphs with equal signatures pack into one bucket
+    and share one cached bucket runner."""
+
+    n_cap: int
+    m_cap: int
+    ell_width: int
+    schedule: tuple
+
+
+def capacity_signature(n_cap: int, m_cap: int,
+                       ell_width: int | None = None,
+                       schedule: tuple | None = None) -> CapacitySignature:
+    """Bucket a graph's ``(n_max, m_max)`` onto the capacity menu above;
+    ``ell_width`` defaults to ``pick_ell_width``'s pick at the bucket
+    capacities (``pick_bin_width`` resolves the same) and ``schedule`` to
+    ``auto_capacity_schedule`` at them."""
+    nb = bucket_capacity(int(n_cap), BUCKET_N_FLOOR)
+    mb = bucket_capacity(int(m_cap), BUCKET_M_FLOOR)
+    if ell_width is None:
+        ell_width = pick_ell_width(None, nb, mb)
+    if schedule is None:
+        # late import: core.louvain imports this module at load time
+        from repro_torch.core.louvain import auto_capacity_schedule
+
+        schedule = auto_capacity_schedule(nb, mb)
+    return CapacitySignature(nb, mb, int(ell_width), tuple(schedule))
 
 
 def bin_table_bytes(n_cap: int, width: int) -> int:

@@ -1,1 +1,2 @@
-"""Launchers of the port: the batched serving engine."""
+"""Launchers of the port: the LM serving engine (``serve``) and the
+community-detection service (``community_serve``)."""

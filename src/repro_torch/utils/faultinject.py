@@ -33,12 +33,13 @@ encounter:
                          (``consume``) — a preemption is an event, not a
                          state — so the resumed run completes.
 
-The port has the sites of ``nan_weight``, ``binned_overflow``,
-``oscillation``, ``vmem_starve`` and ``preempt_stage``.  ``shard_drop``
-acts in the distributed driver and ``slow_dispatch`` /
-``transient_batch_fail`` in the batched serving layer, neither of which
-the port has yet: their names stay registered, so one ``REPRO_FAULTS``
-value arms both packages, and arming them changes nothing here.
+The port has the sites of every point but ``shard_drop``: ``slow_dispatch``
+and ``transient_batch_fail`` fire in the batched engine's chunk dispatch
+(``core.batch._dispatch_guarded``), ``preempt_stage`` also at the serving
+tick (``launch.community_serve``).  ``shard_drop`` acts in the
+distributed driver, which the port does not have yet: its name stays
+registered, so one ``REPRO_FAULTS`` value arms both packages, and arming it
+changes nothing here.
 
 The drivers read the armed set once per run (``active()``) and thread it
 down (``EngineSpec.faults``, ``remap_and_coarsen_by(faults=...)``); the

@@ -26,8 +26,12 @@
   ``reset_after_s`` one half-open probe is allowed through — success
   closes the breaker, failure re-opens it.
 
-Only ``Preempted`` is on the port's path today (``core.louvain``'s stage
-boundary).  Everything here is host-side and thread-compatible.
+The batched engine (``core.batch``) runs each chunk under
+``call_with_deadline``; the service (``launch.community_serve``) uses the
+rest; ``Preempted`` also fires at ``core.louvain``'s stage boundary.  An
+abandoned worker thread runs its torch work on the default stream of the
+graph's device and sets no global state.  Everything here is host-side
+and thread-compatible.
 """
 from __future__ import annotations
 

@@ -34,7 +34,11 @@ weights, the weight-mass contract on uniform(0.5, 1.5) weights.  A
 graph that streams its W = 16 bucket and cascades, ``leiden(pallas)``
 equals ``leiden(ell)``; ``vmem_starve`` and ``binned_overflow`` give the
 clean run's answer on ``pallas``; and a ``pallas`` run killed at its first
-stage boundary and rerun resumes and equals the uninterrupted run.
+stage boundary and rerun resumes and equals the uninterrupted run.  On
+ego-net stand-ins ``louvain_batch`` / ``plp_batch`` on ``pallas`` launch
+the resident ``local_move`` kernels and ``bin_rank`` and equal the
+single-graph ``pallas`` runs and the ``ell`` batch, and the service's
+clean flush on the card equals its requests' single-graph runs.
 
 The resident Louvain kernel relies on the tile contract (``graph/ell.py``:
 a sentinel row holds only sentinels of weight 0): it meets traced tiles
@@ -1645,6 +1649,90 @@ def test_flash_attention_wrapper_rejects_bad_inputs(cuda_device):
         flash_attention_fwd_kernel(q.transpose(1, 2).contiguous()
                                    .transpose(1, 2), k, v)
     assert flash_attention_fwd_kernel.launches == launches
+
+
+def _egonets_on_card(dev, count, seed):
+    """``chip_smoke.py``'s ego-net stand-ins: SBM graphs of 25, 35 or 45
+    vertices, 3 to 5 blocks, p_in 0.35, p_out 0.03, per-graph seed
+    ``seed + 7919·i``."""
+    from repro_torch.graph.builders import from_numpy_edges
+    from repro_torch.graph.generators import sbm
+
+    out = []
+    for i in range(count):
+        n = (25, 35, 45)[i % 3]
+        u, v, _w, _t = sbm(n, 3 + i % 3, p_in=0.35, p_out=0.03,
+                           seed=seed + 7919 * i)
+        out.append(from_numpy_edges(u, v, n=n, device=dev))
+    return out
+
+
+BATCH_FIELDS = ("n_communities", "levels", "modularity",
+                "modularity_history", "sweeps_per_level", "n_comm_per_level",
+                "delta_n_per_level")
+
+
+@pytest.mark.cuda
+def test_batch_on_the_card_equals_single_graph_runs(cuda_device):
+    """``louvain_batch`` / ``plp_batch`` on ``pallas`` launch the resident
+    ``local_move`` kernels on the lanes' traced tiles (never a streamed
+    one) and ``bin_rank`` once per binned coarsening, and every lane
+    equals the single-graph ``pallas`` run and the ``ell`` batch."""
+    from repro_torch.core.batch import louvain_batch, plp_batch
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.core.plp import PLPConfig, plp
+
+    gs = _egonets_on_card(cuda_device, 20, 3)
+    kernels = (local_move_louvain_kernel, local_move_plp_kernel,
+               bin_rank_kernel, local_move_louvain_streamed_kernel,
+               local_move_plp_streamed_kernel)
+    before = [k.launches for k in kernels]
+    lv = louvain_batch(gs, LouvainConfig(backend="pallas"))
+    pl = plp_batch(gs, PLPConfig(backend="pallas"))
+    lm, lp, br, s1, s2 = (k.launches - b for k, b in zip(kernels, before))
+    assert lm > 0 and lp > 0 and s1 == s2 == 0
+    assert br == sum(r.aggregation_per_level.count("binned") for r in lv)
+    lv_ell = louvain_batch(gs, LouvainConfig(backend="ell"))
+    pl_ell = plp_batch(gs, PLPConfig(backend="ell"))
+    for i, g in enumerate(gs):
+        for ref in (louvain(g, LouvainConfig(backend="pallas")), lv_ell[i]):
+            _assert_runs_equal(lv[i], ref, BATCH_FIELDS)
+        for ref in (plp(g, PLPConfig(backend="pallas")), pl_ell[i]):
+            np.testing.assert_array_equal(pl[i].labels, ref.labels)
+            for f in ("iterations", "delta_n_history", "active_history"):
+                assert getattr(pl[i], f) == getattr(ref, f), f
+
+
+@pytest.mark.cuda
+def test_service_clean_flush_on_the_card(cuda_device):
+    """The service on the card, ``pallas`` configs, the smoke's traffic
+    (two signatures): every request answered ``ok``, equal to its
+    single-graph run, and the sequential ladder never taken."""
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.core.plp import PLPConfig, plp
+    from repro_torch.graph.builders import from_numpy_edges
+    from repro_torch.launch.community_serve import (CommunityServeEngine,
+                                                    smoke_requests)
+    from repro_torch.utils import telemetry
+
+    lcfg, pcfg = LouvainConfig(backend="pallas"), PLPConfig(backend="pallas")
+    eng = CommunityServeEngine(lcfg, pcfg, max_batch=8, device=cuda_device)
+    assert eng.device.type == "cuda"
+    counters = ("serve.batch_fallback_sequential",
+                "serve.breaker_routed_sequential")
+    before = [telemetry.get(c) for c in counters]
+    reqs = smoke_requests(12, 60000.0)
+    for r in reqs:
+        assert eng.submit(r) is None
+    resp = eng.flush()
+    assert [telemetry.get(c) for c in counters] == before
+    for req, r in zip(reqs, resp):
+        assert r.ok and r.request_id == req.request_id
+        g = from_numpy_edges(req.u, req.v, n=req.n, device=cuda_device)
+        ref = louvain(g, lcfg) if req.algo == "louvain" else plp(g, pcfg)
+        np.testing.assert_array_equal(r.labels, ref.labels)
+        if req.algo == "louvain":
+            _assert_runs_equal(r.result, ref, BATCH_FIELDS)
 
 
 @pytest.mark.cuda

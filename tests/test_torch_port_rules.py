@@ -5,7 +5,8 @@
   and no source file of the port names either in an import.
 * Without a card, the entry points refuse to build on the CPU silently:
   ``from_numpy_edges``/``datasets.load``, the language model's
-  ``init_params`` and ``ServeEngine`` with no ``device`` raise, and so
+  ``init_params`` and ``ServeEngine``, and ``CommunityServeEngine`` with
+  no ``device`` raise, and so
   does ``train.checkpoint.restore``; the cascade's resume restores onto
   the device of the graph it resumes.
 """
@@ -58,7 +59,11 @@ def test_every_module_is_visited():
               "repro_torch.configs.qwen3_1_7b", "repro_torch.configs.qwen3_8b",
               "repro_torch.launch.serve", "repro_torch.utils.faultinject",
               "repro_torch.utils.resilience", "repro_torch.utils.logging",
-              "repro_torch.train.checkpoint"):
+              "repro_torch.train.checkpoint", "repro_torch.core.batch",
+              "repro_torch.graph.packing",
+              "repro_torch.launch.community_serve",
+              "repro_torch.core.baselines",
+              "repro_torch.core.expert_placement"):
         assert m in mods
 
 
@@ -102,6 +107,25 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         datasets.load("ring-of-cliques")
     assert from_numpy_edges(u, v, device="cpu").src.device.type == "cpu"
+
+
+def test_community_service_defaults_to_the_card():
+    """``CommunityServeEngine`` resolves its device when it is built: with
+    no card and no ``device``, it raises there, not at the first request."""
+    from repro_torch.launch.community_serve import (CommunityRequest,
+                                                    CommunityServeEngine)
+
+    if torch.cuda.is_available():
+        assert CommunityServeEngine().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CommunityServeEngine()
+    eng = CommunityServeEngine(device="cpu")
+    u, v = np.array([0, 1, 2, 3]), np.array([1, 2, 0, 0])
+    assert eng.submit(CommunityRequest("a", u, v)) is None
+    assert eng._queue[0].graph.device.type == "cpu"
+    r, = eng.flush()
+    assert r.ok and r.labels.shape == (4,)
 
 
 def test_model_entry_points_default_to_the_card():
