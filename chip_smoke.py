@@ -111,6 +111,29 @@ Phases, each failing loudly (exit code 1, no result line):
    latent topics) onto 8 groups: ``louvain_placement`` on the card must be
    balanced (max − min ≤ 1) with a smaller cross-group share than
    ``random_placement``'s; both shares are logged.
+3d. Distributed (``[dist]`` lines), on com-dblp (phase 3's graph, scale
+   1.0).  The card's compute mode must be ``Default`` (several processes
+   share it).  The single-device ``louvain(g, LouvainConfig())`` and
+   ``leiden(...)`` (backend ``segment``) are the references.  (a) A
+   one-rank NCCL group in this process (``launch.ranks.init_group``):
+   shard-local and replicated ``distributed_louvain`` and shard-local
+   ``distributed_leiden`` must equal them field by field (labels,
+   communities, levels, Q and every per-level history); the per-level
+   driver and ``distributed_plp`` run too, as world-1 references.  (b)
+   Four gloo ranks spawned by ``launch.ranks.spawn_ranks``, all on
+   cuda:0, each building com-dblp on the card from the seed: in every
+   rank shard-local Louvain must equal (a), replicated Louvain must equal
+   shard-local, shard-local Leiden the single-device Leiden,
+   ``pipeline_fused=False`` and ``distributed_plp`` the world-1 runs,
+   ``halo_cap=8`` must degrade to replicated with the same answer, and
+   ``shard_drop`` must raise ``ShardError``.  Each rank reports through a
+   file its wall seconds per call and ``bin_rank``'s launches (its
+   counter read around each call: above 0 in every shard-local run, in
+   (a) too), ``comm_stats`` and ``partition_stats``; the phase's total
+   seconds are logged with the card.  ``bin_rank``'s row of the
+   ``kernels`` line carries the phase's launches as ``dist_launches``.
+   One card gives no multi-GPU number: (b) proves the shard-local code at
+   world 4, its collectives staged through the host by gloo.
 3b. Two-step scoring, the path the fused local_move kernels replaced: on
    every non-empty level-0 bucket of both graphs, the first and the last
    recorded sweep of PLP and Louvain, the (rows, W) tiles are gathered
@@ -900,6 +923,227 @@ def phase_leiden(torch, rt, graphs, runs):
             f"taken (level 0 and the coarse tiles) {taken}; aggregation "
             f"{res.aggregation_per_level}")
     return out
+
+
+# ------------------------------------------------ phase 3d: distributed
+
+# the compared fields of a DistLouvainResult; aggregation_per_level and
+# cascade_stages of the single-device LouvainResult have no counterpart
+DIST_FIELDS = ("labels", "n_communities", "levels", "modularity",
+               "sweeps_per_level", "n_comm_per_level", "modularity_history",
+               "delta_n_per_level")
+DIST_RANKS = 4
+DIST_HALO_CAP = 8           # small enough that com-dblp's level 0 overflows
+DIST_TIMEOUT_S = 600        # the 4-rank run, spawn to the last rank's exit
+DIST_COLLECTIVE_S = 120     # a rank waiting on a peer that has gone
+
+
+def dist_fields(r) -> dict:
+    """A DistLouvainResult as one rank reports it to the parent."""
+    return {f: getattr(r, f) for f in DIST_FIELDS + (
+        "coarsening", "comm_stats", "partition_stats")} | {
+        "degradations": [d["kind"] for d in r.run_report.degradations],
+        "timer_s": dict(r.timer.totals)}
+
+
+def dist_cases(g, group=None) -> dict:
+    """The distributed calls one rank makes on ``g``, each timed and with
+    its ``bin_rank`` launches counted (the counter read around the call):
+    shard-local and replicated Louvain, shard-local Leiden, the per-level
+    driver and PLP; with more than one rank also the halo-cap overflow and
+    ``shard_drop``."""
+    import torch
+
+    from repro_torch.core import distributed as dmod
+    from repro_torch.kernels.aggregation.kernel import bin_rank_kernel
+    from repro_torch.utils import faultinject
+    from repro_torch.utils.errors import ShardError
+
+    calls = {
+        "louvain_shard_local": lambda: dmod.distributed_louvain(g, group),
+        "louvain_replicated": lambda: dmod.distributed_louvain(
+            g, group, coarsening="replicated"),
+        "leiden_shard_local": lambda: dmod.distributed_leiden(g, group),
+        "louvain_per_level": lambda: dmod.distributed_louvain(
+            g, group, pipeline_fused=False),
+        "plp": lambda: dmod.distributed_plp(g, group)}
+    if torch.distributed.get_world_size(group) > 1:
+        calls["louvain_halo8"] = lambda: dmod.distributed_louvain(
+            g, group, halo_cap=DIST_HALO_CAP)
+    out = {}
+    for key, call in calls.items():
+        before = bin_rank_kernel.launches
+        _sync(torch, g)
+        t = time.perf_counter()
+        res = call()
+        _sync(torch, g)
+        out[key] = {"wall_s": time.perf_counter() - t,
+                    "bin_rank": bin_rank_kernel.launches - before,
+                    "result": (res if key == "plp" else dist_fields(res))}
+    if torch.distributed.get_world_size(group) > 1:
+        try:
+            with faultinject.inject("shard_drop"):
+                dmod.distributed_louvain(g, group)
+            out["shard_drop"] = "no error"
+        except ShardError as err:
+            out["shard_drop"] = type(err).__name__
+    return out
+
+
+def _sync(torch, g) -> None:
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_rank(rank: int, world: int, name: str, scale: float,
+              device: str) -> dict:
+    """One rank of phase 3d's gloo group (spawned): builds the graph on
+    ``device`` (the card) from the seed, as every rank does, and runs
+    ``dist_cases``."""
+    import torch
+
+    from repro_torch.graph import datasets
+
+    t = time.perf_counter()
+    g = datasets.load(name, scale=scale, device=torch.device(device)).graph
+    _sync(torch, g)
+    out = dist_cases(g)
+    out["load_s"] = time.perf_counter() - t - sum(
+        v["wall_s"] for v in out.values() if isinstance(v, dict))
+    out["device"] = str(g.device)
+    return out
+
+
+def _same_dist(a: dict, b, what: str) -> None:
+    """``a`` (a rank's report) equal to ``b`` (a report or a LouvainResult)
+    in every DIST_FIELDS entry."""
+    import numpy as np
+
+    for f in DIST_FIELDS:
+        x = a[f]
+        y = b[f] if isinstance(b, dict) else getattr(b, f)
+        if not (np.array_equal(x, y) if f == "labels" else x == y):
+            fail(f"{what} differ in {f}")
+
+
+def phase_dist(torch, rt, graphs, card: str, scale: float | None = None):
+    """(a) a one-rank NCCL group in this process and (b) a 4-rank gloo
+    group, every rank on cuda:0, run the distributed drivers on com-dblp;
+    each must equal the single-device ``segment`` runs."""
+    import numpy as np
+
+    name = COMMUNITY_GRAPH[0]
+    scale = COMMUNITY_GRAPH[1] if scale is None else scale
+    g = graphs[name][0]
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[dist] compute mode {mode!r} ({card})")
+    if mode.splitlines()[0] != "Default":
+        fail(f"the card's compute mode is {mode!r}: several ranks on one "
+             f"card need Default")
+    single, s_lv = timed_run(torch, lambda: rt.louvain(g, rt.LouvainConfig()))
+    single_ld, s_ld = timed_run(torch, lambda: rt.leiden(
+        g, rt.LouvainConfig()))
+    log(f"[dist] {name}: single-device segment louvain {s_lv:.2f} s "
+        f"(Q={single.modularity!r}, {single.levels} levels), leiden "
+        f"{s_ld:.2f} s (Q={single_ld.modularity!r}) ({card})")
+
+    # (a) one rank, NCCL, this process
+    with tempfile.TemporaryDirectory() as tmp:
+        group = rt.init_group("nccl", 0, 1, f"file://{tmp}/rendezvous",
+                              timeout_s=DIST_COLLECTIVE_S)
+        try:
+            one = dist_cases(g, group)
+        finally:
+            torch.distributed.destroy_process_group()
+    _same_dist(one["louvain_shard_local"]["result"], single,
+               f"{name}: NCCL world 1 shard-local and single-device louvain")
+    _same_dist(one["louvain_replicated"]["result"], single,
+               f"{name}: NCCL world 1 replicated and single-device louvain")
+    _same_dist(one["leiden_shard_local"]["result"], single_ld,
+               f"{name}: NCCL world 1 shard-local and single-device leiden")
+    for key in ("louvain_shard_local", "leiden_shard_local"):
+        if one[key]["bin_rank"] <= 0:
+            fail(f"{name}: NCCL world 1 {key} launched no bin_rank")
+    for key, v in one.items():
+        log(f"[dist] (a) nccl x1 {key}: {v['wall_s']:.2f} s, bin_rank "
+            f"{v['bin_rank']} launches ({card})")
+    res = one["louvain_shard_local"]["result"]
+    log(f"[dist] (a) nccl x1: shard-local/replicated louvain and leiden equal "
+        f"the single-device segment runs field by field; comm "
+        f"{res['comm_stats']}; partition {res['partition_stats']}")
+
+    # (b) four ranks, gloo, all on cuda:0, each building the graph itself
+    t = time.perf_counter()
+    ranks = rt.spawn_ranks(dist_rank, DIST_RANKS, backend="gloo",
+                           args=(name, scale, str(g.device)),
+                           timeout_s=DIST_TIMEOUT_S,
+                           collective_timeout_s=DIST_COLLECTIVE_S)
+    wall_b = time.perf_counter() - t
+    for r, rep in enumerate(ranks):
+        what = f"{name}: gloo rank {r}/{DIST_RANKS}"
+        if rep["device"] != str(g.device):
+            fail(f"{what} ran on {rep['device']}")
+        lv, rp = (rep[k]["result"] for k in ("louvain_shard_local",
+                                             "louvain_replicated"))
+        _same_dist(lv, one["louvain_shard_local"]["result"],
+                   f"{what} shard-local louvain and (a)")
+        _same_dist(rp, lv, f"{what} replicated and shard-local louvain")
+        _same_dist(rep["leiden_shard_local"]["result"], single_ld,
+                   f"{what} shard-local leiden and single-device leiden")
+        _same_dist(rep["louvain_per_level"]["result"],
+                   one["louvain_per_level"]["result"],
+                   f"{what} per-level louvain and world 1")
+        labels, hist = rep["plp"]["result"]
+        labels1, hist1 = one["plp"]["result"]
+        if not (np.array_equal(labels, labels1) and hist == hist1):
+            fail(f"{what} plp differs from world 1")
+        halo = rep["louvain_halo8"]["result"]
+        if halo["coarsening"] != "replicated" \
+                or halo["degradations"] != ["halo_overflow"]:
+            fail(f"{what} halo_cap={DIST_HALO_CAP} did not degrade to "
+                 f"replicated: {halo['coarsening']} {halo['degradations']}")
+        _same_dist(halo, rp, f"{what} halo-overflow retry and replicated")
+        if rep["shard_drop"] != "ShardError":
+            fail(f"{what} shard_drop gave {rep['shard_drop']!r}")
+        for key in ("louvain_shard_local", "leiden_shard_local",
+                    "louvain_halo8"):
+            if rep[key]["bin_rank"] <= 0:
+                fail(f"{what} {key} launched no bin_rank")
+        log(f"[dist] (b) gloo rank {r}: graph built in {rep['load_s']:.2f} "
+            f"s; " + ", ".join(
+                f"{k} {v['wall_s']:.2f} s / bin_rank {v['bin_rank']}"
+                for k, v in rep.items() if isinstance(v, dict)
+                and "wall_s" in v) + f" ({card})")
+    lv = ranks[0]["louvain_shard_local"]["result"]
+    cs = lv["comm_stats"]
+    log(f"[dist] (b) gloo x{DIST_RANKS} on one card: {wall_b:.2f} s from "
+        f"spawn to the last exit; every rank equals (a) and the "
+        f"single-device runs; halo_cap={DIST_HALO_CAP} degraded to "
+        f"replicated with the same answer; shard_drop raised ShardError on "
+        f"every rank ({card})")
+    log(f"[dist] (b) shard-local comm: gathered groups per level "
+        f"{cs['gathered_groups_per_level']}, actual bytes per level "
+        f"{cs['actual_bytes_per_level']} against the model "
+        f"{cs['bytes_per_level_model']}, halo labels {cs['halo_labels']}; "
+        f"partition {lv['partition_stats']}; timer {lv['timer_s']}")
+    total = time.perf_counter() - t0
+    log(f"[dist] phase 3d {total:.2f} s ({card})")
+    launches = sum(v["bin_rank"] for rep in [one] + ranks
+                   for v in rep.values() if isinstance(v, dict)
+                   and "bin_rank" in v)
+    return {"single_louvain_s": s_lv, "single_leiden_s": s_ld,
+            "nccl_x1": {k: {"wall_s": v["wall_s"], "bin_rank": v["bin_rank"]}
+                        for k, v in one.items()},
+            "gloo_ranks": [{k: ({"wall_s": v["wall_s"],
+                                 "bin_rank": v["bin_rank"]}
+                                if isinstance(v, dict) else v)
+                            for k, v in rep.items()} for rep in ranks],
+            "gloo_wall_s": wall_b, "comm_stats": cs,
+            "partition_stats": lv["partition_stats"],
+            "bin_rank_launches": launches, "total_s": total}
 
 
 # ------------------------------------------------ phase 3c: batch and serve
@@ -2335,6 +2579,7 @@ def main(argv) -> int:
         from repro_torch.kernels.common import capacity_signature
         from repro_torch.launch.community_serve import (
             CommunityServeEngine, smoke_requests)
+        from repro_torch.launch.ranks import init_group, spawn_ranks
         from repro_torch.models import api as model_api
         from repro_torch.models.common import init_params, param_count
     except ImportError as err:
@@ -2362,13 +2607,15 @@ def main(argv) -> int:
         from_numpy_edges=from_numpy_edges, sbm=sbm,
         capacity_signature=capacity_signature,
         CommunityServeEngine=CommunityServeEngine,
-        smoke_requests=smoke_requests)
+        smoke_requests=smoke_requests, init_group=init_group,
+        spawn_ranks=spawn_ranks)
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
     phase_build(build)
     main_out, recs, graphs, runs = phase_main(torch, rt)
     main_out["leiden"] = phase_leiden(torch, rt, graphs, runs)
     main_out["serve"] = phase_serve(torch, rt, card)
+    main_out["dist"] = phase_dist(torch, rt, graphs, card)
     main_out["two_step"], captured, seg_inputs = phase_two_step(
         args, torch, rt, recs, graphs)
     clocks("before phase 4")
@@ -2376,6 +2623,10 @@ def main(argv) -> int:
                             main_out["coarse_launches"])
     kernels += phase_scored_tiles(args, torch, rt, captured, seg_inputs,
                                   main_out["two_step"]["launches"])
+    for row in kernels:
+        if row["name"] == "bin_rank":
+            # phase 3d's launches, (a) and every rank of (b)
+            row["dist_launches"] = main_out["dist"]["bin_rank_launches"]
     clocks("after phase 4")
     main_out["lm"], lm_kernels = phase_lm(args, torch, rt)
     kernels += lm_kernels

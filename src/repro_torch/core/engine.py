@@ -5,6 +5,9 @@
   ``plp``       ``segment``      sort + segment GroupBy over the edge list
   ``louvain``   ``ell``          degree-bucketed ELL tiles, plain PyTorch
                 ``pallas``       the same tiles through the CUDA kernels
+                ``distributed``  the segment GroupBy over one rank's edge
+                                 shard, merged across a ``torch.distributed``
+                                 process group (``make_distributed_step``)
 
 An evaluator proposes moves — ``(proposal[n], propose[n])`` per vertex — and
 the engine owns everything around it: the Luby move-probability coin, the
@@ -20,6 +23,14 @@ The JAX package runs a whole phase as one jitted ``lax.while_loop``
 are the same Python loop over eager tensor ops with one ΔN readback per
 sweep — the loop condition needs it — so both give identical results;
 ``fused`` is accepted so one config drives both packages.
+
+The ``distributed`` backend has no ``SweepEngine``: ``core.distributed``
+drives ``distributed_phase`` on each rank's shard.  The JAX package's
+``shard_map`` collectives map onto the helpers below — ``psum`` onto
+``all_reduce_sum``, ``pmax`` onto ``all_reduce_max``, a tiled
+``all_gather`` onto ``all_gather_cat`` and an untiled one onto
+``all_gather_stack`` — over a process group whose size is the JAX mesh's
+device count and whose rank is its linear device index.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ConfigBase
 from repro_torch.core import moves
@@ -40,7 +52,7 @@ from repro_torch.utils.faultinject import FAULT_POINTS
 _GATE_CONST = {"plp": (0x85EBCA6B, 313), "louvain": (0x9E3779B1, 101)}
 
 EVALUATORS = ("plp", "louvain")
-BACKENDS = ("segment", "ell", "pallas")
+BACKENDS = ("segment", "ell", "pallas", "distributed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +61,7 @@ class EngineSpec(ConfigBase):
     ``sweep < max_sweeps and ΔN > threshold``."""
 
     evaluator: str = "plp"       # plp | louvain
-    backend: str = "segment"     # segment | ell | pallas
+    backend: str = "segment"     # segment | ell | pallas | distributed
     max_sweeps: int = 100
     threshold: int = 0           # paper's ΔN threshold θ
     tie_eps: float = 0.25        # PLP tie noise amplitude
@@ -307,6 +319,9 @@ class SweepEngine:
     per-level tile instead."""
 
     def __init__(self, g: Graph, spec: EngineSpec, ell=None):
+        if spec.backend == "distributed":
+            raise ValueError(
+                "use distributed_phase() for the distributed backend")
         self.g = g
         self.spec = spec
         self.ell = None
@@ -348,3 +363,134 @@ class SweepEngine:
         return PhaseResult(labels, active, s,
                            [int(x) for x in dn_hist],
                            [int(x) for x in act_hist])
+
+
+# ----------------------------------------------------------------- distributed
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.psum``: the element-wise sum over the group's ranks, as a new
+    tensor.  gloo reduces no ``bool``: callers cast flags to int32."""
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.pmax``: the element-wise maximum over the group's ranks."""
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group) -> list:
+    """Every rank's ``x``, in rank order.  The list form of
+    ``all_gather`` works on every backend and device; a ``bool`` tensor
+    travels as uint8."""
+    wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    parts = [torch.empty_like(wire)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return [p.to(torch.bool) for p in parts] if x.dtype == torch.bool \
+        else parts
+
+
+def all_gather_cat(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)``: the ranks' tensors concatenated
+    along the first axis, in rank order."""
+    return torch.cat(_all_gather(x, group))
+
+
+def all_gather_stack(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=False)``: the ranks' tensors stacked on a
+    new leading axis, in rank order."""
+    return torch.stack(_all_gather(x, group))
+
+
+def make_distributed_step(spec: EngineSpec, group, n: int, src, dst, w,
+                          emask, deg, vol_v, vmask, restrict=None):
+    """One sweep step over this rank's edge shard: evaluate on the local
+    in-edges with the segment evaluator, merge the per-owner proposals
+    across the group, gate, adopt, propagate the frontier.
+
+    ``emask`` is this rank's ownership mask: every vertex's in-edges lie on
+    one rank, so the all-reduced sum of the proposals is a disjoint union.
+    ``deg``/``vol_v`` are the level's Louvain invariants (unused by PLP);
+    ``restrict`` confines Louvain moves to vertices sharing its value
+    (Leiden's refinement), as in ``_evaluate_segment``.  Labels and the
+    frontier are replicated: every rank computes the same ones."""
+    mult, salt = _GATE_CONST[spec.evaluator]
+    dstc = torch.clamp(dst, 0, n - 1)
+    srcc = torch.clamp(src, 0, n - 1)
+    # the edges moves are scored on; the frontier reads all owned edges
+    scored = emask if restrict is None else \
+        emask & (restrict[srcc] == restrict[dstc])
+
+    def evaluate(labels, active, it: int, seed: int):
+        valid = scored & active[dstc]
+        if spec.evaluator == "plp":
+            noise_it = it if spec.reshuffle_ties else 0
+            best_score, best_lab, cur_score = moves.plp_best_labels(
+                src, dst, w, valid, labels, n, noise_it, seed, spec.tie_eps)
+            propose_l = active & (best_lab >= 0) & (best_score > cur_score)
+            proposal_l = best_lab
+        else:
+            # the O(n) community state, recomputed on every rank alike
+            vol_com, size_com = moves.community_aux(labels, deg, vmask, n)
+            best_gain, best_cand = moves.louvain_best_moves(
+                src, dst, w, valid, labels, deg, vol_com, size_com, vol_v,
+                n, singleton_rule=spec.singleton_rule)
+            propose_l = active & (best_cand >= 0) & (best_gain > 0.0)
+            proposal_l = best_cand
+        # one all-reduce carries both: the disjoint-owner merge of the
+        # proposals and the count of ranks that propose
+        both = all_reduce_sum(torch.stack([
+            torch.where(propose_l, proposal_l, 0).to(torch.int32),
+            propose_l.to(torch.int32)]), group)
+        propose = both[1] > 0
+        return torch.where(propose, both[0], -1), propose
+
+    def frontier(changed):
+        contrib = emask & changed[srcc]
+        hit = torch.zeros(n + 1, dtype=torch.int32, device=changed.device)
+        hit[torch.where(contrib, dstc, n).long()] = 1
+        return changed | (all_reduce_sum(hit[:n], group) > 0)
+
+    def step(labels, active, it: int, seed: int):
+        proposal, propose = evaluate(labels, active, it, seed)
+        adopt = propose
+        if spec.move_prob < 1.0:
+            adopt = adopt & luby_move_gate(n, it, seed, spec.move_prob, mult,
+                                           salt, labels.device)
+        new_labels = torch.where(adopt, proposal, labels)
+        changed = adopt & (new_labels != labels)
+        delta_n = torch.sum(changed.to(torch.int32))
+        next_active = frontier(changed) if spec.use_frontier else vmask
+        return new_labels, next_active, delta_n
+
+    return step
+
+
+def distributed_phase(spec: EngineSpec, group, n: int, shard, labels,
+                      active, it0: int, seed: int, deg, vol_v, n_valid: int,
+                      restrict=None) -> PhaseResult:
+    """One local-moving phase on this rank's ``shard`` = (src, dst, w,
+    emask): the step above until ΔN ≤ threshold or the sweep budget.  ΔN
+    is computed from replicated state, so it is the same on every rank and
+    all ranks leave the loop after the same sweep."""
+    src, dst, w, emask = shard
+    vmask = torch.arange(n, device=labels.device) < n_valid
+    step = make_distributed_step(spec, group, n, src, dst, w, emask, deg,
+                                 vol_v, vmask, restrict)
+    dn_hist, act_hist = [], []
+    s = 0
+    while s < spec.max_sweeps:
+        labels, active, dn = step(labels, active, (it0 + s) & 0xFFFFFFFF,
+                                  seed)
+        dn_hist.append(dn)
+        act_hist.append(torch.sum(active.to(torch.int32)))
+        s += 1
+        if int(dn) <= spec.threshold:
+            break
+    return PhaseResult(labels, active, s, [int(x) for x in dn_hist],
+                       [int(x) for x in act_hist])

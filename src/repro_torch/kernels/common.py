@@ -158,6 +158,51 @@ def pick_bin_width(n_cap: int, m_cap: int) -> int:
     return pick_ell_width(None, n_cap, m_cap)
 
 
+# ------------------------------------------------------- distributed capacity
+
+# Per-shard partial-coarsen capacity floor (the JAX package's): below it the
+# fixed costs of a collective dominate any memory win, so shards never
+# shrink their partial-edge buffers past it.
+HALO_CAP_FLOOR = 256
+
+
+def pick_halo_cap(m_pad: int, n_devices: int) -> int:
+    """Static per-shard capacity of the partial coarse edge lists of the
+    distributed pipeline's shard-local coarsening (``core.distributed``).
+
+    A shard's partial coarsening emits at most ``m_pad`` distinct
+    (community, community) edges; half of that (at least
+    ``HALO_CAP_FLOOR``, a multiple of 8, never above ``m_pad``) is the
+    bound.  The merged coarse capacity is ``n_devices · cap``.  A shard
+    past the cap sets the all-reduced overflow flag and the driver reruns
+    replicated, so the cap changes memory and traffic, never results."""
+    if m_pad <= 0 or n_devices <= 0:
+        raise ValueError(
+            f"need positive m_pad/n_devices, got {m_pad}/{n_devices}")
+    cap = max(HALO_CAP_FLOOR, m_pad // 2)
+    return min(int(m_pad), int(cdiv(cap, 8) * 8))
+
+
+# Wire-format byte widths of the traffic model: one edge is (src int32,
+# dst int32, w float32) plus a 1-byte validity mask; one label word is int32.
+EDGE_WIRE_BYTES = 13
+LABEL_WIRE_BYTES = 4
+
+
+def dist_comm_bytes_per_level(n: int, m_pad: int, h_cap: int,
+                              n_devices: int) -> dict:
+    """Modelled per-level collective payload (bytes) of both coarsening
+    modes: ``replicated`` gathers the padded edge list once (D·m_pad
+    edges); ``shard_local`` moves the contiguization table (n label words
+    and D stripe counts) and the gathered partial lists (D·h_cap edges)."""
+    return {
+        "replicated": n_devices * m_pad * EDGE_WIRE_BYTES,
+        "shard_local": (n * LABEL_WIRE_BYTES
+                        + n_devices * LABEL_WIRE_BYTES
+                        + n_devices * h_cap * EDGE_WIRE_BYTES),
+    }
+
+
 # ------------------------------------------------------------ capacity buckets
 
 # Static capacity menu of the batched many-graph engine (``core.batch``), the

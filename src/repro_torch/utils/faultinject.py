@@ -18,7 +18,7 @@ encounter:
                          forever (Lu & Halappanavar, arXiv:1410.1237 §4).
 * ``vmem_starve``      — the shared-memory budget of the table-layout policy
                          collapses to 1 KB (``kernels.common``).
-* ``shard_drop``       — one device's edge shard is zeroed after
+* ``shard_drop``       — rank 0's edge shard is zeroed after
                          partitioning, modelling a lost worker.
 * ``slow_dispatch``    — a batch dispatch stalls for
                          ``REPRO_SLOW_DISPATCH_S`` seconds (default 0.25)
@@ -33,13 +33,13 @@ encounter:
                          (``consume``) — a preemption is an event, not a
                          state — so the resumed run completes.
 
-The port has the sites of every point but ``shard_drop``: ``slow_dispatch``
-and ``transient_batch_fail`` fire in the batched engine's chunk dispatch
+The port has the sites of every point: ``slow_dispatch`` and
+``transient_batch_fail`` fire in the batched engine's chunk dispatch
 (``core.batch._dispatch_guarded``), ``preempt_stage`` also at the serving
-tick (``launch.community_serve``).  ``shard_drop`` acts in the
-distributed driver, which the port does not have yet: its name stays
-registered, so one ``REPRO_FAULTS`` value arms both packages, and arming it
-changes nothing here.
+tick (``launch.community_serve``), and ``shard_drop`` in the distributed
+drivers' partitioning (``core.distributed._prepare_partition``): it masks
+rank 0's edge shard, every rank's coverage guard raises ``ShardError``
+before any compute, and ``fault.shard_drop.injected`` moves.
 
 The drivers read the armed set once per run (``active()``) and thread it
 down (``EngineSpec.faults``, ``remap_and_coarsen_by(faults=...)``); the

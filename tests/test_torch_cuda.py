@@ -39,6 +39,10 @@ ego-net stand-ins ``louvain_batch`` / ``plp_batch`` on ``pallas`` launch
 the resident ``local_move`` kernels and ``bin_rank`` and equal the
 single-graph ``pallas`` runs and the ``ell`` batch, and the service's
 clean flush on the card equals its requests' single-graph runs.
+Shard-local ``distributed_louvain`` in two gloo ranks spawned on cuda:0
+and in a one-rank NCCL group equals the single-device ``segment``
+``louvain()`` bit for bit on unit and integer weights, ``bin_rank``
+launching in every rank and every collective seeing card tensors.
 
 The resident Louvain kernel relies on the tile contract (``graph/ell.py``:
 a sentinel row holds only sentinels of weight 0): it meets traced tiles
@@ -1756,3 +1760,107 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs):
     assert np.isfinite(b).all()
     diff = np.abs(a - b).max(axis=-1)
     assert np.all(diff <= 2.0 ** -5 * np.abs(a).max(axis=-1))
+
+
+DIST_FIELDS = ("labels", "n_communities", "levels", "modularity",
+               "sweeps_per_level", "n_comm_per_level", "modularity_history",
+               "delta_n_per_level")
+
+
+def _dist_graph(weights, dev):
+    """A seeded SBM on ``dev``, unit weights or integers 1..8."""
+    from repro_torch.graph.builders import from_numpy_edges
+    from repro_torch.graph.generators import sbm
+
+    u, v, w, _ = sbm(600, 8, p_in=0.3, p_out=0.01, seed=5)
+    if weights == "int":
+        w = np.random.default_rng(5).integers(1, 9, u.shape[0]).astype(
+            np.float64)
+    return from_numpy_edges(u, v, w, device=dev)
+
+
+def _dist_report(res, launches, g):
+    return {f: getattr(res, f) for f in DIST_FIELDS} | {
+        "bin_rank": launches, "device": str(g.device),
+        "coarsening": res.coarsening}
+
+
+def _dist_card_rank(rank, world, weights):
+    """One rank of the gloo group on cuda:0 (spawned)."""
+    from repro_torch.core.distributed import distributed_louvain
+
+    g = _dist_graph(weights, torch.device("cuda"))
+    before = bin_rank_kernel.launches
+    res = distributed_louvain(g)
+    return _dist_report(res, bin_rank_kernel.launches - before, g)
+
+
+def _assert_dist_equal(rep, ref):
+    for f in DIST_FIELDS:
+        if f == "labels":
+            np.testing.assert_array_equal(rep[f], ref.labels)
+        else:
+            assert rep[f] == getattr(ref, f), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["unit", "int"])
+def test_distributed_louvain_two_gloo_ranks_on_one_card(cuda_device,
+                                                        weights):
+    """Two gloo ranks, both on cuda:0: shard-local ``distributed_louvain``
+    equals the single-device ``segment`` ``louvain()`` bit for bit (labels,
+    Q, every history) on unit and on integer weights, and ``bin_rank``
+    launched in every rank."""
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.launch.ranks import spawn_ranks
+
+    ranks = spawn_ranks(_dist_card_rank, 2, backend="gloo",
+                        args=(weights,), timeout_s=300)
+    ref = louvain(_dist_graph(weights, cuda_device), LouvainConfig())
+    for rep in ranks:
+        assert rep["device"] == "cuda:0" and rep["coarsening"] == "shard_local"
+        assert rep["bin_rank"] > 0
+        _assert_dist_equal(rep, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["unit", "int"])
+def test_distributed_louvain_one_nccl_rank(cuda_device, weights, tmp_path,
+                                           monkeypatch):
+    """A one-rank NCCL group in this process: shard-local
+    ``distributed_louvain`` equals the single-device ``segment``
+    ``louvain()`` bit for bit, launches ``bin_rank``, and every collective
+    sees tensors on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import distributed_louvain
+    from repro_torch.core.louvain import LouvainConfig, louvain
+    from repro_torch.launch.ranks import init_group
+
+    g = _dist_graph(weights, cuda_device)
+    ref = louvain(g, LouvainConfig())
+    seen = set()
+    real = {k: getattr(dist, k) for k in ("all_reduce", "all_gather")}
+
+    def spy(name):
+        def wrapped(*a, **kw):
+            for x in a:
+                for t in (x if isinstance(x, list) else [x]):
+                    if isinstance(t, torch.Tensor):
+                        seen.add(t.device.type)
+            return real[name](*a, **kw)
+        return wrapped
+
+    init_group("nccl", 0, 1, f"file://{tmp_path}/rendezvous")
+    try:
+        for k in real:
+            monkeypatch.setattr(dist, k, spy(k))
+        before = bin_rank_kernel.launches
+        res = distributed_louvain(g)
+        launches = bin_rank_kernel.launches - before
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
+    assert seen == {"cuda"}
+    assert launches > 0 and res.coarsening == "shard_local"
+    _assert_dist_equal(_dist_report(res, launches, g), ref)

@@ -103,7 +103,12 @@ def test_louvain_phase_matches_jax(backend):
 
 def test_engine_rejects_unported_options():
     with pytest.raises(ValueError, match="backend"):
-        EngineSpec(backend="distributed")
+        EngineSpec(backend="mpi")
+    # the distributed backend is driven by core.distributed, not SweepEngine
+    spec = EngineSpec(evaluator="louvain", backend="distributed")
+    with pytest.raises(ValueError, match="distributed_phase"):
+        SweepEngine(to_torch(from_numpy_edges(np.array([0, 1, 2]),
+                                             np.array([1, 2, 0]))), spec)
     with pytest.raises(ValueError, match="table_mode"):
         EngineSpec(backend="pallas", table_mode="windowed")
     assert EngineSpec(backend="pallas", table_mode="streamed").table_mode \

@@ -9,6 +9,11 @@
   no ``device`` raise, and so
   does ``train.checkpoint.restore``; the cascade's resume restores onto
   the device of the graph it resumes.
+* The distributed drivers keep every tensor on the graph's device (each
+  collective and coarsening sees it there), an ``nccl`` group without a
+  card is refused, and so is a graph off the card in an ``nccl`` group;
+  ``nccl`` ranks bind cards of their own, and a group with more ranks
+  than cards is refused.
 """
 import ast
 import os
@@ -63,7 +68,9 @@ def test_every_module_is_visited():
               "repro_torch.graph.packing",
               "repro_torch.launch.community_serve",
               "repro_torch.core.baselines",
-              "repro_torch.core.expert_placement"):
+              "repro_torch.core.expert_placement",
+              "repro_torch.graph.partition", "repro_torch.core.distributed",
+              "repro_torch.launch.ranks"):
         assert m in mods
 
 
@@ -190,3 +197,106 @@ def test_resume_restores_onto_the_graphs_device(tmp_path, monkeypatch):
     assert k_ == 1
     for t in (g_k.src, g_k.w, assign, init_com, macro):
         assert t.device == g.device
+
+
+def _one_rank_gloo(tmp_path):
+    from repro_torch.launch.ranks import init_group
+
+    return init_group("gloo", 0, 1, f"file://{tmp_path}/rendezvous")
+
+
+def test_distributed_calls_stay_on_the_graphs_device(tmp_path, monkeypatch):
+    """Every collective of ``distributed_louvain``/``distributed_leiden``/
+    ``distributed_plp`` (both coarsenings and the per-level driver) and
+    every coarsening they run sees tensors on the graph's device — the card
+    where there is one — and the results come back as host numpy."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as dmod
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    n, k = 60, 6
+    edges = [(c * k + i, c * k + j) for c in range(n // k)
+             for i in range(k) for j in range(i + 1, k)]
+    edges += [(c * k, ((c + 1) % (n // k)) * k) for c in range(n // k)]
+    e = np.array(edges)
+    g = from_numpy_edges(e[:, 0], e[:, 1], n=n, device=dev)
+    seen = set()
+
+    def spy(fn):
+        def wrapped(*a, **kw):
+            for x in list(a) + list(kw.values()):
+                for t in (x if isinstance(x, list) else [x]):
+                    if isinstance(t, torch.Tensor):
+                        seen.add(t.device)
+                    elif hasattr(t, "src"):
+                        seen.add(t.src.device)
+            return fn(*a, **kw)
+        return wrapped
+
+    for name in ("all_reduce", "all_gather"):
+        monkeypatch.setattr(dist, name, spy(getattr(dist, name)))
+    monkeypatch.setattr(dmod, "binned_coarsen", spy(dmod.binned_coarsen))
+    _one_rank_gloo(tmp_path)
+    try:
+        for kw in ({}, {"coarsening": "replicated"},
+                   {"pipeline_fused": False}):
+            res = dmod.distributed_louvain(g, **kw)
+            assert isinstance(res.labels, np.ndarray)
+        assert isinstance(dmod.distributed_leiden(g).labels, np.ndarray)
+        labels, _ = dmod.distributed_plp(g)
+        assert isinstance(labels, np.ndarray)
+    finally:
+        dist.destroy_process_group()
+    assert seen == {g.device}
+
+
+def test_nccl_needs_the_card(tmp_path, monkeypatch):
+    """``init_group("nccl")`` without a card raises and starts no group;
+    a graph off the card in an ``nccl`` group is refused by the drivers
+    before they partition it."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as dmod
+    from repro_torch.launch.ranks import init_group
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_group("nccl", 0, 1, f"file://{tmp_path}/nccl")
+        assert not dist.is_initialized()
+    u, v = np.array([0, 1, 2]), np.array([1, 2, 0])
+    g = from_numpy_edges(u, v, device="cpu")
+    _one_rank_gloo(tmp_path)
+    try:
+        monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+        with pytest.raises(ValueError, match="on the card"):
+            dmod.distributed_louvain(g)
+        with pytest.raises(ValueError, match="on the card"):
+            dmod.distributed_plp(g)
+    finally:
+        monkeypatch.undo()
+        dist.destroy_process_group()
+
+
+def test_nccl_ranks_bind_cards_of_their_own(monkeypatch):
+    """Each ``nccl`` rank binds ``cuda:(rank mod the card count)``, so two
+    ranks on two cards never share one; more ranks than cards is refused
+    before a group starts."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.ranks import init_group
+
+    bound, started = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", bound.append)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: started.append(
+                            (backend, kw["rank"], kw["world_size"])))
+    for rank in (0, 1):
+        init_group("nccl", rank, 2, "file:///unused")
+    assert bound == [0, 1]
+    assert started == [("nccl", 0, 2), ("nccl", 1, 2)]
+    with pytest.raises(ValueError, match="a card a rank"):
+        init_group("nccl", 0, 3, "file:///unused")
+    assert bound == [0, 1] and len(started) == 2
