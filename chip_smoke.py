@@ -238,6 +238,31 @@ Phases, each failing loudly (exit code 1, no result line):
    ``torch.backends.cuda.matmul.allow_tf32`` is off: with it on, the
    plain version's float32 products would themselves run in TF32.
 
+5t. Training (``[train]`` lines), on phase 5's qwen3-1.7b f32 master
+   weights: three ``make_train_step`` steps (AdamW, ``grad_accum`` 4,
+   ``remat="full"``) on ``ShapeCell("train_chip", "train", 4096, 8)``
+   (``train_4k``'s global batch of 256 cut to 8, microbatch 2, to fit one
+   card's 80 GB) with ``train.data.make_batch``'s batches.  Both flash
+   kernels' counters are set to 0 before each step and read after it:
+   exactly 2 x 28 x 4 = 224 wgmma launches (every layer's forward and its
+   remat recompute, a microbatch) and none of the float32 kernel.  Loss
+   and grad norm finite; step 0's loss beside ln V; step s, tokens/s,
+   ``model_flops(cell)`` / step time as a share of 989 TFLOP/s, peak
+   memory (the card's, and training's own: the peak less what earlier
+   phases left allocated, the weights kept), and the device time of
+   attention's plain backward (CUDA events
+   around every ``FlashAttentionFn.backward``) as a share of the step.
+   Then the gradient check: at full width and 2 layers, on one
+   microbatch, the kernel path's loss and every gradient leaf against the
+   same step with attention's plain mirror (``_flash_attention_chunked``)
+   on the card, within ``tests/test_torch_cuda.py``'s tolerances (loss
+   2^-8 relative, each leaf 2^-5 of its largest magnitude).  Last the
+   resume check at the REDUCED config on the card (``launch.train.train``):
+   4 steps with a checkpoint at 4, a resumed run to 6 and two
+   uninterrupted runs of 6 must end at the same loss and parameters bit
+   for bit.  The ``kernels`` rows of the flash kernels carry the three
+   steps' launches as ``train_launches``.
+
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -312,6 +337,20 @@ TF32_TERMS = 3
 # cores in split TF32)
 WGMMA = "flash_attention_fwd_wgmma"
 F32_FLASH = "flash_attention_fwd"
+
+# Phase 5t: train steps of LM_ARCH at full width and depth on train_4k's
+# sequence length, its global batch of 256 cut to 8 (grad_accum 4,
+# microbatch 2) to fit one card's 80 GB; the gradient check's depth; the
+# REDUCED resume check's (seq_len, global batch), checkpoint step and
+# steps; the gradient check's tolerances, tests/test_torch_cuda.py's.
+TRAIN_CELL = ("train_chip", "train", 4096, 8)
+TRAIN_STEPS = 3
+TRAIN_GRAD_LAYERS = 2
+TRAIN_RESUME_SHAPE = (64, 4)
+TRAIN_RESUME_AT = 4
+TRAIN_RESUME_STEPS = 6
+TRAIN_LOSS_REL = 2.0 ** -8
+TRAIN_GRAD_REL = 2.0 ** -5
 
 # device_ms holds the stream with a spin kernel while the host enqueues
 # the timed calls: the spin starts at twice the host's enqueue time (at
@@ -2351,7 +2390,221 @@ def phase_lm(args, torch, rt):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "per_shape": rows[dt]})
     out["kernel_times"] = {str(dt)[6:]: r for dt, r in rows.items()}
-    return out, kernels
+    return out, kernels, params
+
+
+def _leaf_grads(torch, rt, model, params, batch):
+    """(loss, every gradient leaf) of ``model.loss_fn`` on ``batch``,
+    the parameters made leaves that require grad."""
+    leaves = rt.tree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = model.loss_fn(params, batch)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return loss.detach(), grads
+
+
+def train_grad_check(torch, rt, c, params, batch):
+    """At full width and TRAIN_GRAD_LAYERS layers, on one microbatch: the
+    kernel path's loss and every gradient leaf against the same step with
+    attention's plain mirror (``_flash_attention_chunked``) on the card,
+    loss within TRAIN_LOSS_REL of it and each leaf within TRAIN_GRAD_REL of
+    its largest magnitude (``tests/test_torch_cuda.py``'s tolerances)."""
+    c2 = c.replace(n_layers=TRAIN_GRAD_LAYERS)
+    model = rt.model_api.build(c2)
+    p2 = rt.tree.tree_map(lambda t: t.detach().clone(), {
+        "embed": params["embed"], "final_norm": params["final_norm"],
+        "layers": {k: v[:TRAIN_GRAD_LAYERS] for k, v in
+                   params["layers"].items()}})
+    mb = {k: v[:LM_PREFILL[0]] for k, v in batch.items()}
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    kern.launches = kern.wgmma_launches = 0
+    k_loss, k_grads = _leaf_grads(torch, rt, model, p2, mb)
+    launches = flash_launches(kern)
+    if launches != {WGMMA: 2 * TRAIN_GRAD_LAYERS, F32_FLASH: 0}:
+        fail(f"the gradient check's kernel path launched {launches}")
+    entry = rt.attention.flash_attention
+    rt.attention.flash_attention = \
+        lambda q, k, v, causal=True, chunk=1024: \
+        rt.attention._flash_attention_chunked(q, k, v, causal, chunk)
+    try:
+        p_loss, p_grads = _leaf_grads(torch, rt, model, p2, mb)
+    finally:
+        rt.attention.flash_attention = entry
+    if flash_launches(kern) != launches:
+        fail("the plain mirror's gradient check launched a flash kernel")
+    keys = list(rt.tree.flatten_dict(p2))
+    worst = {}
+    for key, a, b in zip(keys, p_grads, k_grads):
+        if not torch.isfinite(b).all():
+            fail(f"[train] gradient {key} of the kernel path is not finite")
+        rel = float((a - b).abs().max() / a.abs().max())
+        worst[key] = rel
+        if rel > TRAIN_GRAD_REL:
+            fail(f"[train] gradient {key}: kernel path differs from the "
+                 f"plain mirror's by {rel:.4g} of its largest magnitude "
+                 f"(tolerance {TRAIN_GRAD_REL})")
+    loss_rel = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    if loss_rel > TRAIN_LOSS_REL:
+        fail(f"[train] loss {float(k_loss)} of the kernel path against "
+             f"{float(p_loss)} of the plain mirror (tolerance "
+             f"{TRAIN_LOSS_REL} relative)")
+    log(f"[train] gradient check, {TRAIN_GRAD_LAYERS} layers at full width, "
+        f"one microbatch {tuple(mb['tokens'].shape)}: loss {float(k_loss):.6f} "
+        f"(kernel) vs {float(p_loss):.6f} (plain mirror), relative "
+        f"{loss_rel:.3g}; worst gradient leaf {max(worst, key=worst.get)} "
+        f"at {max(worst.values()):.4g} of its largest magnitude (tolerance "
+        f"{TRAIN_GRAD_REL}); flash launches {launches}")
+    return {"layers": TRAIN_GRAD_LAYERS, "kernel_loss": float(k_loss),
+            "plain_loss": float(p_loss), "loss_rel": loss_rel,
+            "grad_rel": worst}
+
+
+def train_resume_check(torch, rt, dev):
+    """At the REDUCED config on the card: 4 steps with a checkpoint at 4,
+    then a resumed run to 6; two uninterrupted runs of 6.  The three final
+    losses and parameter trees must be equal bit for bit."""
+    c = rt.configs.get(LM_ARCH, reduced=True)
+    cell = rt.ShapeCell("train_resume", "train", *TRAIN_RESUME_SHAPE)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rt.train_launcher.train(c, cell, steps=TRAIN_RESUME_AT,
+                                ckpt_dir=f"{tmp}/a", ckpt_every=TRAIN_RESUME_AT,
+                                log_every=0, device=dev)
+        if rt.checkpoint.latest_step(f"{tmp}/a") != TRAIN_RESUME_AT:
+            fail("[train] the interrupted run committed no checkpoint")
+        for name, ckpt_dir in (("resumed", f"{tmp}/a"),
+                               ("uninterrupted", None),
+                               ("uninterrupted again", None)):
+            params, _, hist = rt.train_launcher.train(
+                c, cell, steps=TRAIN_RESUME_STEPS, ckpt_dir=ckpt_dir,
+                log_every=0, device=dev)
+            runs[name] = (hist, rt.tree.tree_leaves(params))
+    hist_r, leaves_r = runs["resumed"]
+    if len(hist_r) != TRAIN_RESUME_STEPS - TRAIN_RESUME_AT:
+        fail(f"[train] the resumed run ran {len(hist_r)} steps")
+    losses = {k: h[-1]["loss"] for k, (h, _) in runs.items()}
+    for name, (hist, leaves) in runs.items():
+        same = all(torch.equal(a, b) for a, b in zip(leaves, leaves_r))
+        if hist[-1]["loss"] != hist_r[-1]["loss"] or not same:
+            fail(f"[train] the {name} run ends at loss {hist[-1]['loss']!r}"
+                 f" (parameters equal: {same}), the resumed run at "
+                 f"{hist_r[-1]['loss']!r}")
+    log(f"[train] resume at {c.name} {TRAIN_RESUME_SHAPE}: {TRAIN_RESUME_AT} "
+        f"steps + checkpoint, resumed to {TRAIN_RESUME_STEPS}; final losses "
+        f"{losses} equal bit for bit, and every parameter")
+    return {"config": c.name, "final_losses": losses}
+
+
+def phase_train(args, torch, rt, params):
+    """Train steps of the full-size model on phase 5's f32 master weights,
+    the flash kernel's launches counted a step, then the gradient and
+    resume checks."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    c = rt.configs.get(LM_ARCH)
+    model = rt.model_api.build(c)
+    cell = rt.ShapeCell(*TRAIN_CELL)
+    accum = c.grad_accum
+    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
+    step_fn = rt.train_step.make_train_step(model, opt_cfg, cell)[0]
+    out = {"cell": list(TRAIN_CELL), "grad_accum": accum, "remat": c.remat,
+           "optimizer": c.optimizer,
+           "reduced": [f"train_4k's global batch 256 cut to "
+                       f"{TRAIN_CELL[3]} (grad_accum {accum}, microbatch "
+                       f"{TRAIN_CELL[3] // accum}) to fit one card's 80 GB"
+                       f"; weights random from seed 0"]}
+    log(f"[train] {LM_ARCH} {c.n_layers} layers, d_model {c.d_model}, "
+        f"{c.optimizer}, grad_accum {accum}, remat {c.remat!r}, cell "
+        f"{TRAIN_CELL}; reduced: {out['reduced']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what the card holds already: the weights and earlier phases' tensors
+    base = torch.cuda.memory_allocated()
+    weights = rt.tree.param_bytes(params)
+    opt_state = rt.optim.init_opt(c.optimizer, params, opt_cfg)
+    want = {WGMMA: 2 * c.n_layers * accum, F32_FLASH: 0}
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    fn_cls = rt.attention.FlashAttentionFn
+    backward = fn_cls.backward
+    bwd_events = []
+
+    def timed_backward(ctx, grad_out):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        grads = backward(ctx, grad_out)
+        b.record()
+        bwd_events.append((a, b))
+        return grads
+
+    steps = []
+    n_tok = TRAIN_CELL[2] * TRAIN_CELL[3]
+    flops = model.model_flops(cell)
+    fn_cls.backward = staticmethod(timed_backward)
+    try:
+        for step in range(TRAIN_STEPS):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in rt.train_data.make_batch(c, cell,
+                                                          step).items()}
+            bwd_events.clear()
+            kern.launches = kern.wgmma_launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            launches = flash_launches(kern)
+            if launches != want:
+                fail(f"[train] step {step} launched the flash kernels "
+                     f"{launches}, want {want} (forward and the remat "
+                     f"recompute of {c.n_layers} layers x {accum} "
+                     f"microbatches)")
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                fail(f"[train] step {step}: loss {loss}, grad norm {gnorm}")
+            if len(bwd_events) != c.n_layers * accum:
+                fail(f"[train] step {step}: {len(bwd_events)} attention "
+                     f"backward calls")
+            bwd_ms = sum(a.elapsed_time(b) for a, b in bwd_events)
+            steps.append({
+                "step": step, "loss": loss, "grad_norm": gnorm,
+                "lr": float(met["lr"]), "s": dt, "tokens_per_s": n_tok / dt,
+                "mfu": flops / dt / BF16_TFLOPS, "launches": launches,
+                "attn_bwd_ms": bwd_ms, "attn_bwd_share": bwd_ms / (dt * 1e3)})
+            log(f"[train] step {step}: loss {loss:.6f}"
+                + (f" (ln V = {math.log(c.vocab_size):.6f})" if step == 0
+                   else "") + f", grad norm {gnorm:.4f}, lr "
+                f"{float(met['lr']):.4g}; {dt:.3f} s, {n_tok / dt:.0f} "
+                f"tokens/s, model FLOPs {flops:.4g} = "
+                f"{flops / dt / BF16_TFLOPS:.1%} of 989 TFLOP/s; attention's "
+                f"plain backward {bwd_ms:.1f} ms of device time in "
+                f"{len(bwd_events)} calls ({bwd_ms / (dt * 1e3):.1%} of the "
+                f"step); flash launches {launches}")
+    finally:
+        fn_cls.backward = staticmethod(backward)
+    out["steps"] = steps
+    peak = torch.cuda.max_memory_allocated()
+    out.update(peak_gib=peak / 2**30, base_gib=base / 2**30,
+               train_peak_gib=(peak - base + weights) / 2**30)
+    log(f"[train] peak memory over the {TRAIN_STEPS} steps "
+        f"{out['peak_gib']:.2f} GiB, {out['base_gib']:.2f} GiB of it "
+        f"allocated before them (weights {weights / 2**30:.2f} GiB and "
+        f"earlier phases' tensors): training needs "
+        f"{out['train_peak_gib']:.2f} GiB (weights, AdamW moments, "
+        f"gradients, activations)")
+    del opt_state
+    torch.cuda.empty_cache()
+    out["grad_check"] = train_grad_check(torch, rt, c, params, batch)
+    out["resume"] = train_resume_check(torch, rt, dev)
+    launches = {WGMMA: sum(s["launches"][WGMMA] for s in steps),
+                F32_FLASH: sum(s["launches"][F32_FLASH] for s in steps)}
+    return out, launches
 
 
 def flash_launches(kern) -> dict:
@@ -2521,22 +2774,9 @@ def phase_profile(torch, rt, name, g):
                            backend="pallas"))), graph=name)
 
 
-def main(argv) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--reps", type=int, default=20)
-    p.add_argument("--profile", action="store_true",
-                   help="also trace one Louvain run of the first graph, one "
-                        "LM prefill and four LM decode steps")
-    p.add_argument("--out", default=None,
-                   help="also write every measurement to this JSON file")
-    args = p.parse_args(argv)
-
-    try:
-        import torch
-    except ImportError:
-        fail("PyTorch is not installed")
-    if not torch.cuda.is_available():
-        fail("no CUDA device is available")
+def runtime(torch):
+    """The port's modules the phases use, as one namespace; fails when the
+    package is not next to this script."""
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch.graph.datasets as datasets
@@ -2581,10 +2821,17 @@ def main(argv) -> int:
             CommunityServeEngine, smoke_requests)
         from repro_torch.launch.ranks import init_group, spawn_ranks
         from repro_torch.models import api as model_api
+        from repro_torch.models import attention
+        from repro_torch.models.arch_config import ShapeCell
         from repro_torch.models.common import init_params, param_count
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.launch import train_step
+        from repro_torch.train import checkpoint, optim
+        from repro_torch.train import data as train_data
+        from repro_torch.utils import tree
     except ImportError as err:
         fail(f"the repro_torch package is not next to this script ({err})")
-    rt = argparse.Namespace(
+    return argparse.Namespace(
         datasets=datasets, LouvainConfig=LouvainConfig, louvain=louvain,
         leiden=leiden, faultinject=faultinject, Preempted=Preempted,
         SweepEngine=SweepEngine, LEVEL_IT_STRIDE=LEVEL_IT_STRIDE,
@@ -2608,10 +2855,32 @@ def main(argv) -> int:
         capacity_signature=capacity_signature,
         CommunityServeEngine=CommunityServeEngine,
         smoke_requests=smoke_requests, init_group=init_group,
-        spawn_ranks=spawn_ranks)
+        spawn_ranks=spawn_ranks, attention=attention, ShapeCell=ShapeCell,
+        train_launcher=train_launcher, train_step=train_step,
+        checkpoint=checkpoint, optim=optim, train_data=train_data, tree=tree,
+        build=build)
+
+
+def main(argv) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--profile", action="store_true",
+                   help="also trace one Louvain run of the first graph, one "
+                        "LM prefill and four LM decode steps")
+    p.add_argument("--out", default=None,
+                   help="also write every measurement to this JSON file")
+    args = p.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    rt = runtime(torch)
     t0 = time.perf_counter()
     name, count, card = phase_device(torch)
-    phase_build(build)
+    phase_build(rt.build)
     main_out, recs, graphs, runs = phase_main(torch, rt)
     main_out["leiden"] = phase_leiden(torch, rt, graphs, runs)
     main_out["serve"] = phase_serve(torch, rt, card)
@@ -2628,9 +2897,18 @@ def main(argv) -> int:
             # phase 3d's launches, (a) and every rank of (b)
             row["dist_launches"] = main_out["dist"]["bin_rank_launches"]
     clocks("after phase 4")
-    main_out["lm"], lm_kernels = phase_lm(args, torch, rt)
+    main_out["lm"], lm_kernels, lm_params = phase_lm(args, torch, rt)
     kernels += lm_kernels
     clocks("after phase 5")
+    t = time.perf_counter()
+    main_out["train"], train_launches = phase_train(args, torch, rt,
+                                                    lm_params)
+    main_out["train"]["phase_s"] = time.perf_counter() - t
+    log(f"[train] phase 5t took {main_out['train']['phase_s']:.1f} s")
+    del lm_params
+    for row in lm_kernels:
+        row["train_launches"] = train_launches[row["name"]]
+    clocks("after phase 5t")
     if args.profile:
         main_out["profile"] = phase_profile(
             torch, rt, MAIN_GRAPH[0], graphs[MAIN_GRAPH[0]][0])

@@ -5,7 +5,7 @@ Each module defines CONFIG (the exact published dims) and REDUCED (a same-
 family small config for CPU tests).  The port holds the dense configs whose
 every feature it runs (RMS norm, SwiGLU, qk-norm, GQA, bf16 KV cache);
 the JAX package's other architectures join as their families are ported
-(ROADMAP Queue 1 #11).
+(ROADMAP Queue 1 #8).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.models.arch_config import (SHAPE_CELLS, SHAPES, ArchConfig,
 _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "phi3-medium-14b": "phi3_medium_14b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,2 +1,3 @@
-"""Launchers of the port: the LM serving engine (``serve``) and the
-community-detection service (``community_serve``)."""
+"""Launchers of the port: the LM serving engine (``serve``), the trainer
+(``train``, its steps in ``train_step``), the community-detection service
+(``community_serve``) and the distributed ranks (``ranks``)."""

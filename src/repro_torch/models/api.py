@@ -2,12 +2,13 @@
 the families the port runs.
 
 ``build(cfg)`` returns a ``ModelAPI`` whose members are plain functions of
-(params, inputs).  The port runs the dense family's inference: prefill
-(every layer's attention through the hand-written flash-attention kernel
-on the card) and KV-cache decode.  ``loss_fn`` (training) and the other
-families raise ``NotImplementedError``; they are ROADMAP Queue 1 #11.
+(params, inputs).  The port runs the dense family: the training loss,
+prefill (every layer's attention through the hand-written flash-attention
+kernel on the card) and KV-cache decode.  The other families raise
+``NotImplementedError``; they are ROADMAP Queue 1 #8.
 
 Batch dict conventions:
+  train:    {tokens (B,S) int, labels (B,S) int [, mask (B,S)]}
   prefill:  {tokens (B,S) int}
   decode:   token (B,) int + a ``transformer.DecodeState``
 """
@@ -22,9 +23,6 @@ from repro_torch.models import transformer
 from repro_torch.models.arch_config import ArchConfig, ShapeCell
 from repro_torch.models.common import is_decl, tree_leaves
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 #11)"
-
-
 class TensorSpec(NamedTuple):
     """Shape and dtype of a tensor, without one (the JAX package's
     ``jax.ShapeDtypeStruct``)."""
@@ -35,10 +33,11 @@ class TensorSpec(NamedTuple):
 class ModelAPI(NamedTuple):
     cfg: ArchConfig
     decls: Any                                     # ParamDecl tree
-    loss_fn: Callable[[Any, Dict], Any]            # raises: not ported
+    loss_fn: Callable[[Any, Dict], Any]            # (params, batch) -> (loss, metrics)
     prefill_fn: Callable[[Any, Dict], Any]         # (params, batch) -> logits
     decode_fn: Callable[[Any, torch.Tensor, Any], Any]  # (params, token, state)
     init_decode_state: Callable[..., Any]          # (params, batch, max_seq)
+    input_specs: Callable[[ShapeCell], Dict[str, TensorSpec]]
     decode_state_specs: Callable[[ShapeCell], Any]
     model_flops: Callable[[ShapeCell], float]
 
@@ -71,7 +70,7 @@ def build(c: ArchConfig) -> ModelAPI:
     decls = transformer.build_decls(c)       # raises for unported families
 
     def loss_fn(params, batch):
-        raise NotImplementedError(f"loss_fn (training) {_UNPORTED}")
+        return transformer.loss_fn(c, params, batch)
 
     def prefill_fn(params, batch):
         return transformer.forward(c, params, batch["tokens"])
@@ -92,6 +91,15 @@ def build(c: ArchConfig) -> ModelAPI:
         pos = TensorSpec((b,), torch.int32)             # per-slot positions
         return transformer.DecodeState(transformer.KVCache(k, k, pos))
 
+    def input_specs(cell: ShapeCell):
+        b, s = cell.global_batch, cell.seq_len
+        if cell.kind == "decode":
+            return {"token": TensorSpec((b,), torch.int32)}
+        out = {"tokens": TensorSpec((b, s), torch.int32)}
+        if cell.kind == "train":
+            out["labels"] = TensorSpec((b, s), torch.int32)
+        return out
+
     return ModelAPI(
         cfg=c,
         decls=decls,
@@ -99,6 +107,7 @@ def build(c: ArchConfig) -> ModelAPI:
         prefill_fn=prefill_fn,
         decode_fn=decode_fn,
         init_decode_state=init_decode_state,
+        input_specs=input_specs,
         decode_state_specs=decode_state_specs,
         model_flops=lambda cell: _flops(c, cell, decls),
     )

@@ -3,13 +3,14 @@
 
 * ``flash_attention``: on CUDA tensors, the hand-written flash-attention
   kernels (``kernels/flash_attention``; the model's bf16 goes to the
-  tensor-core one), whose probabilities keep float32 precision.  On CPU
-  tensors, the mirror of the JAX package's jnp online softmax over KV
-  chunks (its ``lax.scan`` a Python loop), with that path's bf16 rounding
-  points: the scores are the bf16 product cast to float32, and the
-  probabilities are cast to ``q.dtype`` before the P.V product.  On the
-  card the model's attention therefore differs from the CPU mirror by bf16
-  rounding.
+  tensor-core one), whose probabilities keep float32 precision, under
+  ``FlashAttentionFn`` for the gradient.  On CPU tensors, the mirror of
+  the JAX package's jnp online softmax over KV chunks (its ``lax.scan`` a
+  Python loop), with that path's bf16 rounding points: the scores are the
+  bf16 product cast to float32, and the probabilities are cast to
+  ``q.dtype`` before the P.V product; autograd differentiates it as JAX
+  differentiates its jnp path.  On the card the model's attention
+  therefore differs from the CPU mirror by bf16 rounding.
 * GQA: KV heads are repeated to ``kv_eff`` at projection time,
   interleaved (``h_eff = h * reps + r``); queries are grouped per
   effective KV head.
@@ -66,11 +67,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention over KV chunks (memory O(Sq·chunk)).
 
-    CUDA tensors go through the flash-attention kernel, whatever ``chunk``;
+    CUDA tensors go through the flash-attention kernel, whatever ``chunk``
+    (``FlashAttentionFn``: the kernel forward, the mirror's gradient);
     CPU tensors through the mirror of the JAX package's jnp path."""
     if q.device.type == "cuda":
-        return flash_ops.flash_attention(q, k, v, causal=causal)
+        return FlashAttentionFn.apply(q, k, v, causal, chunk)
     return _flash_attention_chunked(q, k, v, causal, chunk)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash-attention kernel's forward with the gradient of the plain
+    chunked mirror (``_flash_attention_chunked``).
+
+    * Forward: ``kernels/flash_attention`` (bf16 the wgmma kernel, float32
+      the split-TF32 one); q, k and v are saved, nothing else.
+    * Backward: the mirror re-run from the saved q, k, v under autograd,
+      its gradient taken by ``torch.autograd.grad``.  The TPU kernel had
+      no backward, so neither has this one; the backward is plain PyTorch.
+      Its memory is the mirror's autograd graph of one call: the scores
+      and probabilities of every KV chunk, O(Sq·Sk) for the call.
+
+    The forward keeps the probabilities in float32 and rounds the output
+    once; the mirror rounds its probabilities to ``q.dtype`` before the
+    P.V product.  In bf16 the backward is therefore the gradient of the
+    bf16-rounded mirror, not of the kernel's own forward: the two differ
+    by that bf16 rounding (in float32 by the kernel's 1e-5 contract).
+    A kernel that fails to build or launch raises ``KernelError``; there
+    is no fallback to the mirror's forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return flash_ops.flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _flash_attention_chunked(*qkv, ctx.causal, ctx.chunk)
+            dq, dk, dv = torch.autograd.grad(out, qkv, grad_out)
+        return dq, dk, dv, None, None
 
 
 def _flash_attention_chunked(q, k, v, causal, chunk):

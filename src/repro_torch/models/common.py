@@ -1,5 +1,5 @@
-"""Model-building primitives: parameter declarations, init, norms, RoPE and
-SwiGLU (port of ``repro.models.common``).
+"""Model-building primitives: parameter declarations, init, norms, RoPE,
+SwiGLU and the cross-entropy loss (port of ``repro.models.common``).
 
 Parameters are declared as nested dicts of ``ParamDecl`` (shape, logical dim
 names, dtype, init); ``init_params`` materialises them on a device.  Its
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.structure import resolve_device
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,21 +42,6 @@ class ParamDecl:
 
 def is_decl(x) -> bool:
     return isinstance(x, ParamDecl)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves of a nested dict in ``jax.tree.flatten`` order (sorted keys,
-    depth first)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
-
-
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict, keeping its keys."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _draw(d: ParamDecl, rng: np.random.Generator) -> np.ndarray:
@@ -158,3 +144,23 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = x @ w_up
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       vocab_valid: Optional[int] = None) -> torch.Tensor:
+    """Stable CE over (possibly padded) logits, in float32: the mean
+    negative log-likelihood of ``labels``, over the positions where
+    ``mask`` is set when it is given.  Vocabulary columns from
+    ``vocab_valid`` on are padding and take no probability."""
+    lg = logits.float()
+    if vocab_valid is not None and vocab_valid < lg.shape[-1]:
+        pad = torch.arange(lg.shape[-1], device=lg.device) >= vocab_valid
+        lg = torch.where(pad, -1e30, lg)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

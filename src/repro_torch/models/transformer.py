@@ -1,11 +1,21 @@
 """Decoder-only transformer stack, dense family (port of
-``repro.models.transformer``): qwen3-8b and qwen3-1.7b.
+``repro.models.transformer``): qwen3-8b, qwen3-1.7b and
+phi3-medium-14b.
 
 * Layers are STACKED (leading L dim) as in the JAX package; its
   ``lax.scan`` over them becomes a loop over layers that slices layer l and
   casts the slice to bf16 (``cast_compute``), so the 1-D norm scales stay
-  float32.  ``jax.checkpoint`` and the sharding constraints have no
-  counterpart on one device.
+  float32.  The sharding constraints have no counterpart on one device.
+* Remat follows ``c.remat`` as the JAX package's ``jax.checkpoint``
+  policy does, around each layer body (cast and block) when autograd
+  records it (grad mode on and the layer's input or a parameter requiring
+  grad; a prefill runs no checkpoint, as ``jax.checkpoint`` acts only
+  under differentiation): ``"full"`` keeps only the layer's input
+  (``torch.utils.checkpoint``), ``"dots"`` also the matrix products'
+  outputs (a selective checkpoint), ``"none"`` everything.  It changes
+  memory, not values.
+* ``loss_fn``: the forward's logits through ``cross_entropy_loss``, plus
+  the dense family's aux loss, 0.
 * Every layer's full-sequence attention goes through
   ``attention.flash_attention``: the hand-written kernel on the card.
 * KV caches live in (L, B, H_kv_eff, S, hd) stacked form, bf16, with a
@@ -16,18 +26,21 @@
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.common import (ParamDecl, apply_rope, cast_compute,
-                                       rms_norm, swiglu)
+                                       cross_entropy_loss, rms_norm, swiglu,
+                                       tree_leaves)
 
 P = ParamDecl
 
-_UNPORTED = "not ported yet (ROADMAP Queue 1 #11)"
+_UNPORTED = "not ported yet (ROADMAP Queue 1 #8)"
 
 
 def _check_dense(c: ArchConfig) -> None:
@@ -149,16 +162,62 @@ def _logits(params, x):
     return x @ unembed.to(x.dtype)
 
 
+# --------------------------------------------------------------- remat
+
+# the products whose outputs ``"dots"`` keeps (jax's ``checkpoint_dots``)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(c: ArchConfig, body, *args):
+    """``body(*args)`` under ``c.remat``'s checkpoint when autograd records
+    it (grad mode on and a tensor of ``args`` requiring grad); as it is
+    otherwise."""
+    if c.remat == "none" or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in tree_leaves(args)):
+        return body(*args)
+    if c.remat == "full":
+        return ckpt.checkpoint(body, *args, use_reentrant=False)
+    if c.remat == "dots":
+        return ckpt.checkpoint(
+            body, *args, use_reentrant=False, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {c.remat!r}: want full, dots or none")
+
+
+def _layer(c: ArchConfig, positions, x, p):
+    return _block(c, cast_compute(p), x, positions)
+
+
 # --------------------------------------------------------------- full forward
 
 
 def forward(c: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Prefill forward: tokens (B, S) int -> logits (B, S, V) bf16."""
+    """Training/prefill forward: tokens (B, S) int -> logits (B, S, V)
+    bf16.  The stacked layer tree is unbound once into per-layer views, so
+    the gradient of a stacked leaf is one stack of its layers' gradients
+    (a slice per layer would add a zero-filled stacked tensor per layer)."""
     x = params["embed"][tokens].to(torch.bfloat16)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    layers = {k: t.unbind(0) for k, t in params["layers"].items()}
+    body = functools.partial(_layer, c, positions)
     for l in range(c.n_layers):
-        x = _block(c, layer_slice(params["layers"], l), x, positions)
+        x = _remat(c, body, x, {k: t[l] for k, t in layers.items()})
     return _logits(params, x)
+
+
+def loss_fn(c: ArchConfig, params, batch) -> Tuple[torch.Tensor,
+                                                   Dict[str, torch.Tensor]]:
+    """(loss, {"ce", "aux"}) of a batch {tokens, labels[, mask]}."""
+    logits = forward(c, params, batch["tokens"])
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # --------------------------------------------------------------- KV cache

@@ -1,2 +1,3 @@
-"""Training substrate of the port: so far the checkpointer, which the
-Louvain cascade's stage-boundary checkpoint/resume uses."""
+"""Training substrate of the port: the optimizers (``optim``), the
+synthetic data pipeline (``data``) and the checkpointer, which the
+trainer and the Louvain cascade's stage checkpoint/resume use."""

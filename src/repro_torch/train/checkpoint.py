@@ -11,8 +11,9 @@
   * partial-failure recovery: ``latest_step`` skips ``.tmp`` directories,
     so a killed run resumes from the last committed step.
 
-A tree is nested dicts, lists and tuples whose leaves are torch tensors,
-numpy arrays or Python/numpy scalars.  Leaves are saved as flat byte
+A tree is nested dicts, lists and tuples (NamedTuples keep their type,
+as the optimizer states need) whose leaves are torch tensors, numpy
+arrays or Python/numpy scalars.  Leaves are saved as flat byte
 views (``np.save`` cannot hold bfloat16), their true dtype and shape in
 the manifest.  ``restore`` rebuilds the structure of ``like`` and puts
 every tensor leaf on one device: the one it is given, else the card
@@ -51,6 +52,8 @@ def _rebuild(like, values: list):
     """``like``'s structure with its leaves replaced, in ``_leaves`` order."""
     if isinstance(like, dict):
         return {k: _rebuild(like[k], values) for k in sorted(like)}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):   # NamedTuple
+        return type(like)(*(_rebuild(v, values) for v in like))
     if isinstance(like, (list, tuple)):
         return type(like)(_rebuild(v, values) for v in like)
     return values.pop(0)

@@ -71,6 +71,17 @@ REDUCED size on the card, every layer's attention through the wgmma kernel,
 against the same model on the CPU within 2^-5 of each logit row's largest
 magnitude (bf16 matmuls on the card sum in another order, and the CPU path
 rounds its probabilities to bf16).
+
+Training: ``FlashAttentionFn`` (the kernel forward, the chunked mirror's
+gradient) on card tensors, bf16 and float32: its output within the
+kernel's contract of ``attention_ref``, its dq, dk, dv within
+``GRAD_REF_REL`` of autograd through the float32 ``attention_ref`` and
+within one ulp of the working type of the mirror's own autograd, each at
+the gradient's largest magnitude; and the REDUCED ``loss_fn`` gradients
+and one ``make_train_step`` (``grad_accum = 2``) on the card against the
+CPU: every gradient leaf, the step's own included, within 2^-5 of its
+largest magnitude, and the step's parameters and optimizer state within
+1e-6 of the CPU optimizer run on the card step's gradients.
 """
 import numpy as np
 import pytest
@@ -1760,6 +1771,196 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs):
     assert np.isfinite(b).all()
     diff = np.abs(a - b).max(axis=-1)
     assert np.all(diff <= 2.0 ** -5 * np.abs(a).max(axis=-1))
+
+
+# training on the card: the loss within one bf16 ulp, every gradient leaf
+# within eight bf16 ulps of its largest magnitude (tests/test_torch_train.py's
+# LOSS_REL and GRAD_REL: the kernel forward keeps float32 probabilities, the
+# CPU mirror rounds them to bf16, and the backward carries that bf16
+# difference into every gradient at the leaf's scale)
+TRAIN_LOSS_REL = 2.0 ** -8
+TRAIN_GRAD_REL = 2.0 ** -5
+# the optimizer on the same gradients: float32 in one association on both
+# devices (tests/test_torch_train.py's OPT_RTOL)
+TRAIN_OPT_RTOL = 1e-6
+# one ulp of the working type, relative to the gradient's largest magnitude
+GRAD_ULP = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -23}
+# the mirror's gradient against autograd of the float32 ``attention_ref``,
+# relative to the gradient's largest magnitude.  bf16: the mirror rounds
+# its probabilities, the products dO.V^T and dS.K / dS^T.Q / P^T.dO and
+# the gradients themselves to bf16, four roundings of 2^-9 in a chain,
+# and dq / dk are sums of terms of both signs over up to S keys, whose
+# cancellation lifts the error against the largest magnitude (two bf16
+# ulps at these shapes): eight bf16 ulps, 2^-5, the TRAIN_GRAD_REL the
+# model's gradients are held to.  float32: the chunked online softmax and
+# the dense one sum up to S = 1024 products in other orders, S float32
+# ulps, 2^-14.
+GRAD_REF_REL = {torch.bfloat16: 2.0 ** -5, torch.float32: 2.0 ** -14}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 1024, 128, 256),
+                                   (1, 4, 2, 100, 64, 1024)])
+def test_flash_attention_fn_gradients(cuda_device, shape, dtype):
+    """``FlashAttentionFn`` (the kernel forward, the plain chunked
+    mirror's gradient), causal, held three ways on the same card tensors.
+
+    * Its output: the kernel's, against the float32 ``attention_ref``
+      within the kernel's contract (``_assert_attention_close``: one bf16
+      ulp of the larger value plus 1e-6; float32 1e-5).
+    * Its dq, dk, dv against autograd of the float32 ``attention_ref`` on
+      q, k, v cast up, each within ``GRAD_REF_REL`` of that gradient's
+      largest magnitude: an independent reference.
+    * Its dq, dk, dv against the mirror's own autograd within ``GRAD_ULP``
+      of the largest magnitude: the backward recomputes the mirror from
+      the saved q, k, v, the same computation, so they should agree to
+      the bit (one ulp of the working type is allowed).
+
+    The forward launches its kernel once; the backward launches none.
+    Shapes (B, Hq, Hkv, S, D, chunk): the model's heads at a chunked
+    length, and a GQA group of 2 at a ragged, dense one."""
+    from repro_torch.models.attention import (FlashAttentionFn,
+                                              _flash_attention_chunked)
+    b, hq, hk, s, d, chunk = shape
+    rng = np.random.default_rng(s)
+    q, k, v, dout = (_card(rng.standard_normal(sh).astype(np.float32),
+                           cuda_device).to(dtype)
+                     for sh in ((b, hq, s, d), (b, hk, s, d), (b, hk, s, d),
+                                (b, hq, s, d)))
+    grads, fwd, outs = [], [], []
+    for fn in (lambda *a: FlashAttentionFn.apply(*a, True, chunk),
+               lambda *a: _flash_attention_chunked(*a, True, chunk)):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        launches = flash_attention_fwd_kernel.launches
+        out = fn(*xs)
+        fwd.append(flash_attention_fwd_kernel.launches - launches)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert flash_attention_fwd_kernel.launches == launches + fwd[-1]
+        grads.append([x.grad.float() for x in xs])
+        outs.append(out.detach())
+    assert fwd == [1, 0]
+    _assert_attention_close(outs[0], _ref(q, k, v, True), dtype)
+    xs = [x.float().requires_grad_() for x in (q, k, v)]
+    _ref(*xs, True).backward(dout.float())
+    for name, a, g, r in zip("qkv", *grads, (x.grad for x in xs)):
+        assert torch.isfinite(a).all(), name
+        err = float((a - g).abs().max())
+        assert err <= GRAD_ULP[dtype] * float(g.abs().max()), (name, err)
+        err = float((a - r).abs().max())
+        assert err <= GRAD_REF_REL[dtype] * float(r.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_attention_fn_launches_once_a_forward(cuda_device):
+    from repro_torch.models.attention import FlashAttentionFn
+    q = torch.randn(1, 2, 64, 16, device=cuda_device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    launches = flash_attention_fwd_kernel.wgmma_launches
+    FlashAttentionFn.apply(q, q, q, True, 1024).sum().backward()
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.wgmma_launches == launches + 1
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """The REDUCED qwen3-1.7b with ``grad_accum = 2``, on the card and on
+    the CPU.
+
+    * ``loss_fn``'s gradients on the card (every layer's attention
+      through the wgmma kernel, forward and remat recompute) against the
+      CPU's (the chunked mirror): each leaf within TRAIN_GRAD_REL of its
+      largest magnitude, the loss within TRAIN_LOSS_REL.
+    * One ``make_train_step`` on each.  The gradients the card's step
+      hands ``apply_opt`` (the mean of its two microbatches') against the
+      CPU's full-batch ``loss_fn`` gradients within TRAIN_GRAD_REL, leaf
+      by leaf in tree order.  The parameters, optimizer state and
+      grad_norm the card's step returns against the CPU's ``apply_opt``
+      run on those same gradients within TRAIN_OPT_RTOL: a step that
+      skipped, reversed or misrouted its update lands a learning rate or
+      more away.
+    * End to end against the CPU's step: loss within TRAIN_LOSS_REL,
+      grad norm within TRAIN_GRAD_REL, and every parameter within 2·lr
+      (AdamW's first step moves a parameter by lr times nearly its
+      gradient's sign, which may flip where a gradient is near 0) plus
+      1e-6 of its magnitude."""
+    from repro_torch.launch.train_step import make_train_step
+    from repro_torch.models.arch_config import ShapeCell
+    from repro_torch.train import optim
+    from repro_torch.train.data import make_batch
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    c = configs.get("qwen3-1.7b", reduced=True).replace(grad_accum=2)
+    m = model_api.build(c)
+    cell = ShapeCell("t", "train", 64, 4)
+    batch = make_batch(c, cell, 0)
+    cfg = optim.OptimConfig(name=c.optimizer)
+    seen = {}
+    real = optim.apply_opt
+
+    def capture(name, opt_cfg, grads, state, params):
+        seen["grads"] = tree_map(lambda t: t.detach().cpu(), grads)
+        return real(name, opt_cfg, grads, state, params)
+
+    monkeypatch.setattr(optim, "apply_opt", capture)
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        b = {k: _card(v, dev) for k, v in batch.items()}
+        params = init_params(m.decls, seed=0, device=dev)
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
+        launches = flash_attention_fwd_kernel.wgmma_launches
+        loss, _ = m.loss_fn(params, b)
+        loss.backward()
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert flash_attention_fwd_kernel.wgmma_launches == \
+                launches + 2 * c.n_layers
+        grads = [t.grad.cpu() for t in tree_leaves(params)]
+        step = make_train_step(m, cfg, cell)[0]
+        params, state, met = step(params, optim.init_opt(c.optimizer,
+                                                         params, cfg), b)
+        runs[dev.type] = (float(loss.detach()), grads,
+                          {k: float(v) for k, v in met.items()},
+                          [t.detach().cpu() for t in tree_leaves(params)],
+                          seen.pop("grads"),
+                          [t.cpu() for t in tree_leaves(state)])
+    (l_gpu, g_gpu, m_gpu, p_gpu, step_g_gpu, s_gpu), \
+        (l_cpu, g_cpu, m_cpu, p_cpu, _, _) = runs["cuda"], runs["cpu"]
+    assert abs(l_gpu - l_cpu) <= TRAIN_LOSS_REL * abs(l_cpu)
+    for a, g, sg in zip(g_cpu, g_gpu, tree_leaves(step_g_gpu)):
+        for x in (g, sg):
+            assert torch.isfinite(x).all()
+            assert float((a - x).abs().max()) <= \
+                TRAIN_GRAD_REL * float(a.abs().max())
+
+    # the CPU's optimizer on the card step's own gradients
+    params = init_params(m.decls, seed=0, device="cpu")
+    ref_p, ref_s, ref_stats = real(c.optimizer, cfg, step_g_gpu,
+                                   optim.init_opt(c.optimizer, params, cfg),
+                                   params)
+    for a, g in list(zip(tree_leaves(ref_p), p_gpu)) + list(
+            zip(tree_leaves(ref_s), s_gpu)):
+        a = a.detach().float()
+        g = g.float()
+        assert a.shape == g.shape
+        torch.testing.assert_close(
+            g, a, rtol=TRAIN_OPT_RTOL,
+            atol=TRAIN_OPT_RTOL * float(a.abs().max()))
+    for key in ("grad_norm", "lr"):
+        assert m_gpu[key] == pytest.approx(float(ref_stats[key]),
+                                           rel=TRAIN_OPT_RTOL)
+
+    for key in ("loss", "ce"):
+        assert abs(m_gpu[key] - m_cpu[key]) <= TRAIN_LOSS_REL * abs(m_cpu[key])
+    assert abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) <= \
+        TRAIN_GRAD_REL * m_cpu["grad_norm"]
+    lr = m_cpu["lr"]
+    assert m_gpu["lr"] == pytest.approx(lr, rel=TRAIN_OPT_RTOL)
+    for a, g in zip(p_cpu, p_gpu):
+        assert bool(((a - g).abs() <= 2 * lr + 1e-6 * a.abs()).all())
 
 
 DIST_FIELDS = ("labels", "n_communities", "levels", "modularity",

@@ -221,6 +221,19 @@ def test_vmem_starve_is_bit_identical(graph):
     assert starved.run_report.faults == ["vmem_starve"]
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread: the suite runs files in parallel worker
+    processes, and torch's default intra-op threads oversubscribe the
+    cores (this test's banded graph took minutes under the workers and
+    seconds alone).  Its results do not depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_vmem_starve_keeps_every_bucket_resident():
     """The trap of the card's rule: a bucket that streams under ``auto``
     goes RESIDENT under a 1 KB budget (its windows no longer fit half of

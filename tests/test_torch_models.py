@@ -194,16 +194,21 @@ def test_cast_compute_keeps_1d_leaves_f32():
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         t_api.build(ArchConfig.from_dict(
             j_configs.get("qwen3-moe-30b-a3b", reduced=True).to_dict()))
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         t_api.build(ArchConfig.from_dict(
             j_configs.get("nemotron-4-340b", reduced=True).to_dict()))
     c = t_configs.get("qwen3-1.7b", reduced=True)
     m = t_api.build(c)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        m.loss_fn({}, {})
+    # loss_fn is ported: a finite (loss, {"ce", "aux"})
+    toks = torch.from_numpy(np.arange(16).reshape(2, 8))
+    loss, metrics = m.loss_fn(
+        t_common.init_params(m.decls, device="cpu"),
+        {"tokens": toks, "labels": toks})
+    assert loss.dim() == 0 and torch.isfinite(loss)
+    assert set(metrics) == {"ce", "aux"}
     int8 = t_api.build(c.replace(kv_cache_dtype="int8"))
     params = t_common.init_params(int8.decls, device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):

@@ -5,7 +5,8 @@
   and no source file of the port names either in an import.
 * Without a card, the entry points refuse to build on the CPU silently:
   ``from_numpy_edges``/``datasets.load``, the language model's
-  ``init_params`` and ``ServeEngine``, and ``CommunityServeEngine`` with
+  ``init_params`` and ``ServeEngine``, the training launcher
+  (``launch/train.py``), and ``CommunityServeEngine`` with
   no ``device`` raise, and so
   does ``train.checkpoint.restore``; the cascade's resume restores onto
   the device of the graph it resumes.
@@ -70,7 +71,10 @@ def test_every_module_is_visited():
               "repro_torch.core.baselines",
               "repro_torch.core.expert_placement",
               "repro_torch.graph.partition", "repro_torch.core.distributed",
-              "repro_torch.launch.ranks"):
+              "repro_torch.launch.ranks", "repro_torch.configs.phi3_medium_14b",
+              "repro_torch.utils.tree", "repro_torch.utils.prng",
+              "repro_torch.train.optim", "repro_torch.train.data",
+              "repro_torch.launch.train_step", "repro_torch.launch.train"):
         assert m in mods
 
 
@@ -150,6 +154,32 @@ def test_model_entry_points_default_to_the_card():
     with pytest.raises(ValueError, match="lies on cpu"):
         ServeEngine(c, params, device="meta")
     assert ServeEngine(c, params, device="cpu").device.type == "cpu"
+
+
+def test_trainer_defaults_to_the_card():
+    """The training launcher and its pieces build on the card unless told
+    otherwise: ``build_trainer``, ``train`` and ``main`` without a device
+    (``python -m repro_torch.launch.train`` without ``--device cpu``)
+    raise without one, and ``named_generator`` too."""
+    from repro_torch.launch import train
+    from repro_torch.models.arch_config import ShapeCell
+    from repro_torch.utils.prng import named_generator
+
+    c = configs.get("qwen3-1.7b", reduced=True)
+    cell = ShapeCell("t", "train", 8, 2)
+    if torch.cuda.is_available():
+        _, _, init_fn = train.build_trainer(c, cell)
+        assert init_fn(0)[0]["embed"].device.type == "cuda"
+        return
+    for call in (lambda: train.build_trainer(c, cell),
+                 lambda: train.train(c, cell, steps=1),
+                 lambda: train.main(["--arch", "qwen3-1.7b", "--reduced",
+                                     "--steps", "1"]),
+                 lambda: named_generator(0, "init")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    _, _, init_fn = train.build_trainer(c, cell, device="cpu")
+    assert init_fn(0)[0]["embed"].device.type == "cpu"
 
 
 def test_checkpoint_restore_defaults_to_the_card(tmp_path):
