@@ -263,6 +263,56 @@ Phases, each failing loudly (exit code 1, no result line):
    for bit.  The ``kernels`` rows of the flash kernels carry the three
    steps' launches as ``train_launches``.
 
+5m. MoE (``[moe]`` lines), once phase 5's weights are freed:
+   ``qwen3-moe-30b-a3b`` at every published width (d_model 2048, 32 query
+   heads over 4 KV heads repeated to 16, head dim 128, 128 experts top-8,
+   expert d_ff 768, vocab 151 936) and 24 of its 48 layers — the float32
+   master weights of 48 (about 122 GB) do not fit the card; the cut is
+   logged — drawn on the card from a seeded CUDA generator with
+   ``init_params``'s standard deviations.  ``prefill_fn`` on (2, 4096)
+   tokens twice (8 192 tokens, 65 536 assignments, capacity 640): both
+   flash kernels' counters read around each call, exactly 24 wgmma
+   launches a call and none of the float32 kernel, logits finite and
+   bit-identical across the calls; wall s, tokens/s and the dropped share
+   of assignments logged.  A third call's stream spans by part: CUDA
+   events recorded around each call of the router + top-k, the dispatch
+   (sort, rank, scatter), the expert FFN, the combine and the
+   flash-attention entry, summed over the layers (a span holds the launch
+   gaps inside it; it is not a trace's device time).  A fourth call
+   captures the flash kernel's inputs at layers 0 and 23 (32 query heads
+   over 16 KV heads), held against ``attention_ref`` to one bf16 ulp once
+   the weights are freed (those launches are not counted).  The layer
+   check: layer 0's normed input at (1, 1024) through ``moe_layer`` on
+   the card twice and on the CPU on the same weights — expert ids equal
+   at every token whose adjacent top-9 probabilities differ by more than
+   1e-5, slot and keep bit for bit given equal ids, y within 2^-5 of each
+   row's largest |y| on the tokens routed alike, aux within 1e-5
+   relative, the two card runs bit-identical.  Serving:
+   ``ServeEngine(batch_slots=4, max_seq=512)`` answers 8 requests as in
+   phase 5, timed with nothing else in its run; then, untimed, each
+   prompt's decode steps (the engine's ``_prefill_into``) beside the
+   prefill of ``replace(capacity_factor=n_experts / top_k)`` (capacity =
+   the prompt's tokens: a prefill at 1.25 drops assignments that a
+   one-token decode step never drops): routing themselves on the first 4
+   prompts (their flips counted, their last logits' distance logged, not
+   held; cut from 8 for the phase's time), then
+   taking that prefill's expert ids (a near-tie flips on a bf16 ulp of
+   the hidden state), their last logits within ``LM_LOGIT_REL`` of the
+   prefill's.  On the prefill's ids the steps' own router logits must lie
+   within ``LM_LOGIT_REL`` of the prefill's row scale (d, the largest
+   difference), their own ids equal the prefill's wherever every adjacent
+   gap among the top 9 logits exceeds 2d, their sets of experts wherever
+   the 8th-to-9th gap does, and at least a quarter of the token-layers
+   must be so set-decided.  Then both MoE configs at REDUCED size on the
+   card: prefill at that no-drop capacity and decode over (2, 8) tokens,
+   the decode steps taking the prefill's expert ids under the same
+   routing check (at the logits' tolerance), the last step's logits
+   within ``LM_LOGIT_REL`` (bf16 cache) or twice it (llama4's int8 cache,
+   which must hold its writes) of the prefill's; two train steps with the
+   config's optimizer (llama4: Adafactor) at (64, 4), loss finite and aux
+   above 0.  The wgmma row of the ``kernels`` line carries the phase's
+   launches as ``moe_launches``; the phase's seconds are logged.
+
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -351,6 +401,50 @@ TRAIN_RESUME_AT = 4
 TRAIN_RESUME_STEPS = 6
 TRAIN_LOSS_REL = 2.0 ** -8
 TRAIN_GRAD_REL = 2.0 ** -5
+
+# Phase 5m: qwen3-moe-30b-a3b at every published width and MOE_LAYERS of
+# its 48 layers (the float32 master weights of all 48, ~122 GB, do not fit
+# one card's 80 GB), its prefill shape (prefill_32k cut as phase 5's is),
+# the layer check's shape, the gap between adjacent top-(k+1) router
+# probabilities above which the card and the CPU must route a token alike
+# (same bf16 input: they differ only in the float32 router product's
+# summation order), the layer output's tolerance (2^-5 of each row's
+# largest |y|, tests/test_torch_cuda.py's bound for the dense prefill), and
+# the REDUCED runs: both MoE configs, decode over (B, S) tokens against the
+# prefill, then train steps at (seq_len, global batch).  An int8 cache's
+# decode holds twice LM_LOGIT_REL: each cached row is rounded to half a
+# step of its largest magnitude over 127, up to twice a bf16 rounding at
+# that scale, in every element.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 24
+MOE_PREFILL = (2, 4096)
+MOE_LAYER_CHECK = (1, 1024)
+MOE_DECIDED_GAP = 1e-5
+MOE_Y_REL = 2.0 ** -5
+MOE_REDUCED_ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b")
+MOE_REDUCED_SHAPE = (2, 8)
+MOE_REDUCED_TRAIN = (64, 4)
+MOE_TRAIN_STEPS = 2
+MOE_INT8_LOGIT_REL = 2 * LM_LOGIT_REL
+# Decode steps compared with a prefill take the prefill's expert ids (a
+# near-tie flips on a bf16 ulp of the hidden state, and the token then
+# differs by an expert, not by a rounding).  Each step's own router logits
+# are held against the prefill's at the same layer and position: their
+# largest difference over the experts, d, within MOE_ROUTER_REL of the
+# prefill row's largest |logit| (the router reads the same hidden state
+# as the LM head, whose logits hold LM_LOGIT_REL).  No perturbation of d
+# can reorder logits more than 2d apart, so a token-layer is decided where
+# every adjacent gap among the prefill's top k + 1 logits exceeds 2d (its
+# own ids must equal the prefill's), and set-decided where the gap between
+# the k-th and the (k+1)-th does (its own set of experts must equal the
+# prefill's).  At least MOE_MIN_DECIDED of the token-layers must be
+# set-decided, or the check would pass any routing.
+MOE_ROUTER_REL = LM_LOGIT_REL
+MOE_MIN_DECIDED = 0.25
+# the serving check's pass of the prompts' decode steps routing
+# themselves (logged, not held) covers the first this many prompts: with
+# all 8 the phase took 152 s of its 150 on a slow host
+MOE_UNFORCED_PROMPTS = 4
 
 # device_ms holds the stream with a spin kernel while the host enqueues
 # the timed calls: the spin starts at twice the host's enqueue time (at
@@ -2607,6 +2701,568 @@ def phase_train(args, torch, rt, params):
     return out, launches
 
 
+def device_init(torch, rt, decls, seed: int, dev):
+    """Parameters for ``decls`` drawn on the card: ``init_params``'s
+    standard deviation per leaf (``init_std``) and its sorted-key order,
+    from a seeded CUDA generator instead of its numpy draws (numpy would
+    take minutes for the MoE cell's 15.6 G values)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        if tree.init in ("zeros", "ones"):
+            return torch.full(tree.shape, float(tree.init == "ones"),
+                              dtype=tree.dtype, device=dev)
+        t = torch.empty(tree.shape, dtype=torch.float32, device=dev)
+        return t.normal_(0.0, rt.init_std(tree), generator=gen).to(tree.dtype)
+
+    return walk(decls)
+
+
+class PartTimer:
+    """CUDA events recorded on the stream around every call of the MoE
+    layer's parts and of the flash-attention entry, their spans summed per
+    part over a run (a span holds any launch gap inside it: these are not
+    a trace's device times); the module attributes the model calls are
+    replaced while it is on."""
+
+    PARTS = (("router + top-k", "moe", "route"),
+             ("dispatch (sort, rank, scatter)", "moe", "dispatch"),
+             ("expert FFN", "moe", "expert_ffn"),
+             ("combine", "moe", "combine"),
+             ("attention (flash kernel)", "attention", "flash_attention"))
+
+    def __init__(self, torch, rt):
+        self.torch, self.rt, self.events, self.saved = torch, rt, [], []
+        self.dropped = []
+
+    def __enter__(self):
+        for part, mod, name in self.PARTS:
+            module = getattr(self.rt, mod)
+            real = getattr(module, name)
+            self.saved.append((module, name, real))
+            setattr(module, name, self._timed(part, real))
+        return self
+
+    def _timed(self, part, real):
+        torch = self.torch
+
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real(*a, **kw)
+            e1.record()
+            self.events.append((part, e0, e1))
+            if part.startswith("dispatch"):
+                keep = out[2]
+                self.dropped.append((keep.numel() - keep.sum(), keep.numel()))
+            return out
+
+        return timed
+
+    def __exit__(self, *exc):
+        for module, name, real in self.saved:
+            setattr(module, name, real)
+
+    def ms(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {part: 0.0 for part, _, _ in self.PARTS}
+        for part, e0, e1 in self.events:
+            out[part] += e0.elapsed_time(e1)
+        return out
+
+
+def force_routes(rt, n_layers: int, source, seen):
+    """Replace ``rt.moe.route`` so that call i, MoE layer i mod
+    ``n_layers`` of step i // n_layers (a run without remat calls them in
+    layer order), takes its expert ids from ``source(layer, step)``, or
+    keeps its own (``source`` None); each call's (layer, step, own ids,
+    router logits) goes to ``seen``.  Returns the real ``route`` for the
+    caller to put back."""
+    torch = rt.torch
+    real = rt.moe.route
+
+    def forced(xg, w_router, top_k):
+        logits, probs, own, own_p = real(xg, w_router, top_k)
+        layer, step = len(seen) % n_layers, len(seen) // n_layers
+        seen.append((layer, step, own, logits))
+        if source is None:
+            return logits, probs, own, own_p
+        ids = source(layer, step).reshape(own.shape)
+        top_p = torch.gather(probs, -1, ids)
+        return logits, probs, ids, top_p / top_p.sum(-1, keepdim=True)
+
+    rt.moe.route = forced
+    return real
+
+
+def prefill_routing(rt, model, params, n_moe, toks):
+    """``model``'s prefill of ``toks`` (B, S) with its routers recorded:
+    (logits, each MoE layer's expert ids (B, S, k) and router logits
+    (B, S, E))."""
+    rec = []
+    real = force_routes(rt, n_moe, None, rec)
+    try:
+        logits = model.prefill_fn(params, {"tokens": toks})
+    finally:
+        rt.moe.route = real
+    shape = tuple(toks.shape)
+    return (logits, [own.reshape(*shape, -1) for _, _, own, _ in rec],
+            [lg.reshape(*shape, -1) for _, _, _, lg in rec])
+
+
+def aligned_routes(torch, seen, ids, logits):
+    """Decode steps' records (``force_routes``) beside the prefill's:
+    (own ids, prefill ids, own logits, prefill logits), one row a
+    token-layer; step n of MoE layer l reads position n of the prefill's
+    ``ids[l]`` / ``logits[l]`` (B, S, ·)."""
+    rows = [(own.reshape(-1, own.shape[-1]),
+             ids[layer][:, step].reshape(-1, own.shape[-1]),
+             lg.reshape(-1, lg.shape[-1]).float(),
+             logits[layer][:, step].reshape(-1, lg.shape[-1]).float())
+            for layer, step, own, lg in seen]
+    return [torch.cat(col) for col in zip(*rows)]
+
+
+def route_stats(torch, own, ids, got, want) -> dict:
+    """Routing of decode steps (``own`` ids, router logits ``got``)
+    against the prefill's (``ids``, ``want``), per token-layer: d, the
+    largest |got - want| over the experts, relative to the prefill row's
+    largest |logit|; decided and set-decided (MOE_ROUTER_REL's comment);
+    the token-layers whose ids differ (``flips``) and whose sets of
+    experts differ (``set_flips``), each also counted where decided."""
+    k = own.shape[-1]
+    d = (got - want).abs().amax(-1)
+    rel = d / want.abs().amax(-1)
+    top = torch.sort(want, -1, descending=True).values[:, :k + 1]
+    gaps = top[:, :-1] - top[:, 1:]
+    decided = gaps.min(-1).values > 2 * d
+    set_decided = gaps[:, -1] > 2 * d
+    differ = (own != ids).any(-1)
+    set_differ = (torch.sort(own, -1).values
+                  != torch.sort(ids, -1).values).any(-1)
+    return {"token_layers": own.shape[0], "decided": int(decided.sum()),
+            "set_decided": int(set_decided.sum()),
+            "flips": int(differ.sum()), "set_flips": int(set_differ.sum()),
+            "decided_flips": int((differ & decided).sum()),
+            "set_decided_set_flips": int((set_differ & set_decided).sum()),
+            "max_rel_d": float(rel.max()),
+            "median_rel_d": float(rel.median())}
+
+
+def route_check(torch, own, ids, got, want, where: str,
+                rel_tol: float = MOE_ROUTER_REL) -> dict:
+    """``route_stats`` of decode steps that took the prefill's ids: d
+    within ``rel_tol`` of the row scale everywhere, own ids equal to
+    the prefill's wherever decided (and the sets wherever set-decided),
+    at least MOE_MIN_DECIDED of the token-layers set-decided."""
+    st = route_stats(torch, own, ids, got, want)
+    n = st["token_layers"]
+    log(f"[moe] {where}: the steps' own router logits within "
+        f"{st['max_rel_d']:.4g} of the prefill's row scale (median "
+        f"{st['median_rel_d']:.4g}; tolerance {rel_tol}); of {n} "
+        f"token-layers {st['decided']} decided and {st['set_decided']} "
+        f"({st['set_decided'] / n:.1%}) set-decided (floor "
+        f"{MOE_MIN_DECIDED:.0%}); own ids differ at {st['flips']} "
+        f"({st['set_flips']} as sets), {st['decided_flips']} of them "
+        f"decided, {st['set_decided_set_flips']} set flips set-decided")
+    if st["max_rel_d"] > rel_tol:
+        fail(f"[moe] {where}: router logits differ from the prefill's by "
+             f"{st['max_rel_d']:.4g} of the row scale (tolerance "
+             f"{rel_tol})")
+    if st["decided_flips"] or st["set_decided_set_flips"]:
+        fail(f"[moe] {where}: decided token-layers routed otherwise")
+    if st["set_decided"] < MOE_MIN_DECIDED * n:
+        fail(f"[moe] {where}: {st['set_decided']} of {n} token-layers "
+             f"set-decided, under {MOE_MIN_DECIDED:.0%}")
+    return st
+
+
+def moe_layer_check(torch, rt, c, model, params, dev):
+    """Layer 0's normed input at MOE_LAYER_CHECK through ``moe_layer`` on
+    the card twice and on the CPU, on the same weights: expert ids equal
+    at every decided token (gap MOE_DECIDED_GAP), slot and keep bit for
+    bit given equal ids, y within MOE_Y_REL of each row's largest |y| on
+    the tokens routed alike, aux within 1e-5 relative, the card's two runs
+    bit-identical."""
+    import numpy as np
+
+    got = []
+    real_layer = rt.moe.moe_layer
+
+    def capture(*a, **kw):
+        if not got:
+            got.append((a, kw))
+        return real_layer(*a, **kw)
+
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, c.vocab_size, MOE_LAYER_CHECK)).to(dev)
+    rt.moe.moe_layer = capture
+    try:
+        model.prefill_fn(params, {"tokens": toks})
+    finally:
+        rt.moe.moe_layer = real_layer
+    args, kw = got[0]
+
+    def run(a):
+        rec = {}
+        real_route, real_disp = rt.moe.route, rt.moe.dispatch
+
+        def route(*r):
+            out = real_route(*r)
+            rec["probs"], rec["ids"] = out[1], out[2]
+            return out
+
+        def disp(*r):
+            out = real_disp(*r)
+            rec["slot"], rec["keep"] = out[1], out[2]
+            return out
+
+        rt.moe.route, rt.moe.dispatch = route, disp
+        try:
+            out = real_layer(*a, **kw)
+        finally:
+            rt.moe.route, rt.moe.dispatch = real_route, real_disp
+        rec["y"], rec["aux"] = out.y, out.aux_loss
+        return {k: v.detach().cpu() for k, v in rec.items()}
+
+    card = run(args)
+    again = run(args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = run([x.cpu() for x in args])
+    cpu_s = time.perf_counter() - t
+    if not all(torch.equal(card[k], again[k]) for k in card):
+        fail("[moe] two card runs of moe_layer on the same input differ")
+    k = c.top_k
+    top = torch.sort(host["probs"], -1, descending=True).values[..., :k + 1]
+    decided = (top[..., :-1] - top[..., 1:]).min(-1).values > MOE_DECIDED_GAP
+    same_ids = (card["ids"] == host["ids"]).all(-1)
+    if not same_ids[decided].all():
+        fail(f"[moe] layer check: {int((~same_ids & decided).sum())} "
+             f"decided tokens routed otherwise on the card")
+    tg = host["ids"].shape[1]
+    if same_ids.all():
+        if not (torch.equal(card["slot"], host["slot"])
+                and torch.equal(card["keep"], host["keep"])):
+            fail("[moe] layer check: equal expert ids, unequal slot/keep")
+    alike = same_ids.reshape(-1) & (card["keep"] == host["keep"]).reshape(
+        tg, k).all(-1) & (card["slot"] == host["slot"]).reshape(tg, k).all(-1)
+    a = host["y"].float().reshape(tg, -1)
+    b = card["y"].float().reshape(tg, -1)
+    rel = ((a - b).abs().amax(-1) / a.abs().amax(-1).clamp(min=1e-30))[alike]
+    worst = float(rel.max())
+    aux_rel = abs(float(card["aux"]) - float(host["aux"])) / abs(
+        float(host["aux"]))
+    if worst > MOE_Y_REL or aux_rel > 1e-5 or not torch.isfinite(b).all():
+        fail(f"[moe] layer check: y within {worst:.4g} of the row scale "
+             f"(tolerance {MOE_Y_REL}), aux within {aux_rel:.3g} relative "
+             f"(tolerance 1e-5)")
+    dropped = int((~host["keep"]).sum())
+    out = {"shape": list(MOE_LAYER_CHECK), "tokens_alike": int(alike.sum()),
+           "tokens": tg, "undecided": int((~decided).sum()),
+           "ids_equal": bool(same_ids.all()), "y_rel": worst,
+           "aux_rel": aux_rel, "dropped": dropped, "cpu_s": cpu_s}
+    log(f"[moe] layer check, layer 0's normed input {MOE_LAYER_CHECK}: "
+        f"expert ids equal on {int(same_ids.sum())} of {tg} tokens "
+        f"({int((~decided).sum())} undecided at gap {MOE_DECIDED_GAP}), "
+        f"slot/keep {'bit for bit' if same_ids.all() else 'on the tokens routed alike'}; "
+        f"y within {worst:.4g} of each row's largest |y| (tolerance "
+        f"{MOE_Y_REL}), aux within {aux_rel:.3g}; {dropped} of "
+        f"{tg * k} assignments dropped; two card runs bit-identical; "
+        f"CPU run {cpu_s:.1f} s")
+    return out
+
+
+def moe_reduced_check(torch, rt, arch, dev):
+    """At ``arch``'s REDUCED size on the card: prefill (no-drop capacity)
+    and decode over MOE_REDUCED_SHAPE tokens, the decode steps taking the
+    prefill's expert ids (``route_check``, at the logits' tolerance), the
+    last decode logits against the prefill's last position; then
+    MOE_TRAIN_STEPS train steps with the config's optimizer, loss finite
+    and aux above 0."""
+    import numpy as np
+
+    c = rt.configs.get(arch, reduced=True)
+    model = rt.model_api.build(c)
+    params = rt.init_params(model.decls, seed=0, device=dev)
+    B, S = MOE_REDUCED_SHAPE
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, c.vocab_size, (B, S))).to(dev)
+    n_moe = c.n_layers // (2 if "moe_layers" in params else 1)
+    nodrop = rt.model_api.build(c.replace(
+        capacity_factor=c.n_experts / c.top_k))
+    logits, ids, router = prefill_routing(rt, nodrop, params, n_moe, toks)
+    seen = []
+    real = force_routes(rt, n_moe, lambda l, n: ids[l][:, n], seen)
+    try:
+        st = model.init_decode_state(params, B, 2 * S)
+        for t in range(S):
+            dl, st = model.decode_fn(params, toks[:, t], st)
+    finally:
+        rt.moe.route = real
+    ref = logits[:, -1].float()
+    rel = float(((dl.float() - ref).abs().amax(-1)
+                 / ref.abs().amax(-1)).max())
+    int8 = c.kv_cache_dtype == "int8"
+    tol = MOE_INT8_LOGIT_REL if int8 else LM_LOGIT_REL
+    routes = route_check(torch, *aligned_routes(torch, seen, ids, router),
+                         f"{arch} REDUCED decode", rel_tol=tol)
+    if int8 and (st.cache.k.dtype != torch.int8
+                 or not st.cache.k_scale.any()):
+        fail(f"[moe] {arch} REDUCED: the int8 cache was not written")
+    if not torch.isfinite(dl).all() or rel > tol:
+        fail(f"[moe] {arch} REDUCED: decode logits differ from the "
+             f"prefill's by {rel:.4g} of the row scale (tolerance {tol})")
+    cell = rt.ShapeCell("moe_train", "train", *MOE_REDUCED_TRAIN)
+    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
+    step_fn = rt.train_step.make_train_step(model, opt_cfg, cell)[0]
+    opt_state = rt.optim.init_opt(c.optimizer, params, opt_cfg)
+    steps = []
+    for step in range(MOE_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in rt.train_data.make_batch(c, cell, step).items()}
+        params, opt_state, met = step_fn(params, opt_state, batch)
+        loss, aux = float(met["loss"]), float(met["aux"])
+        if not (math.isfinite(loss) and aux > 0):
+            fail(f"[moe] {arch} REDUCED train step {step}: loss {loss}, "
+                 f"aux {aux}")
+        steps.append({"loss": loss, "aux": aux, "ce": float(met["ce"])})
+    log(f"[moe] {arch} REDUCED on the card: decode ({B} x {S}, "
+        f"{'int8' if int8 else 'bf16'} cache) against the no-drop prefill "
+        f"within {rel:.4g} of the row scale (tolerance {tol}; the steps "
+        f"took the prefill's expert ids, their own differing at "
+        f"{routes['flips']} of {routes['token_layers']} token-layers); "
+        f"{MOE_TRAIN_STEPS} {c.optimizer} steps at {MOE_REDUCED_TRAIN}: "
+        + ", ".join(f"loss {s['loss']:.5f} (aux {s['aux']:.5f})"
+                    for s in steps))
+    return {"config": c.name, "decode_rel": rel, "tolerance": tol,
+            "routes": routes, "kv_cache_dtype": c.kv_cache_dtype,
+            "optimizer": c.optimizer, "train": steps}
+
+
+def phase_moe(args, torch, rt):
+    """qwen3-moe-30b-a3b at full width (MOE_LAYERS of its layers) on the
+    card: prefill twice, timed by parts, the layer check, serving; then
+    both MoE configs at REDUCED size."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    kern.launches = kern.wgmma_launches = 0
+    full = rt.configs.get(MOE_ARCH)
+    c = full.replace(n_layers=MOE_LAYERS)
+    model = rt.model_api.build(c)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = device_init(torch, rt, model.decls, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = rt.param_count(params)
+    reduced = [f"depth {full.n_layers} layers cut to {MOE_LAYERS}: the "
+               f"float32 master weights of {full.n_layers} layers "
+               f"({full.total_params() * 4 / 1e9:.0f} GB) do not fit the "
+               f"card's 80 GB; every width is the published one",
+               f"prefill_32k (32 x 32768 tokens) cut to {MOE_PREFILL[0]} x "
+               f"{MOE_PREFILL[1]}; weights random from a seeded CUDA "
+               f"generator"]
+    out = {"arch": MOE_ARCH, "n_layers": c.n_layers, "params": n_params,
+           "init_s": init_s, "reduced": reduced,
+           "base_gib": base / 2**30,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[moe] {MOE_ARCH}: {c.n_layers} of {full.n_layers} layers, "
+        f"d_model {c.d_model}, {c.n_heads} heads / {c.n_kv_heads} KV heads "
+        f"(kv_eff {c.kv_eff}), head dim {c.hd}, {c.n_experts} experts "
+        f"top-{c.top_k}, expert d_ff {c.d_ff_expert}, vocab "
+        f"{c.vocab_size}; {n_params} parameters drawn on the card in "
+        f"{init_s:.1f} s; {base / 2**30:.2f} GiB allocated before, peak "
+        f"{out['init_peak_gib']:.2f} GiB")
+    log(f"[moe] reduced: {reduced}")
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, c.vocab_size, MOE_PREFILL)).to(dev)
+    times, first = [], None
+    want = {WGMMA: c.n_layers, F32_FLASH: 0}
+    for _ in range(2):
+        before = flash_launches(kern)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = model.prefill_fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        after = flash_launches(kern)
+        launches = {k: after[k] - before[k] for k in after}
+        if launches != want:
+            fail(f"[moe] prefill launched the flash kernels {launches}, "
+                 f"want {want}")
+        if tuple(logits.shape) != (*MOE_PREFILL, c.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"[moe] prefill logits {tuple(logits.shape)} not finite "
+                 f"or misshaped")
+        if first is None:
+            first = logits
+        elif not torch.equal(first, logits):
+            fail("[moe] two prefill calls on the same tokens differ")
+    del first, logits
+    n_tok = MOE_PREFILL[0] * MOE_PREFILL[1]
+    with PartTimer(torch, rt) as timer:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        model.prefill_fn(params, {"tokens": toks})
+        e1.record()
+    parts = timer.ms()
+    total_ms = e0.elapsed_time(e1)
+    drop = sum(int(d) for d, _ in timer.dropped)
+    assigned = sum(n for _, n in timer.dropped)
+    out.update({"prefill_shape": list(MOE_PREFILL), "prefill_s": times,
+                "prefill_tokens_per_s": n_tok / times[-1],
+                "prefill_launches_per_call": launches,
+                "capacity": rt.moe.capacity_of(c.capacity_factor, c.top_k,
+                                               n_tok, c.n_experts),
+                "part_span_ms": parts, "timed_prefill_span_ms": total_ms,
+                "dropped_share": drop / assigned,
+                "prefill_peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    log(f"[moe] prefill {MOE_PREFILL}: {times[0]:.3f} s first call, "
+        f"{times[1]:.3f} s second ({n_tok / times[1]:.0f} tokens/s); "
+        f"{launches} flash launches a call; logits finite and bit-identical "
+        f"across the calls; capacity {out['capacity']} per expert, "
+        f"{drop} of {assigned} assignments dropped "
+        f"({drop / assigned:.2%}); peak {out['prefill_peak_gib']:.2f} GiB")
+    log(f"[moe] stream spans of a third prefill by part, ms summed over "
+        f"{c.n_layers} layers (CUDA events recorded on the stream around "
+        f"each call: a span holds whatever launch gaps fall inside it, "
+        f"not a trace's device time; {total_ms:.1f} ms from the call's "
+        f"first launch to its last): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; the rest {total_ms - sum(parts.values()):.2f}")
+
+    # a fourth call: the flash kernel's inputs at the first and the last
+    # layer, held against attention_ref once the weights are freed
+    entry, attn_in = rt.fa_ops.flash_attention, []
+
+    def capture(q, k, v, **kw):
+        attn_in[min(len(attn_in), 1):] = [(q, k, v, kw)]
+        return entry(q, k, v, **kw)
+
+    n_calls = flash_launches(kern)[WGMMA]
+    rt.fa_ops.flash_attention = capture
+    try:
+        model.prefill_fn(params, {"tokens": toks})
+    finally:
+        rt.fa_ops.flash_attention = entry
+    if flash_launches(kern)[WGMMA] - n_calls != c.n_layers:
+        fail("[moe] the capturing prefill did not launch the wgmma kernel "
+             "once a layer")
+
+    out["layer_check"] = moe_layer_check(torch, rt, c, model, params, dev)
+    out["serve"] = moe_serve_check(torch, rt, c, model, params, dev)
+    del params
+    torch.cuda.empty_cache()
+    phase_launches = flash_launches(kern)
+    errs = []
+    for name, (q, k, v, kw) in zip(("layer 0", f"layer {c.n_layers - 1}"),
+                                   attn_in):
+        errs.append(check_attention(
+            rt, torch, q, k, v, kw.get("causal", True),
+            f"[moe] {name} of the prefill {tuple(q.shape)} over "
+            f"{tuple(k.shape)}"))
+        log(f"[moe] {WGMMA} on {name}'s q/k/v of the prefill: q "
+            f"{tuple(q.shape)} over k/v {tuple(k.shape)} (GQA group "
+            f"{q.shape[1] // k.shape[1]}), bf16 causal: max |kernel - "
+            f"attention_ref| {errs[-1]:.3g} (tolerance 1 bf16 ulp + 1e-6)")
+    out["attention_check_max_abs_err"] = errs
+    del attn_in
+    kern.launches = phase_launches[WGMMA] + phase_launches[F32_FLASH]
+    kern.wgmma_launches = phase_launches[WGMMA]   # the checks' do not count
+    out["reduced_runs"] = [moe_reduced_check(torch, rt, arch, dev)
+                           for arch in MOE_REDUCED_ARCHS]
+    return out, flash_launches(kern)
+
+
+def moe_serve_check(torch, rt, c, model, params, dev) -> dict:
+    """Serving at full width.  ``ServeEngine`` answers the requests with
+    nothing else in its timed run (``serve_check`` without a reference);
+    then, untimed, each prompt through the engine's ``_prefill_into`` (the
+    prompt's decode steps) beside the prefill of ``replace(
+    capacity_factor=n_experts / top_k)``, whose capacity is the prompt's
+    length and never drops (a prefill at 1.25 drops assignments that a
+    one-token step never drops): first routing itself (the first
+    MOE_UNFORCED_PROMPTS prompts), its flips counted and its last logits'
+    distance logged, then taking the prefill's
+    expert ids (``route_check``), its last logits within LM_LOGIT_REL of
+    the prefill's last position."""
+    out = serve_check(torch, rt, c, model, params, dev, tag="[moe]",
+                      check=False)
+    nodrop = rt.model_api.build(c.replace(
+        capacity_factor=c.n_experts / c.top_k))
+    eng = rt.ServeEngine(c, params, batch_slots=1,
+                         max_seq=LM_SERVE["max_seq"], device=dev)
+    state = model.init_decode_state(params, 1, LM_SERVE["max_seq"])
+    t = time.perf_counter()
+    runs = {"own": [], "forced": []}
+    rels = {"own": [], "forced": []}
+    prompts = serve_prompts(c)
+    for i, p in enumerate(prompts):
+        toks = torch.tensor([p], device=dev)
+        logits, ids, router = prefill_routing(rt, nodrop, params,
+                                              c.n_layers, toks)
+        ref = logits[0, -1].float()
+        modes = ((("own", None),) if i < MOE_UNFORCED_PROMPTS else ()) + (
+            ("forced", lambda l, n: ids[l][:, n]),)
+        for mode, source in modes:
+            seen = []
+            real = force_routes(rt, c.n_layers, source, seen)
+            try:
+                _, last = eng._prefill_into(state, 0, p)
+            finally:
+                rt.moe.route = real
+            got = last[0].float()
+            if not torch.isfinite(got).all():
+                fail(f"[moe] decode logits after a {len(p)}-token prompt "
+                     f"are not finite")
+            rels[mode].append(float((got - ref).abs().max()
+                                    / ref.abs().max()))
+            runs[mode].append(aligned_routes(torch, seen, ids, router))
+    own, forced = ([torch.cat(col) for col in zip(*runs[m])]
+                   for m in ("own", "forced"))
+    free = route_stats(torch, *own)
+    n = free["token_layers"]
+    log(f"[moe] serve, the decode steps of the first "
+        f"{min(MOE_UNFORCED_PROMPTS, len(prompts))} of {len(prompts)} prompts routing themselves (cut for the "
+        f"phase's time): own ids differ from the no-drop prefill's at {free['flips']} of {n} "
+        f"token-layers ({free['flips'] / n:.1%}; {free['set_flips']} as "
+        f"sets of experts, {free['set_flips'] / n:.1%}); router logits "
+        f"within {free['max_rel_d']:.4g} of the prefill's row scale "
+        f"(median {free['median_rel_d']:.4g}); last logits within "
+        f"{[round(r, 4) for r in rels['own']]} of the prefill's row scale "
+        f"(not held: a token on another expert differs by more than a "
+        f"rounding)")
+    worst = max(rels["forced"])
+    if worst > LM_LOGIT_REL:
+        fail(f"[moe] decode logits after a prompt, on the prefill's expert "
+             f"ids, differ from the no-drop prefill's by {worst:.4f} of "
+             f"the row's largest |logit| (tolerance {LM_LOGIT_REL})")
+    routes = route_check(torch, *forced,
+                         "serve, the prompts' decode steps on the no-drop "
+                         "prefill's expert ids")
+    check_s = time.perf_counter() - t
+    log(f"[moe] serve check: each prompt's decode logits on the prefill's "
+        f"expert ids within {worst:.4f} of the no-drop prefill's row scale "
+        f"(tolerance {LM_LOGIT_REL}; per prompt "
+        f"{[round(r, 4) for r in rels['forced']]}); {check_s:.1f} s")
+    out.update({"decode_vs_prefill_rel": worst,
+                "decode_vs_prefill_rel_each": rels["forced"],
+                "unforced_rel_each": rels["own"], "unforced_routes": free,
+                "forced_routes": routes, "check_s": check_s})
+    return out
+
+
 def flash_launches(kern) -> dict:
     """Launches of each flash kernel since the counters were set to 0."""
     return {WGMMA: kern.wgmma_launches,
@@ -2664,15 +3320,21 @@ def lm_profile(torch, c, model, params, toks, dev):
     return out
 
 
-def serve_check(torch, rt, c, model, params, dev):
-    """``ServeEngine`` answers the requests; each prompt's decode logits
-    (after its last token) against ``prefill_fn``'s last position."""
+def serve_prompts(c) -> list:
+    """The serving checks' prompts (LM_SERVE), drawn from seed 2."""
     import numpy as np
 
     gen = np.random.default_rng(2)
     lo, hi = LM_SERVE["prompt"]
-    prompts = [gen.integers(0, c.vocab_size, int(n)).tolist()
-               for n in gen.integers(lo, hi + 1, LM_SERVE["requests"])]
+    return [gen.integers(0, c.vocab_size, int(n)).tolist()
+            for n in gen.integers(lo, hi + 1, LM_SERVE["requests"])]
+
+
+def serve_check(torch, rt, c, model, params, dev, tag="[lm]", check=True):
+    """``ServeEngine`` answers the requests, timed; with ``check``, each
+    prompt's decode logits (after its last token, kept from the run)
+    against the last position of ``prefill_fn``, after the timing."""
+    prompts = serve_prompts(c)
     eng = rt.ServeEngine(c, params, batch_slots=LM_SERVE["batch_slots"],
                          max_seq=LM_SERVE["max_seq"], device=dev)
     decode_logits = {}
@@ -2683,7 +3345,8 @@ def serve_check(torch, rt, c, model, params, dev):
         decode_logits[tuple(prompt)] = logits[0]
         return state, logits
 
-    eng._prefill_into = capture
+    if check:
+        eng._prefill_into = capture
     reqs = [rt.Request(prompt=p, max_new=LM_SERVE["max_new"]) for p in prompts]
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2696,6 +3359,18 @@ def serve_check(torch, rt, c, model, params, dev):
              f"or cut one short")
     n_new = sum(len(r.output) for r in done)
     n_prompt = sum(len(p) for p in prompts)
+    lat = sorted(r.latency_s for r in done)
+    out = {"requests": len(done), "prompt_tokens": n_prompt,
+           "new_tokens": n_new, "wall_s": wall,
+           "new_tokens_per_s": n_new / wall,
+           "tokens_per_s": (n_new + n_prompt) / wall,
+           "latency_s": lat, **LM_SERVE}
+    log(f"{tag} serve: {len(done)} requests ({n_prompt} prompt tokens, "
+        f"{n_new} new) in {wall:.2f} s: {n_new / wall:.1f} new tokens/s, "
+        f"{(n_new + n_prompt) / wall:.1f} tokens/s with the prompts' decode "
+        f"steps; latency per request {[round(x, 3) for x in lat]} s")
+    if not check:
+        return out
     worst, agree = 0.0, 0
     for p in prompts:
         ref = model.prefill_fn(params, {"tokens": torch.tensor(
@@ -2708,20 +3383,10 @@ def serve_check(torch, rt, c, model, params, dev):
             fail(f"decode logits after a {len(p)}-token prompt differ from "
                  f"prefill_fn's by {rel:.4f} of the row's largest |logit| "
                  f"(tolerance {LM_LOGIT_REL})")
-    lat = sorted(r.latency_s for r in done)
-    out = {"requests": len(done), "prompt_tokens": n_prompt,
-           "new_tokens": n_new, "wall_s": wall,
-           "new_tokens_per_s": n_new / wall,
-           "tokens_per_s": (n_new + n_prompt) / wall,
-           "latency_s": lat, "decode_vs_prefill_rel": worst,
-           "argmax_agree": agree, **LM_SERVE}
-    log(f"[lm] serve: {len(done)} requests ({n_prompt} prompt tokens, "
-        f"{n_new} new) in {wall:.2f} s: {n_new / wall:.1f} new tokens/s, "
-        f"{(n_new + n_prompt) / wall:.1f} tokens/s with the prompts' decode "
-        f"steps; latency per request {[round(x, 3) for x in lat]} s; decode "
-        f"logits after each prompt within {worst:.4f} of prefill_fn's row "
-        f"scale (tolerance {LM_LOGIT_REL}), argmax equal on {agree} of "
-        f"{len(prompts)}")
+    out.update({"decode_vs_prefill_rel": worst, "argmax_agree": agree})
+    log(f"{tag} serve: decode logits after each prompt within {worst:.4f} "
+        f"of prefill_fn's row scale (tolerance {LM_LOGIT_REL}), argmax "
+        f"equal on {agree} of {len(prompts)}")
     return out
 
 
@@ -2823,7 +3488,9 @@ def runtime(torch):
         from repro_torch.models import api as model_api
         from repro_torch.models import attention
         from repro_torch.models.arch_config import ShapeCell
-        from repro_torch.models.common import init_params, param_count
+        from repro_torch.models import moe
+        from repro_torch.models.common import (init_params, init_std,
+                                               param_count)
         from repro_torch.launch import train as train_launcher
         from repro_torch.launch import train_step
         from repro_torch.train import checkpoint, optim
@@ -2845,7 +3512,8 @@ def runtime(torch):
         telemetry=telemetry, configs=configs, fa_kernel=fa_kernel,
         fa_ops=fa_ops, fa_ref=fa_ref, Request=Request,
         ServeEngine=ServeEngine, model_api=model_api,
-        init_params=init_params, param_count=param_count,
+        init_params=init_params, param_count=param_count, moe=moe,
+        init_std=init_std,
         louvain_batch=louvain_batch,
         plp_batch=plp_batch, coactivation_graph=coactivation_graph,
         louvain_placement=louvain_placement,
@@ -2892,6 +3560,7 @@ def main(argv) -> int:
                             main_out["coarse_launches"])
     kernels += phase_scored_tiles(args, torch, rt, captured, seg_inputs,
                                   main_out["two_step"]["launches"])
+    del recs, runs, captured, seg_inputs
     for row in kernels:
         if row["name"] == "bin_rank":
             # phase 3d's launches, (a) and every rank of (b)
@@ -2912,6 +3581,17 @@ def main(argv) -> int:
     if args.profile:
         main_out["profile"] = phase_profile(
             torch, rt, MAIN_GRAPH[0], graphs[MAIN_GRAPH[0]][0])
+    del graphs            # phase 5m's weights need the card's memory
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    main_out["moe"], moe_launches = phase_moe(args, torch, rt)
+    main_out["moe"]["phase_s"] = time.perf_counter() - t
+    log(f"[moe] phase 5m took {main_out['moe']['phase_s']:.1f} s; flash "
+        f"launches in the phase {moe_launches}")
+    for row in lm_kernels:
+        if row["name"] == WGMMA:
+            row["moe_launches"] = moe_launches[WGMMA]
+    clocks("after phase 5m")
     main_out["total_s"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -2,10 +2,11 @@
 resolution for launchers and tests.
 
 Each module defines CONFIG (the exact published dims) and REDUCED (a same-
-family small config for CPU tests).  The port holds the dense configs whose
-every feature it runs (RMS norm, SwiGLU, qk-norm, GQA, bf16 KV cache);
-the JAX package's other architectures join as their families are ported
-(ROADMAP Queue 1 #8).
+family small config for CPU tests).  The port holds the dense and MoE
+configs whose every feature it runs (RMS norm, SwiGLU, qk-norm, GQA, routed
+and shared experts, dense/MoE layer pairs, bf16 and int8 KV caches); the
+JAX package's other architectures join as their families are ported
+(ROADMAP Queue 1 #3 and #4).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "qwen3-1.7b": "qwen3_1_7b",
     "phi3-medium-14b": "phi3_medium_14b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 ARCH_IDS = tuple(_MODULES)

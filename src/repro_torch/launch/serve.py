@@ -65,10 +65,9 @@ class ServeEngine:
             tok = torch.full((1,), int(t), dtype=torch.int64,
                              device=self.device)
             last_logits, one = self.model.decode_fn(self.params, tok, one)
-        cache = state.cache
-        for batch_t, one_t in ((cache.k, one.cache.k), (cache.v, one.cache.v),
-                               (cache.pos, one.cache.pos)):
-            _slot_write(batch_t, one_t, slot)
+        for batch_t, one_t in zip(state.cache, one.cache):
+            if batch_t is not None:       # the int8 cache's scales
+                _slot_write(batch_t, one_t, slot)
         return state, last_logits
 
     def run(self, requests: List[Request]) -> List[Request]:
@@ -115,8 +114,8 @@ class ServeEngine:
 def _slot_write(batch_t: torch.Tensor, one_t: torch.Tensor, slot: int
                 ) -> None:
     """Write a one-slot state tensor into batch position ``slot``, in
-    place: (L, 1, ...) cache stacks at axis 1, the (1,) position vector at
-    its one axis."""
+    place: (L, 1, ...) cache stacks (K, V and the int8 cache's scales) at
+    axis 1, the (1,) position vector at its one axis."""
     if batch_t.dim() == 1:
         batch_t[slot] = one_t[0]
     else:

@@ -14,7 +14,7 @@ Fault-tolerance contract (``tests/test_torch_train.py``):
   * straggler watch: a step taking more than ``step_timeout_factor`` times
     the median of the last 20 logs a straggler warning.
 Data- and model-parallel runs (``--data``/``--model`` above 1) raise
-``NotImplementedError``: ROADMAP Queue 1 #8's first item.
+``NotImplementedError``: ROADMAP Queue 1 #2.
 """
 from __future__ import annotations
 
@@ -140,7 +140,7 @@ def main(argv=None):
     if args.data * args.model > 1:
         raise NotImplementedError(
             f"--data {args.data} --model {args.model}: data/model-parallel "
-            f"training is not ported yet (ROADMAP Queue 1 #8: "
+            f"training is not ported yet (ROADMAP Queue 1 #2: "
             f"launch/mesh.py, launch/sharding.py)")
     dev = resolve_device(args.device)
     c = configs.get(args.arch, reduced=args.reduced)

@@ -13,7 +13,7 @@ tuple without the shardings:
     (``train.optim``), as the JAX package donates their buffers.
 
 A mesh (data- or model-parallel training) raises ``NotImplementedError``:
-it is ROADMAP Queue 1 #8's first item.
+it is ROADMAP Queue 1 #2.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from repro_torch.train import optim
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 _NO_MESH = ("data/model-parallel {} (a mesh) is not ported yet "
-            "(ROADMAP Queue 1 #8: launch/mesh.py, launch/sharding.py)")
+            "(ROADMAP Queue 1 #2: launch/mesh.py, launch/sharding.py)")
 
 
 def _refuse_mesh(mesh, what: str) -> None:

@@ -2,10 +2,11 @@
 the families the port runs.
 
 ``build(cfg)`` returns a ``ModelAPI`` whose members are plain functions of
-(params, inputs).  The port runs the dense family: the training loss,
-prefill (every layer's attention through the hand-written flash-attention
-kernel on the card) and KV-cache decode.  The other families raise
-``NotImplementedError``; they are ROADMAP Queue 1 #8.
+(params, inputs).  The port runs the dense and MoE families: the training
+loss (with the MoE aux loss), prefill (every layer's attention through
+the hand-written flash-attention kernel on the card) and KV-cache decode
+with a bf16 or int8 cache.  The other families raise
+``NotImplementedError``; they are ROADMAP Queue 1 #3 and #4.
 
 Batch dict conventions:
   train:    {tokens (B,S) int, labels (B,S) int [, mask (B,S)]}
@@ -73,7 +74,8 @@ def build(c: ArchConfig) -> ModelAPI:
         return transformer.loss_fn(c, params, batch)
 
     def prefill_fn(params, batch):
-        return transformer.forward(c, params, batch["tokens"])
+        logits, _ = transformer.forward(c, params, batch["tokens"])
+        return logits
 
     def decode_fn(params, token, state):
         return transformer.decode_step(c, params, token, state)
@@ -85,11 +87,17 @@ def build(c: ArchConfig) -> ModelAPI:
         return transformer.DecodeState(cache)
 
     def decode_state_specs(cell: ShapeCell):
-        transformer._check_cache_dtype(c)
         b, s = cell.global_batch, cell.seq_len
-        k = TensorSpec((c.n_layers, b, c.kv_eff, s, c.hd), torch.bfloat16)
+        shape = (c.n_layers, b, c.kv_eff, s, c.hd)
         pos = TensorSpec((b,), torch.int32)             # per-slot positions
-        return transformer.DecodeState(transformer.KVCache(k, k, pos))
+        if c.kv_cache_dtype == "int8":
+            k = TensorSpec(shape, torch.int8)
+            sc = TensorSpec(shape[:-1] + (1,), torch.float32)
+            cache = transformer.KVCache(k, k, sc, sc, pos)
+        else:
+            k = TensorSpec(shape, torch.bfloat16)
+            cache = transformer.KVCache(k, k, None, None, pos)
+        return transformer.DecodeState(cache)
 
     def input_specs(cell: ShapeCell):
         b, s = cell.global_batch, cell.seq_len

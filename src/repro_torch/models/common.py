@@ -44,18 +44,23 @@ def is_decl(x) -> bool:
     return isinstance(x, ParamDecl)
 
 
+def init_std(d: ParamDecl) -> float:
+    """The standard deviation of a ``normal``, ``embed`` or ``small``
+    leaf's zero-mean draw."""
+    if d.init == "embed":
+        return 0.02 * d.scale
+    if d.init == "small":
+        return 1e-3 * d.scale
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    return d.scale / math.sqrt(max(1, fan_in))
+
+
 def _draw(d: ParamDecl, rng: np.random.Generator) -> np.ndarray:
     if d.init == "zeros":
         return np.zeros(d.shape, np.float32)
     if d.init == "ones":
         return np.ones(d.shape, np.float32)
-    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    std = d.scale / math.sqrt(max(1, fan_in))
-    if d.init == "embed":
-        std = 0.02 * d.scale
-    elif d.init == "small":
-        std = 1e-3 * d.scale
-    return rng.normal(0.0, std, d.shape).astype(np.float32)
+    return rng.normal(0.0, init_std(d), d.shape).astype(np.float32)
 
 
 def init_params(decls, seed: int = 0, *, device=None) -> Any:

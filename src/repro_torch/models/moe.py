@@ -1,0 +1,176 @@
+"""Mixture-of-Experts layer with sort-based dispatch (port of
+``repro.models.moe``).
+
+The dispatch is the paper's GroupBy, as in the Louvain aggregation: the
+token-to-expert assignments are sorted by expert id (a stable sort), each
+run's start is carried forward by a running maximum, and an assignment's
+rank within its expert's run decides whether it fits the expert's
+capacity.  Every gather and scatter stays inside a dispatch group:
+
+  x (B,S,D) -> (G, Tg, D)        G = number of dispatch groups
+  router/top-k/sort/capacity     per group, batched over G
+  buf (G, E·C, D)                kept rows placed at their slots
+  expert FFN                     SwiGLU, batched over (G, E)
+  combine                        each token's k slots summed in order
+
+The port has no device mesh yet, so ``_n_groups`` is 1; the group axis
+stays so that a data-parallel mesh only has to set it.
+
+Parity with the JAX package, which the port's tests hold bit for bit on
+the integer parts:
+
+* top-k is a stable descending sort of the probabilities, so ties keep
+  the lower expert id first as ``jax.lax.top_k`` does (``torch.topk``
+  orders ties otherwise);
+* kept slots are unique, so the scatter is a plain ``index_put``
+  (dropped assignments write zeros to a spare row past ``E·C``), never an
+  atomic float accumulate, which is not deterministic on the card;
+* the combine adds a token's k weighted slots in position order from
+  zeros in ``x.dtype``, rounding after every add, as XLA's scatter-add
+  does.
+
+Aux losses: the Switch load-balance loss plus the router z-loss, averaged
+over groups.  Plain PyTorch throughout, differentiable under autograd.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+
+# the aux loss's weights (the JAX package's ``moe_layer`` defaults; no
+# config carries its own)
+ROUTER_Z_COEF = 1e-3
+BALANCE_COEF = 1e-2
+
+
+class MoEOut(NamedTuple):
+    y: torch.Tensor
+    aux_loss: torch.Tensor
+
+
+def _n_groups(total_tokens: int) -> int:
+    """Dispatch groups: 1, as the JAX package has without an active mesh
+    (the port has no mesh yet, ROADMAP Queue 1 #2)."""
+    return 1
+
+
+def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int,
+                      capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """expert_ids: (..., T) int — returns (slot, keep), each (..., T):
+    ``slot`` in [0, E·C) int64, ``keep`` the assignments whose rank in
+    their expert's run is under ``capacity``.  Integer work only."""
+    t = expert_ids.shape[-1]
+    sorted_e, order = torch.sort(expert_ids, dim=-1, stable=True)
+    starts = torch.ones_like(sorted_e, dtype=torch.bool)
+    starts[..., 1:] = sorted_e[..., 1:] != sorted_e[..., :-1]
+    pos = torch.arange(t, dtype=torch.int64, device=expert_ids.device)
+    pos = pos.expand_as(order)
+    run_start = torch.where(starts, pos, torch.zeros_like(pos))
+    run_start = torch.cummax(run_start, dim=-1).values
+    rank = torch.empty_like(pos).scatter_(-1, order, pos - run_start)
+    keep = rank < capacity
+    slot = (torch.clamp(expert_ids.long(), 0, n_experts - 1) * capacity
+            + torch.clamp(rank, 0, capacity - 1))
+    return slot, keep
+
+
+def route(xg: torch.Tensor, w_router: torch.Tensor, top_k: int):
+    """Router of (G, Tg, D) tokens: float32 logits and probabilities
+    (G, Tg, E), the top-k expert ids (G, Tg, k) in descending probability
+    (ties to the lower id) and their renormalised weights."""
+    logits = torch.einsum("gtd,de->gte", xg.float(), w_router.float())
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :top_k], top_e[..., :top_k]
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    return logits, probs, top_e, top_p
+
+
+def capacity_of(capacity_factor: float, top_k: int, tg: int, e: int) -> int:
+    """Slots per expert in a group of ``tg`` tokens (the JAX package's
+    Python arithmetic)."""
+    return max(8, int(capacity_factor * top_k * tg / e))
+
+
+def dispatch(xg: torch.Tensor, top_e: torch.Tensor, n_experts: int,
+             capacity: int):
+    """Sort, rank and scatter: (buf (G, E, C, D), slot, keep), slot and
+    keep (G, Tg·k) over the assignments in token-major order.  Kept rows
+    go to their slots, which are unique; dropped rows write their zeros to
+    the spare row E·C, which is cut off."""
+    G, tg, d = xg.shape
+    top_k = top_e.shape[-1]
+    ec = n_experts * capacity
+    slot, keep = _dispatch_indices(top_e.reshape(G, tg * top_k), n_experts,
+                                   capacity)
+    token_of = torch.arange(tg, device=xg.device).repeat_interleave(top_k)
+    group_of = torch.arange(G, device=xg.device)[:, None]
+    idx = torch.where(keep, slot, ec)
+    rows = torch.where(keep[..., None], xg[:, token_of], 0.0)
+    buf = xg.new_zeros((G, ec + 1, d)).index_put((group_of, idx), rows)
+    return buf[:, :ec].reshape(G, n_experts, capacity, d), slot, keep
+
+
+def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its slots, batched over (G, E):
+    (G, E, C, D) -> (G, E·C, D)."""
+    G, e, c, d = buf.shape
+    g_ = torch.einsum("gecd,edf->gecf", buf, w_gate)
+    u_ = torch.einsum("gecd,edf->gecf", buf, w_up)
+    h = torch.nn.functional.silu(g_.float()).to(buf.dtype) * u_
+    return torch.einsum("gecf,efd->gecd", h, w_down).reshape(G, e * c, d)
+
+
+def combine(yb: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+            top_p: torch.Tensor) -> torch.Tensor:
+    """Each assignment's expert output, weighted, summed over its token's
+    k slots in position order from zeros in ``yb.dtype``: (G, Tg, D)."""
+    G, tg, top_k = top_p.shape
+    d = yb.shape[-1]
+    group_of = torch.arange(G, device=yb.device)[:, None]
+    contrib = torch.where(keep[..., None], yb[group_of, slot], 0.0)
+    contrib = (contrib * top_p.reshape(G, tg * top_k, 1).to(yb.dtype)
+               ).reshape(G, tg, top_k, d)
+    y = torch.zeros((G, tg, d), dtype=yb.dtype, device=yb.device)
+    for i in range(top_k):
+        y = y + contrib[:, :, i]
+    return y
+
+
+def aux_loss(logits: torch.Tensor, probs: torch.Tensor,
+             top_e: torch.Tensor) -> torch.Tensor:
+    """Switch load-balance loss plus router z-loss, float32 scalar."""
+    e = probs.shape[-1]
+    me = torch.mean(probs, dim=(0, 1))                          # (E,)
+    one_hot_top1 = torch.nn.functional.one_hot(top_e[..., 0], e).float()
+    ce = torch.mean(one_hot_top1, dim=(0, 1))
+    balance = e * torch.sum(me * ce)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return (BALANCE_COEF * balance + ROUTER_Z_COEF * z).float()
+
+
+def moe_layer(
+    x: torch.Tensor,            # (B, S, D)
+    w_router: torch.Tensor,     # (D, E)
+    w_gate: torch.Tensor,       # (E, D, F)
+    w_up: torch.Tensor,         # (E, D, F)
+    w_down: torch.Tensor,       # (E, F, D)
+    top_k: int,
+    capacity_factor: float = 1.25,
+) -> MoEOut:
+    b, s, d = x.shape
+    e = w_router.shape[-1]
+    t = b * s
+    G = _n_groups(t)
+    tg = t // G
+    xg = x.reshape(G, tg, d)
+    logits, probs, top_e, top_p = route(xg, w_router, top_k)
+    capacity = capacity_of(capacity_factor, top_k, tg, e)
+    buf, slot, keep = dispatch(xg, top_e, e, capacity)
+    yb = expert_ffn(buf, w_gate, w_up, w_down)
+    y = combine(yb, slot, keep, top_p)
+    aux = aux_loss(logits, probs, top_e)
+    return MoEOut(y.reshape(b, s, d), aux)

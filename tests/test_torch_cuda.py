@@ -82,6 +82,22 @@ and one ``make_train_step`` (``grad_accum = 2``) on the card against the
 CPU: every gradient leaf, the step's own included, within 2^-5 of its
 largest magnitude, and the step's parameters and optimizer state within
 1e-6 of the CPU optimizer run on the card step's gradients.
+
+MoE: ``moe_layer`` at REDUCED and at qwen3-moe's full expert widths on
+the card against itself on the CPU on the same bf16 input — expert ids
+equal at every token whose adjacent top-(k+1) probabilities differ by
+more than 1e-5, slot and keep bit for bit given equal ids, ``y`` within
+2^-5 of each row's largest magnitude on the tokens routed alike (the
+dense prefill's bound: at the full expert widths the two devices' bf16
+products, summed in other orders over 2048 and 768 terms, land up to
+2.75 bf16 ulps of the row scale apart on an H100), aux within 1e-5
+relative, and a repeated card run bit for bit; the int8 KV cache's ``_quant``/``_cache_write``/``_cache_read``
+on the card equal to the CPU's bit for bit.  The MoE configs' prefill
+check routes the card's layers as the CPU's run routed them (a near-tie
+flips on a bf16 ulp of input; the card's own ids must equal them wherever
+the adjacent gaps exceed 2^-6) and holds 2^-4 of each logit row's
+largest magnitude (llama4 is 4 layers deep; ``tests/test_torch_models.py``
+``MOE_LOGIT_REL``).
 """
 import numpy as np
 import pytest
@@ -112,6 +128,8 @@ from repro_torch.kernels.segment_sum.ops import sorted_segment_sum
 from repro_torch.kernels.segment_sum.ref import (block_segment_sums_ref,
                                                  sorted_segment_sum_ref)
 from repro_torch.models import api as model_api
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer
 from repro_torch.models.common import init_params
 from repro_torch.utils.errors import KernelError
 
@@ -1750,13 +1768,48 @@ def test_service_clean_flush_on_the_card(cuda_device):
             _assert_runs_equal(r.result, ref, BATCH_FIELDS)
 
 
+def _routes(monkeypatch):
+    """The port's router records its own expert ids, call by call, until
+    ``force()``; from then on call i takes the i-th recorded ids (a
+    prefill calls its MoE layers in order).  Returns (recorded, the
+    forced calls' (own ids, ids taken, probabilities), force)."""
+    real = moe_lib.route
+    calls, seen, forcing = [], [], []
+
+    def forced(xg, w_router, top_k):
+        logits, probs, own, own_p = real(xg, w_router, top_k)
+        if not forcing:
+            calls.append(own.cpu())
+            return logits, probs, own, own_p
+        ids = calls[len(seen)].to(own.device)
+        seen.append((own.cpu(), ids.cpu(), probs.cpu()))
+        top_p = torch.gather(probs, -1, ids)
+        return logits, probs, ids, top_p / top_p.sum(-1, keepdim=True)
+
+    monkeypatch.setattr(moe_lib, "route", forced)
+    return calls, seen, lambda: forcing.append(True)
+
+
+def _decided(probs, k, gap):
+    top = torch.sort(probs, -1, descending=True).values[..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).min(-1).values > gap
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 @pytest.mark.parametrize("bs", [(2, 8), (1, 2048)])
-def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs):
+def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs,
+                                             monkeypatch):
     c = configs.get(arch, reduced=True)
     m = model_api.build(c)
     toks = np.random.default_rng(bs[1]).integers(0, c.vocab_size, bs)
+    cpu_params = init_params(m.decls, seed=0, device="cpu")
+    moe = c.family == "moe"
+    if moe:       # the card's layers routed as the CPU's run routes them
+        ids, seen, force = _routes(monkeypatch)
+    cpu = m.prefill_fn(cpu_params, {"tokens": torch.from_numpy(toks)})
+    if moe:
+        force()
     params = init_params(m.decls, seed=0, device=cuda_device)
     launches = flash_attention_fwd_kernel.launches
     wgmma = flash_attention_fwd_kernel.wgmma_launches
@@ -1765,12 +1818,94 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs):
     # every layer through the wgmma kernel, none through the float32 one
     assert flash_attention_fwd_kernel.wgmma_launches == wgmma + c.n_layers
     assert flash_attention_fwd_kernel.launches == launches + c.n_layers
-    cpu = m.prefill_fn(init_params(m.decls, seed=0, device="cpu"),
-                       {"tokens": torch.from_numpy(toks)})
+    if moe:
+        assert len(seen) == len(ids)
+        for own, taken, probs in seen:
+            d = _decided(probs, c.top_k, 2.0 ** -6)
+            assert torch.equal(own[d], taken[d])
     a, b = cpu.float().numpy(), card.float().cpu().numpy()
     assert np.isfinite(b).all()
     diff = np.abs(a - b).max(axis=-1)
-    assert np.all(diff <= 2.0 ** -5 * np.abs(a).max(axis=-1))
+    rel = 2.0 ** -4 if moe else 2.0 ** -5
+    assert np.all(diff <= rel * np.abs(a).max(axis=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (tokens, d_model, experts, top_k, expert d_ff, capacity factor)
+    (256, 64, 8, 2, 32, 1.25),
+    (512, 64, 8, 2, 32, 0.5),
+    (1024, 2048, 128, 8, 768, 1.25),     # qwen3-moe-30b-a3b's widths
+])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, shape,
+                                               monkeypatch):
+    t, d, e, k, f, cf = shape
+    rng = np.random.default_rng(t)
+    x = torch.from_numpy(rng.standard_normal((1, t, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    ws = [torch.from_numpy((rng.standard_normal(sh) / np.sqrt(sh[-2]))
+                           .astype(np.float32))
+          for sh in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    ws = [w.to(torch.bfloat16) for w in ws]
+    rec = {}
+    real_route, real_disp = moe_lib.route, moe_lib.dispatch
+
+    def route(*a):
+        out = real_route(*a)
+        rec["probs"], rec["ids"] = out[1], out[2]
+        return out
+
+    def disp(*a):
+        out = real_disp(*a)
+        rec["slot"], rec["keep"] = out[1], out[2]
+        return out
+
+    monkeypatch.setattr(moe_lib, "route", route)
+    monkeypatch.setattr(moe_lib, "dispatch", disp)
+
+    def run(dev):
+        out = moe_lib.moe_layer(x.to(dev), *[w.to(dev) for w in ws],
+                                top_k=k, capacity_factor=cf)
+        return {"y": out.y.cpu(), "aux": out.aux_loss.cpu(),
+                **{n: v.cpu() for n, v in rec.items()}}
+
+    host = run("cpu")
+    card = run(cuda_device)
+    again = run(cuda_device)
+    for n in card:
+        assert torch.equal(card[n], again[n]), n
+    if cf < 1:
+        assert not host["keep"].all()
+    same = (card["ids"] == host["ids"]).all(-1)
+    assert same[_decided(host["probs"], k, 1e-5)].all()
+    if same.all():
+        assert torch.equal(card["slot"], host["slot"])
+        assert torch.equal(card["keep"], host["keep"])
+    alike = same[0] & (card["keep"] == host["keep"]).reshape(t, k).all(-1)
+    a, b = host["y"].float()[0][alike], card["y"].float()[0][alike]
+    assert ((a - b).abs().amax(-1) <= 2.0 ** -5 * a.abs().amax(-1)).all()
+    assert abs(float(card["aux"]) - float(host["aux"])) <= \
+        1e-5 * abs(float(host["aux"]))
+
+
+@pytest.mark.cuda
+def test_int8_cache_on_the_card_matches_the_cpu(cuda_device):
+    rng = np.random.default_rng(4)
+    B, H, S, hd = 4, 8, 64, 128
+    k_new, v_new = (torch.from_numpy((rng.standard_normal((B, H, 1, hd))
+                                      * 3).astype(np.float32))
+                    .to(torch.bfloat16) for _ in range(2))
+    pos = torch.from_numpy(np.array([0, 5, 63, 17], np.int32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        cache = [torch.zeros((B, H, S, hd), dtype=torch.int8, device=dev)
+                 for _ in range(2)] + [
+            torch.zeros((B, H, S, 1), device=dev) for _ in range(2)]
+        cache = transformer._cache_write(*cache, k_new.to(dev),
+                                         v_new.to(dev), pos.to(dev))
+        outs.append([t.cpu() for t in cache + transformer._cache_read(*cache)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 # training on the card: the loss within one bf16 ulp, every gradient leaf
