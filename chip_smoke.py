@@ -313,6 +313,49 @@ Phases, each failing loudly (exit code 1, no result line):
    above 0.  The wgmma row of the ``kernels`` line carries the phase's
    launches as ``moe_launches``; the phase's seconds are logged.
 
+5f. The last transformer families (``[fam]`` lines), once phase 5m's
+   weights are freed, each at every published width with float32 weights
+   drawn on the card from a seeded CUDA generator (as 5m draws them):
+   ``nemotron-4-340b`` at 1 of its 96 layers (the float32 embed and
+   unembed, 37.7 GB, one 13.8 GB layer, its bf16 cast, the unembed's and
+   the logits come to about 70 GB; the cut is logged), squared-ReLU FFN,
+   96 query heads of head dim 192 over 8 KV heads repeated to 16 (GQA
+   group 6): ``prefill_fn`` on (1, 4096) tokens twice, then
+   ``ServeEngine`` on 2 requests of 32-64 prompt tokens and 8 new tokens
+   on its int8 cache, each prompt's decode logits within twice
+   ``LM_LOGIT_REL`` of the prefill's (the int8 rounding);
+   ``llama-3.2-vision-11b`` whole (40 layers, a gated cross-attention
+   block before every 5th, its gates set to 0.5, over (2, 1600, 4096)
+   bf16 image features): ``prefill_fn`` on (2, 4096) twice;
+   ``whisper-large-v3`` whole (layer norm, GELU, a 32-layer non-causal
+   encoder over (2, 1500, 1280) bf16 frames with sinusoid positions, a
+   32-layer decoder with cross-attention): ``prefill_fn`` on (2, 448)
+   tokens (its published decoder context) twice.  Each prefill's flash
+   launches are read around each call: one wgmma launch per attention
+   call (nemotron 1, the VLM 48, whisper 96), none of the float32
+   kernel; tokens/s, peak memory and the phase's seconds are logged.  The
+   VLM and whisper then decode their prefill's first 8 tokens from
+   ``init_decode_state`` with the features (cross K/V projected once):
+   the last logits within ``LM_LOGIT_REL`` of the prefill's at that
+   position, the greedy token equal to its argmax wherever the top-2
+   margin exceeds twice the logits' difference.  Once a model's weights
+   are freed, its layer 0's flash inputs of each kind (self, cross,
+   encoder) go through the wgmma kernel against ``attention_ref`` (one
+   bf16 ulp + 1e-6; not counted).  Nemotron's layer-0 q/k/v also go
+   through the float32 attention path (cast to float32, one float32
+   launch through the port's entry point) and both kernels are timed
+   there beside the plain version, SDPA and the bound (rows
+   ``flash_attention_fwd_wgmma.d192`` and ``flash_attention_fwd.d192``).
+   Last, the three REDUCED configs on the card against the CPU: the
+   prefill at (1, 2048) within 2^-5 of each logit row's largest
+   magnitude, its flash launches counted; one train step with the
+   config's optimizer (nemotron: Adafactor) at (64, 4) from the same
+   weights and ``make_batch``'s batch, loss within ``TRAIN_LOSS_REL`` and
+   gradient norm within ``TRAIN_GRAD_REL``; nemotron's REDUCED layer-0
+   q/k/v (head dim 24) give the row ``flash_attention_fwd_wgmma.d24``.
+   The flash rows of phase 5 carry the phase's launches as
+   ``fam_launches``.
+
 The line before the last is the card as ``nvidia-smi`` prints it, the one
 before that the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -320,6 +363,7 @@ before that the ``kernels`` JSON line; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -445,6 +489,39 @@ MOE_MIN_DECIDED = 0.25
 # themselves (logged, not held) covers the first this many prompts: with
 # all 8 the phase took 152 s of its 150 on a slow host
 MOE_UNFORCED_PROMPTS = 4
+
+# Phase 5f: the last three transformer families at every published width.
+# nemotron-4-340b at FAM_NEMOTRON_LAYERS of its 96 layers (its float32
+# embed and unembed, 37.7 GB, one 13.8 GB layer, that layer's bf16 cast,
+# the unembed's and the logits come to about 70 GB; a second layer would
+# need about 84), its prefill (prefill_32k cut as phase 5's is) and a
+# short serve on the int8 cache; llama-3.2-vision-11b whole (40 layers,
+# 8 cross-attention groups over 1 600 image tokens), its cross-attention
+# gates set to FAM_GATE (at their init of 0 the cross blocks add nothing);
+# whisper-large-v3 whole (32 + 32 layers, 1 500 frames, its published
+# 448-token decoder context).  The VLM and whisper decode
+# FAM_DECODE_STEPS tokens against their prefill's logits at that
+# position; an int8 cache's decode holds MOE_INT8_LOGIT_REL.  Then the
+# three REDUCED configs: prefill at FAM_REDUCED_PREFILL and one train
+# step at FAM_REDUCED_TRAIN (seq_len, global batch) on the card against
+# the CPU, the prefill within tests/test_torch_cuda.py's 2^-5 of each
+# logit row's largest magnitude, the step's loss within TRAIN_LOSS_REL
+# and its gradient norm within TRAIN_GRAD_REL.
+FAM_NEMOTRON = "nemotron-4-340b"
+FAM_NEMOTRON_LAYERS = 1
+FAM_NEMOTRON_PREFILL = (1, 4096)
+FAM_NEMOTRON_SERVE = {"batch_slots": 2, "max_seq": 128, "requests": 2,
+                      "prompt": (32, 64), "max_new": 8}
+FAM_VLM = "llama-3.2-vision-11b"
+FAM_VLM_PREFILL = (2, 4096)
+FAM_WHISPER = "whisper-large-v3"
+FAM_WHISPER_PREFILL = (2, 448)
+FAM_DECODE_STEPS = 8
+FAM_GATE = 0.5
+FAM_REDUCED_ARCHS = (FAM_NEMOTRON, FAM_VLM, FAM_WHISPER)
+FAM_REDUCED_PREFILL = (1, 2048)
+FAM_REDUCED_TRAIN = (64, 4)
+FAM_REDUCED_LOGIT_REL = 2.0 ** -5
 
 # device_ms holds the stream with a spin kernel while the host enqueues
 # the timed calls: the spin starts at twice the host's enqueue time (at
@@ -3269,7 +3346,30 @@ def flash_launches(kern) -> dict:
             F32_FLASH: kern.launches - kern.wgmma_launches}
 
 
-def time_attention(rt, torch, q, k, v, k_times, reps, plain: bool) -> dict:
+def launches_since(kern, before: dict) -> dict:
+    """Launches of each flash kernel since ``flash_launches`` read
+    ``before``."""
+    now = flash_launches(kern)
+    return {k: now[k] - before[k] for k in now}
+
+
+class Uncounted:
+    """The flash kernel's launches inside are not counted: its counters
+    are put back on exit (checks and timings against the plain version
+    are not main-path launches)."""
+
+    def __init__(self, kern):
+        self.kern = kern
+
+    def __enter__(self):
+        self.saved = (self.kern.launches, self.kern.wgmma_launches)
+
+    def __exit__(self, *exc):
+        self.kern.launches, self.kern.wgmma_launches = self.saved
+
+
+def time_attention(rt, torch, q, k, v, k_times, reps, plain: bool,
+                   tag: str = "[lm]") -> dict:
     """One flash kernel's timing row: its device times (``k_times``, taken
     in turns with the other kernel's), the plain version (if ``plain``) and
     SDPA on the same inputs, and the bound."""
@@ -3280,7 +3380,7 @@ def time_attention(rt, torch, q, k, v, k_times, reps, plain: bool) -> dict:
                        reps, torch)
     else:
         p_ms = None
-        log(f"[lm] plain attention_ref not timed at {(b, s)}: its float32 "
+        log(f"{tag} plain attention_ref not timed at {(b, s)}: its float32 "
             f"scores alone would take {b * hq * s * s * 4 / 2**30:.0f} GiB")
     sdpa = rt.torch.nn.functional.scaled_dot_product_attention
     gqa = k.shape[1] != q.shape[1]
@@ -3290,7 +3390,7 @@ def time_attention(rt, torch, q, k, v, k_times, reps, plain: bool) -> dict:
     cuda_cores = ("" if q.element_size() == 2 else
                   f"; the same flops at the CUDA cores' float32 rate "
                   f"{attention_flops(q, k) / F32_OPS_PER_S * 1e3:.4f} ms")
-    log(f"[lm] {rt.fa_kernel.KERNEL_OF[q.dtype]} {(b, hq, s, d)} {str(q.dtype)[6:]} causal: kernel "
+    log(f"{tag} {rt.fa_kernel.KERNEL_OF[q.dtype]} {(b, hq, s, d)} {str(q.dtype)[6:]} causal: kernel "
         + " / ".join(f"{t:.4f}" for t in k_times) + f" ms (mean {k_ms:.4f}),"
         f" plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, SDPA "
         f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({kind}); kernel at "
@@ -3320,23 +3420,25 @@ def lm_profile(torch, c, model, params, toks, dev):
     return out
 
 
-def serve_prompts(c) -> list:
-    """The serving checks' prompts (LM_SERVE), drawn from seed 2."""
+def serve_prompts(c, serve=LM_SERVE) -> list:
+    """The serving checks' prompts (``serve``), drawn from seed 2."""
     import numpy as np
 
     gen = np.random.default_rng(2)
-    lo, hi = LM_SERVE["prompt"]
+    lo, hi = serve["prompt"]
     return [gen.integers(0, c.vocab_size, int(n)).tolist()
-            for n in gen.integers(lo, hi + 1, LM_SERVE["requests"])]
+            for n in gen.integers(lo, hi + 1, serve["requests"])]
 
 
-def serve_check(torch, rt, c, model, params, dev, tag="[lm]", check=True):
-    """``ServeEngine`` answers the requests, timed; with ``check``, each
-    prompt's decode logits (after its last token, kept from the run)
-    against the last position of ``prefill_fn``, after the timing."""
-    prompts = serve_prompts(c)
-    eng = rt.ServeEngine(c, params, batch_slots=LM_SERVE["batch_slots"],
-                         max_seq=LM_SERVE["max_seq"], device=dev)
+def serve_check(torch, rt, c, model, params, dev, tag="[lm]", check=True,
+                serve=LM_SERVE, tol=LM_LOGIT_REL):
+    """``ServeEngine`` answers the requests of ``serve``, timed; with
+    ``check``, each prompt's decode logits (after its last token, kept
+    from the run) against the last position of ``prefill_fn``, within
+    ``tol`` of the row's largest |logit|, after the timing."""
+    prompts = serve_prompts(c, serve)
+    eng = rt.ServeEngine(c, params, batch_slots=serve["batch_slots"],
+                         max_seq=serve["max_seq"], device=dev)
     decode_logits = {}
     prefill_into = eng._prefill_into
 
@@ -3347,14 +3449,17 @@ def serve_check(torch, rt, c, model, params, dev, tag="[lm]", check=True):
 
     if check:
         eng._prefill_into = capture
-    reqs = [rt.Request(prompt=p, max_new=LM_SERVE["max_new"]) for p in prompts]
+    reqs = [rt.Request(prompt=p, max_new=serve["max_new"]) for p in prompts]
     torch.cuda.synchronize()
     t = time.perf_counter()
     done = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    # the capture closes over the engine's own method: drop the cycle, or
+    # the engine (and the parameters it holds) would wait for the collector
+    eng.__dict__.pop("_prefill_into", None)
     if len(done) != len(prompts) or any(
-            len(r.output) != LM_SERVE["max_new"] for r in done):
+            len(r.output) != serve["max_new"] for r in done):
         fail(f"ServeEngine answered {len(done)} of {len(prompts)} requests "
              f"or cut one short")
     n_new = sum(len(r.output) for r in done)
@@ -3364,7 +3469,7 @@ def serve_check(torch, rt, c, model, params, dev, tag="[lm]", check=True):
            "new_tokens": n_new, "wall_s": wall,
            "new_tokens_per_s": n_new / wall,
            "tokens_per_s": (n_new + n_prompt) / wall,
-           "latency_s": lat, **LM_SERVE}
+           "latency_s": lat, **serve}
     log(f"{tag} serve: {len(done)} requests ({n_prompt} prompt tokens, "
         f"{n_new} new) in {wall:.2f} s: {n_new / wall:.1f} new tokens/s, "
         f"{(n_new + n_prompt) / wall:.1f} tokens/s with the prompts' decode "
@@ -3379,15 +3484,384 @@ def serve_check(torch, rt, c, model, params, dev, tag="[lm]", check=True):
         rel = float((got - ref).abs().max() / ref.abs().max())
         worst = max(worst, rel)
         agree += int(torch.argmax(got) == torch.argmax(ref))
-        if not torch.isfinite(got).all() or rel > LM_LOGIT_REL:
+        if not torch.isfinite(got).all() or rel > tol:
             fail(f"decode logits after a {len(p)}-token prompt differ from "
                  f"prefill_fn's by {rel:.4f} of the row's largest |logit| "
-                 f"(tolerance {LM_LOGIT_REL})")
+                 f"(tolerance {tol})")
     out.update({"decode_vs_prefill_rel": worst, "argmax_agree": agree})
     log(f"{tag} serve: decode logits after each prompt within {worst:.4f} "
-        f"of prefill_fn's row scale (tolerance {LM_LOGIT_REL}), argmax "
+        f"of prefill_fn's row scale (tolerance {tol}), argmax "
         f"equal on {agree} of {len(prompts)}")
     return out
+
+
+def fam_features(torch, c, b: int, dev, seed: int):
+    """The VLM's stub image features or whisper's stub frames for a batch
+    of ``b``, bf16 (the input specs' dtype), from a seeded CUDA
+    generator: {"img_embeds" | "enc_embeds": tensor}, or {}."""
+    key = {"vlm": "img_embeds", "audio": "enc_embeds"}.get(c.family)
+    if key is None:
+        return {}
+    n = c.n_img_tokens if c.family == "vlm" else c.n_frames
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {key: torch.randn((b, n, c.d_model), generator=gen, device=dev)
+            .to(torch.bfloat16)}
+
+
+def attention_calls(c) -> int:
+    """Full-sequence attention calls of one prefill: every self layer,
+    plus the VLM's cross blocks, plus whisper's encoder layers and its
+    decoder's cross blocks."""
+    if c.family == "vlm":
+        return c.n_layers + c.n_layers // c.cross_attn_every
+    if c.family == "audio":
+        return c.n_enc_layers + 2 * c.n_layers
+    return c.n_layers
+
+
+def fam_prefill(torch, rt, c, model, params, batch, tag):
+    """``prefill_fn`` on ``batch`` twice, both flash kernels' counters read
+    before and after each call: one wgmma launch per attention call and no
+    float32 launch, logits finite and shaped.  The
+    inputs of the first flash call of each kind are kept: ``self``
+    (causal), ``encoder`` (non-causal over as many keys as queries) and
+    ``cross`` (non-causal over the features).  Returns (the second call's
+    logits, both calls' seconds, launches a call, first calls)."""
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    entry = rt.fa_ops.flash_attention
+    first = {}
+
+    def capture(q, k, v, **kw):
+        causal = kw.get("causal", True)
+        kind = ("self" if causal else
+                "encoder" if q.shape[2] == k.shape[2] else "cross")
+        first.setdefault(kind, (q, k, v, causal))
+        return entry(q, k, v, **kw)
+
+    want = {WGMMA: attention_calls(c), F32_FLASH: 0}
+    toks = batch["tokens"]
+    times, logits = [], None
+    rt.fa_ops.flash_attention = capture
+    try:
+        for _ in range(2):
+            logits = None
+            before = flash_launches(kern)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = model.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches = launches_since(kern, before)
+            if launches != want:
+                fail(f"{tag} {c.name} prefill launched the flash kernels "
+                     f"{launches}, want {want}")
+    finally:
+        rt.fa_ops.flash_attention = entry
+    if tuple(logits.shape) != (*toks.shape, c.vocab_size) or \
+            not torch.isfinite(logits).all():
+        fail(f"{tag} {c.name} prefill logits {tuple(logits.shape)} not "
+             f"finite or misshaped")
+    n_tok = toks.numel()
+    log(f"{tag} {c.name} prefill {tuple(toks.shape)}: {times[0]:.3f} s "
+        f"first call, {times[1]:.3f} s second ({n_tok / times[1]:.0f} "
+        f"tokens/s); flash launches per call {launches}; logits finite")
+    return logits, times, launches, first
+
+
+def fam_decode_check(torch, rt, c, model, params, toks, head, side, tag):
+    """FAM_DECODE_STEPS decode steps over ``toks`` (B, steps) from a state
+    built with the features ``side``, the last step's logits against the
+    prefill's at that position (``head``: (B, steps, V) float32): within
+    LM_LOGIT_REL of each row's largest |logit|, and the greedy token equal
+    to the prefill's argmax in every row whose top-2 margin exceeds twice
+    the rows' largest difference d (a smaller margin can swap)."""
+    b, steps = toks.shape
+    t = time.perf_counter()
+    st = model.init_decode_state(params, b, steps, **side)
+    for i in range(steps):
+        dl, st = model.decode_fn(params, toks[:, i], st)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    got, ref = dl.float(), head[:, -1]
+    if not torch.isfinite(got).all():
+        fail(f"{tag} {c.name} decode logits are not finite")
+    d = (got - ref).abs().amax(-1)
+    rel = float((d / ref.abs().amax(-1)).max())
+    top2 = torch.topk(ref, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * d.max()
+    same = torch.argmax(got, -1) == torch.argmax(ref, -1)
+    if rel > LM_LOGIT_REL or not bool(same[decided].all()):
+        fail(f"{tag} {c.name} decode after {steps} tokens: logits within "
+             f"{rel:.4g} of the prefill's row scale (tolerance "
+             f"{LM_LOGIT_REL}), greedy tokens {same.tolist()} equal to the "
+             f"prefill's argmax, decided rows {decided.tolist()}")
+    log(f"{tag} {c.name} decode: {steps} steps of {b} slots in {dec_s:.2f} "
+        f"s ({b * steps / dec_s:.1f} tokens/s, cross K/V projected once); "
+        f"last logits within {rel:.4g} of the prefill's row scale "
+        f"(tolerance {LM_LOGIT_REL}); greedy token equal to the prefill's "
+        f"argmax in {int(same.sum())} of {b} rows ({int(decided.sum())} "
+        f"decided)")
+    return {"steps": steps, "decode_s": dec_s, "rel": rel,
+            "argmax_equal": int(same.sum()), "decided": int(decided.sum())}
+
+
+def fam_attention_checks(torch, rt, c, first, tag) -> dict:
+    """Layer 0's flash inputs of each kind held against ``attention_ref``
+    (one bf16 ulp + 1e-6); the launches are not counted."""
+    errs = {}
+    with Uncounted(rt.fa_kernel.flash_attention_fwd_kernel):
+        for kind, (q, k, v, causal) in sorted(first.items()):
+            errs[kind] = check_attention(
+                rt, torch, q, k, v, causal,
+                f"{tag} {c.name} layer 0 {kind} {tuple(q.shape)}")
+            log(f"{tag} {WGMMA} on {c.name}'s layer 0 {kind} attention: q "
+                f"{tuple(q.shape)} over k/v {tuple(k.shape)} (GQA group "
+                f"{q.shape[1] // k.shape[1]}, head dim {q.shape[3]}), "
+                f"{'causal' if causal else 'non-causal'}: max |kernel - "
+                f"attention_ref| {errs[kind]:.3g} (tolerance 1 bf16 ulp + "
+                f"1e-6)")
+    return errs
+
+
+def fam_model(args, torch, rt, arch, n_layers, prefill, tag="[fam]"):
+    """One family at full width: weights drawn on the card, the prefill
+    (twice, launches counted, the flash inputs kept), the decode or serving
+    check, peak memory; then the weights freed and layer 0's attention
+    checked.  Returns (record, first flash calls)."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    full = rt.configs.get(arch)
+    c = full.replace(n_layers=n_layers) if n_layers else full
+    model = rt.model_api.build(c)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = device_init(torch, rt, model.decls, 0, dev)
+    if c.family == "vlm":
+        for g in ("x_attn_gate", "x_mlp_gate"):
+            params["cross"][g].fill_(FAM_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = rt.param_count(params)
+    reduced = [f"weights random from a seeded CUDA generator; prefill "
+               f"{prefill[0]} x {prefill[1]}"
+               + ("" if c.family == "audio" else
+                  " (prefill_32k, 32 x 32768 tokens, cut for the time "
+                  "limit)")]
+    if n_layers:
+        reduced.insert(0, f"depth {full.n_layers} layers cut to {n_layers}: "
+                       f"the float32 embed and unembed "
+                       f"({2 * c.vocab_size * c.d_model * 4 / 1e9:.1f} GB) "
+                       f"and one layer's weights "
+                       f"({(c.total_params() - 2 * c.vocab_size * c.d_model) * 4 / 1e9 / n_layers:.1f} GB), "
+                       f"with that layer's bf16 cast, the unembed's and the "
+                       f"logits, fill about 70 GB of the card's 80; every "
+                       f"width is the published one")
+    if c.family == "vlm":
+        reduced.append(f"cross-attention gates set to {FAM_GATE} (0 at "
+                       f"init, where the cross blocks add nothing)")
+    log(f"{tag} {c.name}: {c.n_layers} of {full.n_layers} layers"
+        + (f" (+ {c.n_enc_layers} encoder layers)" if c.n_enc_layers else "")
+        + f", d_model {c.d_model}, {c.n_heads} heads / {c.n_kv_heads} KV "
+        f"heads (kv_eff {c.kv_eff}), head dim {c.hd}, d_ff {c.d_ff}, vocab "
+        f"{c.vocab_size}, {c.activation}, {c.norm} norm; {n_params} "
+        f"parameters drawn on the card in {init_s:.1f} s; "
+        f"{base / 2**30:.2f} GiB allocated before")
+    log(f"{tag} reduced: {reduced}")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, c.vocab_size, prefill)).to(dev)
+    side = fam_features(torch, c, prefill[0], dev, seed=1)
+    logits, times, launches, first = fam_prefill(
+        torch, rt, c, model, params, {"tokens": toks, **side}, tag)
+    head = logits[:, :FAM_DECODE_STEPS].float().clone()
+    del logits
+    rec = {"arch": arch, "n_layers": c.n_layers, "params": n_params,
+           "init_s": init_s, "reduced": reduced, "base_gib": base / 2**30,
+           "prefill_shape": list(prefill), "prefill_s": times,
+           "prefill_tokens_per_s": toks.numel() / times[-1],
+           "prefill_launches": launches}
+    if c.family in ("vlm", "audio"):
+        rec["decode"] = fam_decode_check(
+            torch, rt, c, model, params, toks[:, :FAM_DECODE_STEPS], head,
+            side, tag)
+    else:
+        int8 = c.kv_cache_dtype == "int8"
+        rec["serve"] = serve_check(
+            torch, rt, c, model, params, dev, tag=tag,
+            serve=FAM_NEMOTRON_SERVE,
+            tol=MOE_INT8_LOGIT_REL if int8 else LM_LOGIT_REL)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, head, side
+    gc.collect()           # nothing of the model may outlive it
+    torch.cuda.empty_cache()
+    rec["attention_max_abs_err"] = fam_attention_checks(torch, rt, c, first,
+                                                        tag)
+    log(f"{tag} {c.name}: peak {rec['peak_gib']:.2f} GiB")
+    return rec, first
+
+
+def fam_head_dim_rows(args, torch, rt, q, k, v, launches, tag):
+    """A flash row per kernel at these causal inputs' head dim (the main
+    path's own q/k/v): the float32 attention path first (the inputs in
+    float32 through the port's attention entry: one float32 launch,
+    counted), then, uncounted, both kernels against ``attention_ref`` and
+    timed in turns (bf16 through the wgmma kernel, float32 through the
+    float32 one) beside the plain version, SDPA and the bound.
+    ``launches``: the wgmma kernel's main-path launches at this head
+    dim."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    qkv = {bf16: (q, k, v), f32: tuple(x.float() for x in (q, k, v))}
+    before = flash_launches(kern)
+    rt.fa_ops.flash_attention(*qkv[f32], causal=True)
+    torch.cuda.synchronize()
+    f32_launches = launches_since(kern, before)
+    if f32_launches != {WGMMA: 0, F32_FLASH: 1}:
+        fail(f"{tag} the float32 attention path launched {f32_launches}")
+    rows = []
+    with Uncounted(kern):
+        errs = {dt: check_attention(rt, torch, *qkv[dt], True,
+                                    f"{tag} head dim {q.shape[3]} {dt}")
+                for dt in (bf16, f32)}
+        times = {bf16: [], f32: []}
+        for dt in (bf16, f32, f32, bf16):
+            times[dt].append(device_ms(lambda: kern(*qkv[dt], causal=True),
+                                       args.reps, torch))
+        for dt, n in ((bf16, launches), (f32, 1)):
+            name = rt.fa_kernel.KERNEL_OF[dt]
+            r = time_attention(rt, torch, *qkv[dt], times[dt], args.reps,
+                               True, tag=tag)
+            log(f"{tag} {name} at head dim {q.shape[3]}: max |kernel - "
+                f"attention_ref| {errs[dt]:.3g}; {n} main-path launches")
+            rows.append({
+                "name": f"{name}.d{q.shape[3]}", "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:85",
+                "dtype": str(dt)[6:], "head_dim": int(q.shape[3]),
+                "launches": n, "max_abs_err": errs[dt], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "per_shape": [r]})
+    return rows
+
+
+def fam_reduced_check(torch, rt, arch, dev, tag="[fam]"):
+    """``arch``'s REDUCED config on the card against the CPU: the prefill
+    at FAM_REDUCED_PREFILL (gates at FAM_GATE, bf16 features) within
+    FAM_REDUCED_LOGIT_REL of each row's largest |logit|, its flash launches
+    counted; one train step with the config's optimizer at
+    FAM_REDUCED_TRAIN from the same weights and ``make_batch``'s batch,
+    its loss within TRAIN_LOSS_REL and its gradient norm within
+    TRAIN_GRAD_REL of the CPU step's.  Returns (record, the card's first
+    causal flash call)."""
+    import numpy as np
+
+    c = rt.configs.get(arch, reduced=True)
+    model = rt.model_api.build(c)
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    toks = np.random.default_rng(FAM_REDUCED_PREFILL[1]).integers(
+        0, c.vocab_size, FAM_REDUCED_PREFILL)
+    side = {k: v.cpu() for k, v in fam_features(
+        torch, c, FAM_REDUCED_PREFILL[0], dev, seed=3).items()}
+
+    def params_on(where):
+        p = rt.init_params(model.decls, seed=0, device=where)
+        if c.family == "vlm":
+            for g in ("x_attn_gate", "x_mlp_gate"):
+                p["cross"][g].fill_(FAM_GATE)
+        return p
+
+    entry, first = rt.fa_ops.flash_attention, []
+
+    def capture(q, k, v, **kw):
+        if not first and kw.get("causal", True):
+            first.append((q, k, v))
+        return entry(q, k, v, **kw)
+
+    cpu = model.prefill_fn(params_on("cpu"), {"tokens": torch.from_numpy(
+        toks), **side}).float()
+    before = flash_launches(kern)
+    rt.fa_ops.flash_attention = capture
+    try:
+        card = model.prefill_fn(params_on(dev), {
+            "tokens": torch.from_numpy(toks).to(dev),
+            **{k: v.to(dev) for k, v in side.items()}}).float().cpu()
+    finally:
+        rt.fa_ops.flash_attention = entry
+    launches = launches_since(kern, before)
+    if launches != {WGMMA: attention_calls(c), F32_FLASH: 0}:
+        fail(f"{tag} {c.name} REDUCED prefill launched {launches}")
+    rel = float(((card - cpu).abs().amax(-1) / cpu.abs().amax(-1)).max())
+    if not torch.isfinite(card).all() or rel > FAM_REDUCED_LOGIT_REL:
+        fail(f"{tag} {c.name} REDUCED prefill on the card differs from the "
+             f"CPU's by {rel:.4g} of the row scale (tolerance "
+             f"{FAM_REDUCED_LOGIT_REL})")
+    cell = rt.ShapeCell("fam_train", "train", *FAM_REDUCED_TRAIN)
+    batch = rt.train_data.make_batch(c, cell, 0)
+    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
+    steps = {}
+    for key, where in (("cpu", "cpu"), ("card", dev)):
+        params = params_on(where)
+        step_fn = rt.train_step.make_train_step(model, opt_cfg, cell)[0]
+        opt_state = rt.optim.init_opt(c.optimizer, params, opt_cfg)
+        b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(where)
+             for k, v in batch.items()}
+        _, _, met = step_fn(params, opt_state, b)
+        steps[key] = {k: float(met[k]) for k in ("loss", "grad_norm")}
+    h, d = steps["cpu"], steps["card"]
+    loss_rel = abs(d["loss"] - h["loss"]) / abs(h["loss"])
+    norm_rel = abs(d["grad_norm"] - h["grad_norm"]) / h["grad_norm"]
+    if not (loss_rel <= TRAIN_LOSS_REL and norm_rel <= TRAIN_GRAD_REL):
+        fail(f"{tag} {c.name} REDUCED train step: card {d}, CPU {h}")
+    log(f"{tag} {c.name} REDUCED on the card against the CPU: prefill "
+        f"{FAM_REDUCED_PREFILL} within {rel:.4g} of the row scale "
+        f"(tolerance {FAM_REDUCED_LOGIT_REL}; flash launches {launches}); "
+        f"one {c.optimizer} step at {FAM_REDUCED_TRAIN}: loss {d['loss']:.6f}"
+        f" (CPU {h['loss']:.6f}, {loss_rel:.3g} apart), grad norm "
+        f"{d['grad_norm']:.6f} (CPU {h['grad_norm']:.6f}, {norm_rel:.3g})")
+    return ({"config": c.name, "prefill_rel": rel, "launches": launches,
+             "optimizer": c.optimizer, "train_card": d, "train_cpu": h},
+            first[0])
+
+
+def phase_families(args, torch, rt):
+    """Phase 5f: nemotron-4-340b (one full-width layer), llama-3.2-vision
+    and whisper-large-v3 (whole) on the card, the flash kernels at head
+    dims 192 and 24 timed, the three REDUCED configs against the CPU.
+    Returns (record, kernel rows, the phase's flash launches)."""
+    dev = torch.device("cuda")
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    start = flash_launches(kern)
+    out, rows = {}, []
+    out["nemotron"], first = fam_model(
+        args, torch, rt, FAM_NEMOTRON, FAM_NEMOTRON_LAYERS,
+        FAM_NEMOTRON_PREFILL)
+    d192 = launches_since(kern, start)[WGMMA]     # nemotron's alone: D = 192
+    q, k, v, _ = first["self"]
+    del first
+    rows += fam_head_dim_rows(args, torch, rt, q, k, v, d192, "[fam]")
+    del q, k, v
+    for key, arch, shape in (("vlm", FAM_VLM, FAM_VLM_PREFILL),
+                             ("whisper", FAM_WHISPER, FAM_WHISPER_PREFILL)):
+        out[key], first = fam_model(args, torch, rt, arch, 0, shape)
+        del first
+        torch.cuda.empty_cache()
+    out["reduced"], d24 = [], None
+    for arch in FAM_REDUCED_ARCHS:
+        before = flash_launches(kern)
+        rec, qkv = fam_reduced_check(torch, rt, arch, dev)
+        out["reduced"].append(rec)
+        if arch == FAM_NEMOTRON:     # head dim 24: its prefill and step
+            d24 = (qkv, launches_since(kern, before)[WGMMA])
+    rows.append(fam_head_dim_rows(args, torch, rt, *d24[0], d24[1],
+                                  "[fam]")[0])
+    launches = launches_since(kern, start)
+    out["launches"] = launches
+    return out, rows, launches
 
 
 def clocks(stage: str) -> None:
@@ -3592,6 +4066,16 @@ def main(argv) -> int:
         if row["name"] == WGMMA:
             row["moe_launches"] = moe_launches[WGMMA]
     clocks("after phase 5m")
+    t = time.perf_counter()
+    main_out["families"], fam_rows, fam_launches = phase_families(
+        args, torch, rt)
+    main_out["families"]["phase_s"] = time.perf_counter() - t
+    log(f"[fam] phase 5f took {main_out['families']['phase_s']:.1f} s; "
+        f"flash launches in the phase {fam_launches}")
+    for row in lm_kernels:
+        row["fam_launches"] = fam_launches[row["name"]]
+    kernels += fam_rows
+    clocks("after phase 5f")
     main_out["total_s"] = time.perf_counter() - t0
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

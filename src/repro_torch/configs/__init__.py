@@ -2,11 +2,10 @@
 resolution for launchers and tests.
 
 Each module defines CONFIG (the exact published dims) and REDUCED (a same-
-family small config for CPU tests).  The port holds the dense and MoE
-configs whose every feature it runs (RMS norm, SwiGLU, qk-norm, GQA, routed
-and shared experts, dense/MoE layer pairs, bf16 and int8 KV caches); the
-JAX package's other architectures join as their families are ported
-(ROADMAP Queue 1 #3 and #4).
+family small config for CPU tests).  The port holds the dense, MoE, VLM
+and audio configs, in the JAX registry's order; the JAX package's RWKV6
+and hybrid SSM architectures join when their families are ported (ROADMAP
+Queue 1 #4).
 """
 from __future__ import annotations
 
@@ -18,10 +17,13 @@ from repro_torch.models.arch_config import (SHAPE_CELLS, SHAPES, ArchConfig,
 
 _MODULES = {
     "qwen3-8b": "qwen3_8b",
-    "qwen3-1.7b": "qwen3_1_7b",
+    "nemotron-4-340b": "nemotron_4_340b",
     "phi3-medium-14b": "phi3_medium_14b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS = tuple(_MODULES)

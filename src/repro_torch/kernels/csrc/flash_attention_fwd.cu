@@ -7,8 +7,8 @@
 // Plain version: src/repro_torch/kernels/flash_attention/ref.py
 // attention_ref.
 //
-//   q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), float32, D in {16, 32, 64,
-//   128}, Hq % Hkv == 0; query head h reads KV head h / (Hq / Hkv).
+//   q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), float32, D in {16, 24, 32, 64,
+//   128, 192}, Hq % Hkv == 0; query head h reads KV head h / (Hq / Hkv).
 //   Queries are scaled by 1/sqrt(D) in f32.  Causal masking is aligned
 //   top left (key j visible to query i iff j <= i); masked scores are
 //   -1e30, keys past Sk take no part at all.  o = acc / max(l, 1e-30).
@@ -33,23 +33,25 @@
 //   operands K-major, so V is stored transposed, and every operand it
 //   reads from shared memory is split there once, into hi and lo tiles:
 //   the price is shared memory, 2 x 64 KB a 32-key stage at D = 128.
-// * Grid: one block per (b*Hq + h, 128-row query tile), heaviest causal
-//   tiles first; the walk over 32-key tiles stops at the diagonal (the
-//   Pallas kernel's n_iter).  384 threads: warpgroup 0 produces,
-//   warpgroups 1 and 2 consume, 64 query rows each; setmaxnreg moves the
-//   registers (producer 88, consumers 208).
+// * Grid: one block per (b*Hq + h, kBQ-row query tile), heaviest causal
+//   tiles first; the walk over kBK-key tiles stops at the diagonal (the
+//   Pallas kernel's n_iter).  Up to D = 128: kBQ = 128, kBK = 32, 384
+//   threads: warpgroup 0 produces, warpgroups 1 and 2 consume, 64 query
+//   rows each; setmaxnreg moves the registers (producer 88, consumers
+//   208).
 // * Producer: loads each K and V tile from global memory (16-byte loads;
 //   the next tile's while the ring is full), splits it into hi and lo,
-//   stores K K-major and V transposed (V^T: D rows of 32 keys), both in
+//   stores K K-major and V transposed (V^T: D rows of kBK keys), both in
 //   the swizzled layouts wgmma reads, into a ring of two stages with full
 //   and empty mbarriers.  A k or v that is not 16-byte aligned takes
 //   4-byte loads.  Shared memory at D = 128: q lo 64 KB + 2 x 64 KB.
 // * Consumers: q hi stays in registers as the A fragments of S; q lo is
 //   split into a K-major tile.  S = Q.K^T per 8-column k-step: lo.hi
 //   (both from shared memory), hi.lo and hi.hi (A from registers), wgmma
-//   m64n32k8.  Masks only on tiles that cross the warpgroup's diagonal or
-//   Sk's edge.  Online softmax in registers: the row max over a row's 4
-//   threads by shuffles, m and l in f32 (each thread keeps its part of l).
+//   m64nKk8 (N = kBK).  Masks only on tiles that cross the warpgroup's
+//   diagonal or Sk's edge.  Online softmax in registers: the row max over
+//   a row's 4 threads by shuffles, m and l in f32 (each thread keeps its
+//   part of l).
 // * O += P.V: P's hi and lo are A fragments straight from the S
 //   accumulators, because the keys of V^T are stored in the accumulator
 //   layout's order (a thread holds keys 2t and 2t + 1 of each 8-key
@@ -59,6 +61,21 @@
 //   (O = O * alpha + PV): the tensor cores truncate as they accumulate,
 //   and one accumulator across a whole row of tiles would let that build
 //   up.
+// * D = 24: its 96-byte rows are no swizzle width, so q and K tiles keep
+//   D = 32's 128-byte rows and the S product reads only their first 24
+//   columns (3 k-steps; the pad is never read); V^T has 24 rows and P.V
+//   runs at n24.
+// * D = 192 takes another geometry.  At kBK = 32 a stage is 96 KB and q lo
+//   96 KB: 288 KB, past the 227 KB a block may opt into.  A 16-key tile
+//   (48 KB a stage) fits the shared memory, but not the registers: q hi
+//   as A fragments (96) and O (96) leave the consumers' 208 too little for
+//   S, P's hi and lo and a P.V pass, and would spill in the inner loop.
+//   So at D = 192 q hi is a K-major tile in shared memory too (S is three
+//   products with both operands from shared memory, in the same order),
+//   one consumer warpgroup takes kBQ = 64 query rows (q hi + lo 96 KB,
+//   plus 2 x 48 KB of K/V: 192 KB), and the block is 256 threads, whose
+//   share of the register file needs no setmaxnreg (255 a thread).  The
+//   producer splits each K/V tile for 64 query rows instead of 128.
 // * Epilogue: O / max(l, 1e-30) stored from registers; rows past Sq are
 //   not written.
 //
@@ -71,33 +88,42 @@
 
 namespace {
 
-constexpr int kBQ = 128;              // query rows per block: 64 a consumer
-constexpr int kBK = 32;               // keys per tile
 constexpr int kStages = 2;            // K/V ring depth
-constexpr int kThreads = 384;         // warpgroup 0 splits, 1 and 2 multiply
-// setmaxnreg moves registers within the block's 384 x 168: 128 x 88 +
-// 256 x 208
+// setmaxnreg moves registers within a 384-thread block's 384 x 168:
+// 128 x 88 + 256 x 208
 constexpr int kProducerRegs = 88;
 constexpr int kConsumerRegs = 208;
 constexpr float kNegBig = -1e30f;
 
-// Shared-memory geometry of a head dim.  Q and K tiles are K-major: rows
-// of D floats cut into boxes of kCols floats, one swizzle row (kRowBytes:
-// 128 bytes, or 64 at D = 16) each.  V is stored transposed (V^T: D rows
-// of the tile's kBK = 32 keys, 128 bytes, 128-byte swizzle).  K and V
-// come as hi and lo tiles, q as its lo tile (its hi stays in registers).
+// Geometry of a head dim.  Q and K tiles are K-major: rows of kDP floats
+// (D, or 32 at D = 24) cut into boxes of kCols floats, one swizzle row
+// (kRowBytes: 128 bytes, or 64 at D = 16) each.  V is stored transposed
+// (V^T: D rows of the tile's kBK keys, kVRowBytes: 128 bytes at kBK = 32,
+// 64 at 16, swizzled as wide).  K and V come as hi and lo tiles, q as its
+// lo tile (and at D = 192 its hi tile; elsewhere hi stays in registers).
 template <int D>
 struct Geo {
-  static constexpr int kCols = D < 32 ? D : 32;
+  // D = 192's geometry: q hi as a tile too, one consumer warpgroup of 64
+  // rows, 16-key tiles (the header says why)
+  static constexpr bool kWide = D > 128;
+  static constexpr int kBQ = kWide ? 64 : 128;         // query rows a block
+  static constexpr int kBK = kWide ? 16 : 32;          // keys a tile
+  static constexpr int kConsumers = kWide ? 1 : 2;     // warpgroups
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kDP = D == 24 ? 32 : D;
+  static constexpr int kCols = kDP < 32 ? kDP : 32;
   static constexpr int kRowBytes = 4 * kCols;             // 64 or 128
   // descriptor layout code: 1 = 128-byte, 2 = 64-byte swizzle
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
-  static constexpr int kQBytes = kBQ * D * 4;             // q lo
-  static constexpr int kKBytes = kBK * D * 4;             // k hi or k lo
+  static constexpr int kVRowBytes = 4 * kBK;              // 128 or 64
+  static constexpr uint64_t kVLayout = kVRowBytes == 128 ? 1 : 2;
+  static constexpr int kQBytes = kBQ * kDP * 4;           // q lo (or hi)
+  static constexpr int kKBytes = kBK * kDP * 4;           // k hi or k lo
   static constexpr int kVBytes = D * kBK * 4;             // v^T hi or lo
   static constexpr int kStageBytes = 2 * kKBytes + 2 * kVBytes;
-  static constexpr int kSmem =
-      kQBytes + kStages * kStageBytes + 2 * kStages * 8 + 1024;
+  static constexpr int kSmem = (kWide ? 2 : 1) * kQBytes +
+                               kStages * kStageBytes + 2 * kStages * 8 +
+                               1024;
 
   // byte offset of float col (a multiple of 4) of row r in a K-major tile
   // of `rows` rows
@@ -107,13 +133,14 @@ struct Geo {
     return static_cast<uint32_t>((box * rows + r) * kRowBytes +
                                  16 * (chunk ^ sw));
   }
-};
 
-// byte offset of key position p (0 .. 31) of row d in a V^T tile
-__device__ __forceinline__ uint32_t vt_off(int d, int p) {
-  return static_cast<uint32_t>(d * 128 + 16 * ((p >> 2) ^ (d & 7)) +
-                               4 * (p & 3));
-}
+  // byte offset of key position p (0 .. kBK - 1) of row d in a V^T tile
+  static __device__ __forceinline__ uint32_t vt_off(int d, int p) {
+    const int sw = kVRowBytes == 128 ? (d & 7) : ((d >> 1) & 3);
+    return static_cast<uint32_t>(d * kVRowBytes + 16 * ((p >> 2) ^ sw) +
+                                 4 * (p & 3));
+  }
+};
 
 // The position of key k of a tile in V^T: within each 8-key block, key
 // 2t at t and key 2t + 1 at t + 4, the order in which a thread's S
@@ -238,6 +265,21 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// D (64 x 16) (+)= A (64 x 8, shared memory) * B (8 x 16, shared
+// memory), both K-major TF32; the product is D's initial value when
+// scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D (64 x 32) (+)= A (64 x 8, shared memory) * B (8 x 32, shared
 // memory), both K-major TF32; the product is D's initial value when
 // scale_d is 0.
@@ -267,6 +309,23 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// D (64 x 24) (+)= A (64 x 8, registers) * B (8 x 24, shared memory,
+// K-major), TF32; the product is D's initial value when scale_d is 0.
+__device__ __forceinline__ void wgmma_rs_n24(float (&d)[12],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
 }
@@ -311,32 +370,48 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "r"(scale_d));
 }
 
-// D (64 x N) (+)= one 8-key slice of P (the A fragment a) times N columns
-// of V.
+// D (64 x N) (+)= A (64 x 8, registers) * B (8 x N, shared memory,
+// K-major), TF32: one 8-key slice of P times N columns of V, or a k-step
+// of S from q hi's fragments.
 template <int N>
-__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
   if constexpr (N == 64) {
     wgmma_rs_n64(d, a, desc_b, scale_d);
   } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a, desc_b, scale_d);
+  } else if constexpr (N == 24) {
+    wgmma_rs_n24(d, a, desc_b, scale_d);
   } else {
     wgmma_rs_n16(d, a, desc_b, scale_d);
   }
 }
 
+// D (64 x N) (+)= A (64 x 8) * B (8 x N), both from shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_ss_n16(d, desc_a, desc_b, scale_d);
+  }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Geo<D>::kThreads, 1)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int Hq, int group, int Sq, int Sk, int n_qt,
                       int bh_total, bool causal, bool aligned) {
   using G = Geo<D>;
+  constexpr int kBQ = G::kBQ, kBK = G::kBK;
   extern __shared__ uint8_t smem_raw[];
   // tiles on 1024-byte boundaries, where every swizzle pattern starts
   const uint32_t s_ql = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t ring = s_ql + G::kQBytes;                 // kStages stages
+  const uint32_t s_qh = s_ql + G::kQBytes;                 // D = 192 only
+  const uint32_t ring = s_ql + (G::kWide ? 2 : 1) * G::kQBytes;
   const uint32_t bar_full = ring + kStages * G::kStageBytes;
   const uint32_t bar_empty = bar_full + 8 * kStages;
 
@@ -353,7 +428,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_full + 8 * s, 128);
-      mbar_init(bar_empty + 8 * s, 256);
+      mbar_init(bar_empty + 8 * s, 128 * G::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -364,12 +439,17 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (wg == 0) {
     // ---- producer: loads each K and V tile, splits it into hi and lo,
     // stores K K-major and V transposed
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if constexpr (G::kConsumers == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     const long long kv_off = (static_cast<long long>(b) * Hkv + hk) * Sk * D;
     const float* kp = k + kv_off;
     const float* vp = v + kv_off;
     constexpr int kC4 = D / 4;                 // 16-byte chunks a row
-    constexpr int kN = kBK * kC4 / 128;        // chunks a thread, K or V
+    // chunks a thread: K has kBK * kC4 of them, V 4 * kBK for every 4
+    // columns of chunks (at D = 24 the last group is cut at kC4); only
+    // D = 24 leaves threads without a chunk (kExact false)
+    constexpr int kN = (4 * kBK * ((kC4 + 3) / 4) + 127) / 128;
+    constexpr bool kExact = kBK * kC4 == 128 * kN && kC4 % 4 == 0;
     // K: a warp takes whole rows.  V: a warp takes 4 chunks of 8 keys, so
     // its transposed stores spread over the banks
     float4 xk[kN], xv[kN];
@@ -378,13 +458,14 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int n = 0; n < kN; ++n) {
         const int i = t + 128 * n;
         int r = i / kC4, c = i % kC4;
-        bool in = k0 + r < Sk;
+        bool in = (kExact || r < kBK) && k0 + r < Sk;
         xk[n] = load4(kp + static_cast<long long>(in ? k0 + r : 0) * D + 4 * c,
                       in, aligned);
         r = (i / 4) % kBK;
         c = 4 * (i / (4 * kBK)) + i % 4;
-        in = k0 + r < Sk;
-        xv[n] = load4(vp + static_cast<long long>(in ? k0 + r : 0) * D + 4 * c,
+        in = (kExact || c < kC4) && k0 + r < Sk;
+        xv[n] = load4(vp + static_cast<long long>(in ? k0 + r : 0) * D +
+                          4 * (kExact || in ? c : 0),
                       in, aligned);
       }
     };
@@ -399,6 +480,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < kN; ++n) {
         const int i = t + 128 * n, r = i / kC4, c = i % kC4;
+        if (!kExact && r >= kBK) continue;
         const uint32_t off = G::kmajor(kBK, r, 4 * c);
         store_split4(kh + off, kl + off, xk[n]);
       }
@@ -406,14 +488,15 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int n = 0; n < kN; ++n) {
         const int i = t + 128 * n;
         const int r = (i / 4) % kBK, c = 4 * (i / (4 * kBK)) + i % 4;
+        if (!kExact && c >= kC4) continue;
         const int p = key_pos(r);
         const float xs[4] = {xv[n].x, xv[n].y, xv[n].z, xv[n].w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           uint32_t hi, lo;
           split(xs[e], hi, lo);
-          st_shared(vh + vt_off(4 * c + e, p), hi);
-          st_shared(vl + vt_off(4 * c + e, p), lo);
+          st_shared(vh + G::vt_off(4 * c + e, p), hi);
+          st_shared(vl + G::vt_off(4 * c + e, p), lo);
         }
       }
       fence_async_smem();
@@ -424,7 +507,8 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // ---- consumers: warpgroup wg owns query rows q0 + 64 (wg - 1) .. + 63
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if constexpr (G::kConsumers == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int warp = t / 32, lane = t % 32;
   const int wrow = 64 * (wg - 1);                // the warpgroup's first row
   const int rw = wrow + 16 * warp + lane / 4;    // rows rw and rw + 8
@@ -433,9 +517,10 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tq = lane % 4;
 
   // q scaled by 1/sqrt(D): hi as this thread's A fragments of S (k-step
-  // kk: rows rw, rw + 8, columns 8 kk + tq, 8 kk + tq + 4), lo into the
-  // K-major tile
-  uint32_t qa[D / 8][4];
+  // kk: rows rw, rw + 8, columns 8 kk + tq, 8 kk + tq + 4) or, at
+  // D = 192, into its K-major tile; lo into its K-major tile
+  constexpr int kQRegs = G::kWide ? 1 : D / 8;
+  uint32_t qa[kQRegs][4];
   {
     const float* qp = q + static_cast<long long>(bh) * Sq * D;
     const float sqrt_d = __fsqrt_rn(static_cast<float>(D));
@@ -447,9 +532,14 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int col = 8 * kk + tq + 4 * (e >> 1);
         const float x = q0 + r < Sq
             ? __ldg(qp + static_cast<long long>(q0 + r) * D + col) : 0.0f;
-        uint32_t lo;
-        split(__fdiv_rn(x, sqrt_d), qa[kk][e], lo);
-        st_shared(s_ql + G::kmajor(kBQ, r, col & ~3) + 4 * (col & 3), lo);
+        uint32_t hi, lo;
+        split(__fdiv_rn(x, sqrt_d), hi, lo);
+        const uint32_t off = G::kmajor(kBQ, r, col & ~3) + 4 * (col & 3);
+        if constexpr (G::kWide)
+          st_shared(s_qh + off, hi);
+        else
+          qa[kk][e] = hi;
+        st_shared(s_ql + off, lo);
       }
     fence_async_smem();
     asm volatile("bar.sync %0, 128;\n" ::"r"(wg) : "memory");
@@ -472,10 +562,11 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const uint32_t vl = vh + G::kVBytes;
 
       // S = Q.K^T: per 8-column k-step lo.hi (q lo from shared memory),
-      // hi.lo, then hi.hi (q hi from registers)
-      float s[16];
+      // hi.lo, then hi.hi (q hi from registers, or at D = 192 from its
+      // tile)
+      float s[kBK / 2];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+      for (int i = 0; i < kBK / 2; ++i) s[i] = 0.0f;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
@@ -484,12 +575,20 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const uint32_t sbo = 8 * G::kRowBytes;
         const uint32_t qa_off = (box * kBQ + wrow) * G::kRowBytes + col_bytes;
         const uint32_t kb_off = box * kBK * G::kRowBytes + col_bytes;
-        wgmma_ss_n32(s, make_desc(s_ql + qa_off, 16, sbo, G::kLayout),
-                     make_desc(kh + kb_off, 16, sbo, G::kLayout), kk > 0);
-        wgmma_rs_n32(s, qa[kk], make_desc(kl + kb_off, 16, sbo, G::kLayout),
-                     1);
-        wgmma_rs_n32(s, qa[kk], make_desc(kh + kb_off, 16, sbo, G::kLayout),
-                     1);
+        wgmma_ss<kBK>(s, make_desc(s_ql + qa_off, 16, sbo, G::kLayout),
+                      make_desc(kh + kb_off, 16, sbo, G::kLayout), kk > 0);
+        if constexpr (G::kWide) {
+          const uint64_t dq = make_desc(s_qh + qa_off, 16, sbo, G::kLayout);
+          wgmma_ss<kBK>(s, dq, make_desc(kl + kb_off, 16, sbo, G::kLayout),
+                        1);
+          wgmma_ss<kBK>(s, dq, make_desc(kh + kb_off, 16, sbo, G::kLayout),
+                        1);
+        } else {
+          wgmma_rs<kBK>(s, qa[kk],
+                        make_desc(kl + kb_off, 16, sbo, G::kLayout), 1);
+          wgmma_rs<kBK>(s, qa[kk],
+                        make_desc(kh + kb_off, 16, sbo, G::kLayout), 1);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -499,7 +598,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // ? 1 : 0), key k0 + 8 * (i / 4) + cq + (i & 1))
       if ((causal && k0 + kBK - 1 > q0 + wrow) || k0 + kBK > Sk) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < kBK / 2; ++i) {
           const int key = k0 + 8 * (i / 4) + cq + (i & 1);
           const int row = r0 + ((i & 2) ? 8 : 0);
           if (key >= Sk)
@@ -515,7 +614,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int h = 0; h < 2; ++h) {
         float mx = kNegBig;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kBK / 8; ++j)
           mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -523,7 +622,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         alpha[h] = expf(m[h] - m_new);
         float sum = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
           for (int e = 2 * h; e < 2 * h + 2; ++e) {
             s[4 * j + e] = expf(s[4 * j + e] - m_new);
@@ -535,9 +634,9 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
       // P as TF32 A fragments: k-step j's k = t is key 8j + 2t (s[4j],
       // s[4j + 2] by row), k = t + 4 is key 8j + 2t + 1 (s[4j + 1], + 3)
-      uint32_t ph[4][4], pl[4][4];
+      uint32_t ph[kBK / 8][4], pl[kBK / 8][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kBK / 8; ++j) {
         split(s[4 * j], ph[j][0], pl[j][0]);
         split(s[4 * j + 2], ph[j][1], pl[j][1]);
         split(s[4 * j + 1], ph[j][2], pl[j][2]);
@@ -550,15 +649,18 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int pass = 0; pass < D / kPVN; ++pass) {
         float pv[kPVN / 2];
-        const uint32_t col0 = pass * kPVN * 128;
+        const uint32_t col0 = pass * kPVN * G::kVRowBytes;
+        const uint32_t vsbo = 8 * G::kVRowBytes;
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < kBK / 8; ++j) {
-          const uint64_t dh = make_desc(vh + col0 + 32 * j, 16, 1024, 1);
-          const uint64_t dl = make_desc(vl + col0 + 32 * j, 16, 1024, 1);
-          wgmma_pv<kPVN>(pv, pl[j], dh, j > 0);
-          wgmma_pv<kPVN>(pv, ph[j], dl, 1);
-          wgmma_pv<kPVN>(pv, ph[j], dh, 1);
+          const uint64_t dh =
+              make_desc(vh + col0 + 32 * j, 16, vsbo, G::kVLayout);
+          const uint64_t dl =
+              make_desc(vl + col0 + 32 * j, 16, vsbo, G::kVLayout);
+          wgmma_rs<kPVN>(pv, pl[j], dh, j > 0);
+          wgmma_rs<kPVN>(pv, ph[j], dl, 1);
+          wgmma_rs<kPVN>(pv, ph[j], dh, 1);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -597,6 +699,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 }
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int Hkv, int Sq, int Sk, bool causal,
@@ -608,19 +711,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+  if (G::kConsumers == 2 &&
+      attr.numRegs * G::kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
     return cudaErrorInvalidConfiguration;
   // the opt-in to dynamic shared memory past 48 KB, set before every launch
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (err != cudaSuccess) return err;
-  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int n_qt = (Sq + G::kBQ - 1) / G::kBQ;
   const int bh_total = B * Hq;
   const long long blocks = static_cast<long long>(n_qt) * bh_total;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   const bool aligned = ((reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, G::kSmem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), G::kThreads, G::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
       Sk, n_qt, bh_total, causal, aligned);
@@ -630,8 +734,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success).  All tensors are
-// contiguous float32 (B, H, S, D); D in {16, 32, 64, 128}; Hq a multiple
-// of Hkv; Sq >= 1, Sk >= 0.
+// contiguous float32 (B, H, S, D); D in {16, 24, 32, 64, 128, 192}; Hq a
+// multiple of Hkv; Sq >= 1, Sk >= 0.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int Hq, int Hkv, int Sq, int Sk,
@@ -642,9 +746,11 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return static_cast<int>(launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
+    case 24: return static_cast<int>(launch<24>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
     case 32: return static_cast<int>(launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
     case 64: return static_cast<int>(launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
     case 128: return static_cast<int>(launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
+    case 192: return static_cast<int>(launch<192>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

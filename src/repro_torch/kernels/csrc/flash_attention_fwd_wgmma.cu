@@ -6,11 +6,12 @@
 // inputs keep csrc/flash_attention_fwd.cu.  Plain version:
 // src/repro_torch/kernels/flash_attention/ref.py attention_ref.
 //
-//   q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), bf16, D in {16, 32, 64, 128},
-//   Hq % Hkv == 0; query head h reads KV head h / (Hq / Hkv).  Scores are
-//   the f32 product scaled by 1/sqrt(D) afterwards (attention_ref's
-//   order).  Causal masking is aligned top left (key j visible to query i
-//   iff j <= i); masked scores are -1e30, keys past Sk take no part.
+//   q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), bf16, D in {16, 24, 32, 64, 128,
+//   192} (every head dim of the registered configs), Hq % Hkv == 0; query
+//   head h reads KV head h / (Hq / Hkv).  Scores are the f32 product
+//   scaled by 1/sqrt(D) afterwards (attention_ref's order).  Causal
+//   masking is aligned top left (key j visible to query i iff j <= i);
+//   masked scores are -1e30, keys past Sk take no part.
 //   o = acc / max(l, 1e-30), rounded to bf16 once.
 //
 // Bound on the H100: operations.  The two products cost 4 * Sq * Sk * D
@@ -27,10 +28,17 @@
 // * Copies: TMA.  q, k and v are mapped as 3-D (D, S, B*H) tensors, so a
 //   ragged tile is zero-filled inside its own head.  Rows of 128 bytes
 //   (64 bf16) are the widest the 128-byte swizzle takes, so at D = 128
-//   each tile is two column boxes; D = 32 and 16 use the 64- and 32-byte
-//   swizzles, whose rows they fill.  The query tile is loaded once; K and
-//   V tiles of 64 keys go through a ring of kStages stages with full and
-//   empty mbarriers (4 stages of 32 KB plus 32 KB of q: 160 KB at D = 128).
+//   and 192 each tile is two and three column boxes; D = 32 and 16 use the
+//   64- and 32-byte swizzles, whose rows they fill.  D = 24's 48-byte rows
+//   are no swizzle width: its tiles are D = 32's, 64-byte rows, and the
+//   tensor map keeps the tensor's 24 columns (a 48-byte global row
+//   stride, a multiple of TMA's 16), so TMA zero-fills each box's columns
+//   24..31 and the Q.K^T product over 32 columns is exact.  The query
+//   tile is loaded once; K and V tiles of 64 keys go through a ring of
+//   kStages stages with full and empty mbarriers: 4 stages of 32 KB plus
+//   32 KB of q, 160 KB, at D = 128; at D = 192 four stages would take
+//   48 KB of q plus 8 x 24 KB, 241 KB, over the 227 KB a block may opt
+//   into, so the ring there is 3 stages (192 KB).
 // * S = Q.K^T: wgmma m64n64k16, both operands read from shared memory
 //   through descriptors (K-major), f32 accumulators in registers; then
 //   scaled by 1/sqrt(D) and masked only on tiles that cross the diagonal
@@ -48,14 +56,20 @@
 //   of a (1, 8, 8, 128, 128, 32) case lands past its bound of one ulp
 //   plus 1e-6 (tests/test_torch_flash_attention.py emulates both).  The
 //   split costs 2x the bound's tensor work (one product for S, three for
-//   P.V).
+//   P.V).  D = 24 runs P.V at n32 over its zero pad columns, which are
+//   never stored.
 // * Each tile's P.V goes into an accumulator of its own, the small terms
 //   first, and is added to O in f32 (O = O * alpha + P.V).  The tensor
 //   cores truncate as they accumulate; summing every tile into O on the
 //   tensor cores put 167 of layer 27's outputs of the qwen3-1.7b prefill
 //   past one bf16 ulp of attention_ref (chip_smoke.py on an H100 SXM).
+//   At D = 192, O (96 registers) and a whole tile's P.V (96 more) would
+//   not fit the consumers' 232 beside P's three terms, so the tile's P.V
+//   runs in column passes of 64 (wgmma n64), each added to O before the
+//   next: every output column sees the same terms in the same order as
+//   one n192 product would give it.
 // * Epilogue: O / max(l, 1e-30), rounded to bf16, stored from registers;
-//   rows past Sq are not written.
+//   rows past Sq and D = 24's pad columns are not written.
 //
 // Not yet: persistent blocks, ping-pong between the two consumer
 // warpgroups, overlap of the softmax with the next tile's S product.
@@ -70,22 +84,25 @@ namespace {
 
 constexpr int kBQ = 128;             // query rows per block
 constexpr int kBK = 64;              // keys per tile
-constexpr int kStages = 4;           // K/V ring depth
 constexpr int kThreads = 384;        // 2 consumer warpgroups + 1 producer
 constexpr int kConsumers = 256;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kNegBig = -1e30f;
 
-// Shared-memory geometry of a head dim: each tile row is kRowBytes of the
-// swizzle's width, the D columns cut into kChunks column boxes.
+// Shared-memory geometry of a head dim: each tile row is kDP columns (D,
+// or 32 at D = 24), kRowBytes of the swizzle's width, cut into kChunks
+// column boxes; P.V runs in passes of kPV columns.
 template <int D>
 struct Geo {
-  static constexpr int kCols = D < 64 ? D : 64;       // columns per box
+  static constexpr int kDP = D == 24 ? 32 : D;         // padded row width
+  static constexpr int kCols = kDP < 64 ? kDP : 64;    // columns per box
   static constexpr int kRowBytes = 2 * kCols;          // = swizzle width
-  static constexpr int kChunks = D / kCols;
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;         // one K or V tile
+  static constexpr int kChunks = kDP / kCols;
+  static constexpr int kQBytes = kBQ * kDP * 2;
+  static constexpr int kKVBytes = kBK * kDP * 2;       // one K or V tile
+  static constexpr int kStages = kDP > 128 ? 3 : 4;    // K/V ring depth
+  static constexpr int kPV = kDP > 128 ? 64 : kDP;     // P.V columns a pass
   // descriptor layout code: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t kLayout =
       kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
@@ -297,39 +314,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
 }
 
 
-// D (64 x D) (+)= one 16-key slice of P (the A fragment a0..a3) times V.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], uint32_t a0,
+// D (64 x N) (+)= one 16-key slice of P (the A fragment a0..a3) times N
+// columns of V.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t desc_b,
                                          int scale_d) {
-  if constexpr (D == 128) {
+  if constexpr (N == 128) {
     wgmma_rs_n128(d, a0, a1, a2, a3, desc_b, scale_d);
-  } else if constexpr (D == 64) {
+  } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a0, a1, a2, a3, desc_b, scale_d);
-  } else if constexpr (D == 32) {
+  } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a0, a1, a2, a3, desc_b, scale_d);
   } else {
     wgmma_rs_n16(d, a0, a1, a2, a3, desc_b, scale_d);
   }
 }
 
-// The tile's P.V: the lo terms of all four 16-key slices first, then the
-// mid and the hi terms, into an accumulator that starts at 0.  The tensor
-// cores truncate as they accumulate, each add on the accumulator's own
-// scale, so small terms go in while it is small.
+// Pass c of the tile's P.V (columns c * kPV .. + kPV - 1) for one term of
+// P: its four 16-key slices into an accumulator that starts at 0 when
+// `first`.  The tensor cores truncate as they accumulate, each add on the
+// accumulator's own scale, so the caller adds the small terms first.
 template <int D>
-__device__ __forceinline__ void tile_pv(float (&pv)[D / 2],
+__device__ __forceinline__ void tile_pv(float (&pv)[Geo<D>::kPV / 2],
                                         const uint32_t (&p)[16],
-                                        uint32_t s_v_tile, bool first) {
+                                        uint32_t s_v_tile, int c,
+                                        bool first) {
   using G = Geo<D>;
 #pragma unroll
   for (int j = 0; j < kBK / 16; ++j) {
-    const uint64_t dv =
-        make_desc(s_v_tile + 16 * j * G::kRowBytes, kBK * G::kRowBytes,
-                  8 * G::kRowBytes, G::kLayout);
-    wgmma_pv<D>(pv, p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3], dv,
-                first && j == 0 ? 0 : 1);
+    const uint64_t dv = make_desc(
+        s_v_tile + (c * G::kPV / G::kCols) * kBK * G::kRowBytes +
+            16 * j * G::kRowBytes,
+        kBK * G::kRowBytes, 8 * G::kRowBytes, G::kLayout);
+    wgmma_pv<G::kPV>(pv, p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3],
+                     dv, first && j == 0 ? 0 : 1);
   }
 }
 
@@ -365,6 +385,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
   extern __shared__ uint8_t smem_raw[];
   // tiles on 1024-byte boundaries, where every swizzle pattern starts
   const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  constexpr int kStages = G::kStages;
   const uint32_t s_k = s_q + G::kQBytes;                    // kStages tiles
   const uint32_t s_v = s_k + kStages * G::kKVBytes;         // kStages tiles
   const uint32_t bar_full = s_v + kStages * G::kKVBytes;    // kStages x 8 B
@@ -422,9 +443,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
     const int cq = 2 * (lane % 4);
     const float scale = __fdiv_rn(1.0f, __fsqrt_rn(static_cast<float>(D)));
 
-    float oacc[D / 2];
+    float oacc[G::kDP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.0f;
+    for (int i = 0; i < G::kDP / 2; ++i) oacc[i] = 0.0f;
     float m0 = -INFINITY, m1 = -INFINITY;   // row maxima
     float l0 = 0.0f, l1 = 0.0f;             // this thread's part of the sums
 
@@ -441,7 +462,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
         for (int i = 0; i < 32; ++i) s[i] = 0.0f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < G::kDP / 16; ++kk) {
           const int c = kk * 16 / G::kCols;
           const int col_bytes = (kk * 16 % G::kCols) * 2;
           const uint64_t da = make_desc(
@@ -505,23 +526,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
         l0 = __fadd_rn(__fmul_rn(l0, alpha0), sum0);
         l1 = __fadd_rn(__fmul_rn(l1, alpha1), sum1);
 
-        // this tile's P.V on its own, then O = O * alpha + P.V in f32
-        // with round-to-nearest
-        float pv[D / 2];
-        wgmma_fence();
+        // this tile's P.V on its own, a pass of kPV columns at a time, then
+        // O = O * alpha + P.V in f32 with round-to-nearest
         const uint32_t s_v_tile = s_v + st * G::kKVBytes;
-        tile_pv<D>(pv, p_lo, s_v_tile, true);
-        tile_pv<D>(pv, p_mid, s_v_tile, false);
-        tile_pv<D>(pv, p_hi, s_v_tile, false);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(pv);
-        fence_regs(p_hi);
-        fence_regs(p_mid);
-        fence_regs(p_lo);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i)
-          oacc[i] = __fmaf_rn(oacc[i], (i & 2) ? alpha1 : alpha0, pv[i]);
+        for (int c = 0; c < G::kDP / G::kPV; ++c) {
+          float pv[G::kPV / 2];
+          wgmma_fence();
+          tile_pv<D>(pv, p_lo, s_v_tile, c, true);
+          tile_pv<D>(pv, p_mid, s_v_tile, c, false);
+          tile_pv<D>(pv, p_hi, s_v_tile, c, false);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(pv);
+          fence_regs(p_hi);
+          fence_regs(p_mid);
+          fence_regs(p_lo);
+#pragma unroll
+          for (int i = 0; i < G::kPV / 2; ++i) {
+            float& a = oacc[c * (G::kPV / 2) + i];
+            a = __fmaf_rn(a, (i & 2) ? alpha1 : alpha0, pv[i]);
+          }
+        }
       }
       mbar_arrive(bar_empty + 8 * st);
     }
@@ -573,7 +599,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A (D, S, BH) bf16 tensor map whose boxes are one column box by box_rows
-// rows of one head, swizzled as the wgmma descriptors read them.
+// rows of one head, swizzled as the wgmma descriptors read them (at
+// D = 24 a box of 32 columns, the last 8 past the tensor's edge: zeros).
 template <int D>
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int S,
               int BH, int box_rows) {
@@ -639,7 +666,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // Returns the cudaError_t of the launch (0 = success).  All tensors are
 // contiguous bf16 (B, H, S, D) at 16-byte aligned addresses; D in
-// {16, 32, 64, 128}; Hq a multiple of Hkv; Sq >= 1, Sk >= 0.
+// {16, 24, 32, 64, 128, 192}; Hq a multiple of Hkv; Sq >= 1, Sk >= 0.
 extern "C" int flash_attention_fwd_wgmma_launch(const void* q, const void* k,
                                                 const void* v, void* o, int B,
                                                 int Hq, int Hkv, int Sq,
@@ -652,9 +679,11 @@ extern "C" int flash_attention_fwd_wgmma_launch(const void* q, const void* k,
   cudaError_t err;
   switch (D) {
     case 16: err = launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s); break;
+    case 24: err = launch<24>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s); break;
     case 32: err = launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s); break;
     case 64: err = launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s); break;
     case 128: err = launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s); break;
+    case 192: err = launch<192>(q, k, v, o, B, Hq, Hkv, Sq, Sk, c, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

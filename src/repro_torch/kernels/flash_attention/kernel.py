@@ -20,8 +20,11 @@ allocates the output, launches on PyTorch's current stream, raises
 ``flash_attention_fwd_kernel.wgmma_launches``; no output rows, no launch.
 
 Any ``Sq`` and ``Sk`` are taken: the kernels mask the ragged edges of their
-tiles themselves.  A head dim outside ``HEAD_DIMS`` or ``Hq % Hkv != 0``
-raises ``ValueError``.
+tiles themselves.  ``HEAD_DIMS`` holds every head dim of the registered
+configs (nemotron-4-340b's 192, its REDUCED config's 24); both kernels
+take each of them (D = 24 in tiles padded to 32 columns, D = 192 with its
+own ring depth and geometry; the ``.cu`` headers say how).  Any other
+head dim, or ``Hq % Hkv != 0``, raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import check_tensor
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 24, 32, 64, 128, 192)
 # the kernel each dtype launches
 KERNEL_OF = {torch.float32: "flash_attention_fwd",
              torch.bfloat16: "flash_attention_fwd_wgmma"}
@@ -59,8 +62,11 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True
                                ) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D).  Returns (B, Hq, Sq, D)
-    in ``q.dtype``."""
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with D in ``HEAD_DIMS``
+    and Hq a multiple of Hkv; ``causal`` masks key j from query i for
+    j > i (aligned top left), else every key takes part.  Returns
+    (B, Hq, Sq, D) in ``q.dtype``: the plain version on CPU tensors, the
+    bf16 or float32 kernel on card tensors."""
     check_shapes(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)

@@ -2,15 +2,18 @@
 the families the port runs.
 
 ``build(cfg)`` returns a ``ModelAPI`` whose members are plain functions of
-(params, inputs).  The port runs the dense and MoE families: the training
-loss (with the MoE aux loss), prefill (every layer's attention through
-the hand-written flash-attention kernel on the card) and KV-cache decode
-with a bf16 or int8 cache.  The other families raise
-``NotImplementedError``; they are ROADMAP Queue 1 #3 and #4.
+(params, inputs).  The port runs the dense, MoE, VLM and audio families:
+the training loss (with the MoE aux loss), prefill (every attention
+through the hand-written flash-attention kernel on the card) and KV-cache
+decode with a bf16 or int8 cache (the VLM's and the audio decoder's
+states also hold their cross-attention K/V, projected once by
+``init_decode_state``).  The RWKV6 (``ssm``) and hybrid SSM families
+raise ``NotImplementedError``; they are ROADMAP Queue 1 #4.
 
 Batch dict conventions:
-  train:    {tokens (B,S) int, labels (B,S) int [, mask (B,S)]}
-  prefill:  {tokens (B,S) int}
+  train:    {tokens (B,S) int, labels (B,S) int [, mask (B,S)]
+             [, img_embeds | enc_embeds]}
+  prefill:  {tokens (B,S) int [, img_embeds | enc_embeds]}
   decode:   token (B,) int + a ``transformer.DecodeState``
 """
 from __future__ import annotations
@@ -41,6 +44,20 @@ class ModelAPI(NamedTuple):
     input_specs: Callable[[ShapeCell], Dict[str, TensorSpec]]
     decode_state_specs: Callable[[ShapeCell], Any]
     model_flops: Callable[[ShapeCell], float]
+
+
+def _token_specs(c: ArchConfig, cell: ShapeCell, with_labels: bool) -> Dict:
+    b, s = cell.global_batch, cell.seq_len
+    out = {"tokens": TensorSpec((b, s), torch.int32)}
+    if with_labels:
+        out["labels"] = TensorSpec((b, s), torch.int32)
+    if c.family == "vlm":
+        out["img_embeds"] = TensorSpec((b, c.n_img_tokens, c.d_model),
+                                       torch.bfloat16)
+    if c.family == "audio":
+        out["enc_embeds"] = TensorSpec((b, c.n_frames, c.d_model),
+                                       torch.bfloat16)
+    return out
 
 
 def _decl_params(decls) -> int:
@@ -74,17 +91,29 @@ def build(c: ArchConfig) -> ModelAPI:
         return transformer.loss_fn(c, params, batch)
 
     def prefill_fn(params, batch):
-        logits, _ = transformer.forward(c, params, batch["tokens"])
+        logits, _ = transformer.forward(
+            c, params, batch["tokens"], img_embeds=batch.get("img_embeds"),
+            enc_embeds=batch.get("enc_embeds"))
         return logits
 
     def decode_fn(params, token, state):
         return transformer.decode_step(c, params, token, state)
 
-    def init_decode_state(params, batch_size, max_seq):
+    def init_decode_state(params, batch_size, max_seq, *, img_embeds=None,
+                          enc_embeds=None):
         device = params["embed"].device
         cache = transformer.init_cache(c, c.n_layers, batch_size, max_seq,
                                        device)
-        return transformer.DecodeState(cache)
+        feats = transformer.features(c, img_embeds, enc_embeds)
+        xk = xv = None
+        if c.family == "vlm":
+            xk, xv = transformer.precompute_cross_kv(c, params, feats,
+                                                     "cross")
+        if c.family == "audio":
+            enc = transformer.encode_audio(c, params, feats)
+            xk, xv = transformer.precompute_cross_kv(c, params, enc,
+                                                     "dec_cross")
+        return transformer.DecodeState(cache, xk, xv)
 
     def decode_state_specs(cell: ShapeCell):
         b, s = cell.global_batch, cell.seq_len
@@ -97,16 +126,19 @@ def build(c: ArchConfig) -> ModelAPI:
         else:
             k = TensorSpec(shape, torch.bfloat16)
             cache = transformer.KVCache(k, k, None, None, pos)
-        return transformer.DecodeState(cache)
+        xk = None
+        if c.family == "vlm":
+            xk = TensorSpec((c.n_layers // c.cross_attn_every, b, c.kv_eff,
+                             c.n_img_tokens, c.hd), torch.bfloat16)
+        if c.family == "audio":
+            xk = TensorSpec((c.n_layers, b, c.kv_eff, c.n_frames, c.hd),
+                            torch.bfloat16)
+        return transformer.DecodeState(cache, xk, xk)
 
     def input_specs(cell: ShapeCell):
-        b, s = cell.global_batch, cell.seq_len
         if cell.kind == "decode":
-            return {"token": TensorSpec((b,), torch.int32)}
-        out = {"tokens": TensorSpec((b, s), torch.int32)}
-        if cell.kind == "train":
-            out["labels"] = TensorSpec((b, s), torch.int32)
-        return out
+            return {"token": TensorSpec((cell.global_batch,), torch.int32)}
+        return _token_specs(c, cell, cell.kind == "train")
 
     return ModelAPI(
         cfg=c,

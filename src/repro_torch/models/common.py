@@ -1,5 +1,6 @@
-"""Model-building primitives: parameter declarations, init, norms, RoPE,
-SwiGLU and the cross-entropy loss (port of ``repro.models.common``).
+"""Model-building primitives: parameter declarations, init, norms (RMS and
+layer norm), RoPE, the MLPs (SwiGLU, squared ReLU, GELU) and the
+cross-entropy loss (port of ``repro.models.common``).
 
 Parameters are declared as nested dicts of ``ParamDecl`` (shape, logical dim
 names, dtype, init); ``init_params`` materialises them on a device.  Its
@@ -10,8 +11,11 @@ dict, which is sorted keys, with the same per-leaf formulas.  So a test, or
 same weights.
 
 bf16 rounding points follow the JAX package's: a product of two bf16
-tensors returns bf16 (``jnp.einsum`` does), ``rms_norm`` and ``apply_rope``
-compute in float32 and cast back, and ``swiglu`` runs ``silu`` in float32.
+tensors returns bf16 (``jnp.einsum`` does), ``rms_norm``, ``layer_norm``
+and ``apply_rope`` compute in float32 and cast back, and each MLP runs
+its nonlinearity (``silu``, the squared ReLU, the tanh-approximated GELU)
+in float32 and casts the result back to the input's dtype; the GELU MLP's
+biases are cast to the input's dtype and added to the bf16 products.
 """
 from __future__ import annotations
 
@@ -123,6 +127,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (y * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     # theta stays a Python scalar: a tensor made from it on the card would
     # be a host-to-device copy, which waits for the stream, at every call
@@ -149,6 +163,23 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = x @ w_up
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ w_down
+
+
+def squared_relu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor) -> torch.Tensor:
+    """Nemotron-4 style: relu(x W1)^2 W2."""
+    h = x @ w_up
+    h = torch.square(torch.relu(h.float())).to(x.dtype)
+    return h @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP: GELU (tanh approximation) between two biased
+    products."""
+    h = x @ w_up + b_up.to(x.dtype)
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ w_down + b_down.to(x.dtype)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,37 +1,63 @@
-"""Decoder-only transformer stack, dense and MoE families (port of
-``repro.models.transformer``): qwen3-8b, qwen3-1.7b, phi3-medium-14b
-(dense), qwen3-moe-30b-a3b and llama4-maverick-400b-a17b (moe).
+"""Decoder-only and encoder-decoder transformer stacks (port of
+``repro.models.transformer``): qwen3-8b, qwen3-1.7b, phi3-medium-14b,
+nemotron-4-340b (dense), qwen3-moe-30b-a3b and llama4-maverick-400b-a17b
+(moe), llama-3.2-vision-11b (vlm: gated cross-attention layers over stub
+patch embeddings) and whisper-large-v3 (audio: an encoder over stub frame
+embeddings and a causal decoder with cross-attention).
 
 * Layers are STACKED (leading L dim) as in the JAX package; its
   ``lax.scan`` over them becomes a loop over layers that slices layer l and
   casts the slice to bf16 (``cast_compute``), so the 1-D norm scales stay
-  float32.  The sharding constraints have no counterpart on one device.
+  float32.  The sharding constraints have no counterpart on one device
+  (nemotron's ``shard_residual_embed`` only moves its residual's sharding:
+  nothing on one card).
+* Dense FFNs follow ``c.activation``: SwiGLU, nemotron's squared ReLU (no
+  gate), or whisper's GELU MLP with biases.  Norms follow ``c.norm``: RMS,
+  or whisper's layer norm (scale ``1 + p[name]`` and bias ``p[name_b]``).
 * MoE: ``moe_every == 1`` routes every layer's FFN through
   ``moe.moe_layer``; otherwise (llama4) the stack is ``n_layers // 2``
   pairs of a dense layer and a MoE layer (``dense_layers`` and
   ``moe_layers``), run dense first, with a shared expert's SwiGLU added
   to the routed output where ``shared_expert`` is set.
+* VLM: ``n_layers // cross_attn_every`` groups, each a gated
+  cross-attention block (``cross``: attention over the image features
+  with no RoPE, then its own FFN, each scaled by tanh of its gate) and
+  then ``cross_attn_every`` self-attention layers.  The JAX package casts
+  a group's stacked self layers at once, whose (every, d) norm scales are
+  2-D, so its VLM rounds them to bf16; the port rounds them too.  The
+  image features are cast to bf16 (the input specs' dtype): the JAX
+  package takes float32 features as they come and promotes its residual
+  stream to float32 after the first cross block.
+* Audio: ``encode_audio`` (frames in bf16 plus sinusoid positions, the
+  encoder's non-causal self-attention layers, a final layer norm), then
+  ``n_layers`` decoder layers, each a causal self-attention block and a
+  cross-attention block over the encoder output.
 * Remat follows ``c.remat`` as the JAX package's ``jax.checkpoint``
-  policy does, around each layer body (or pair body) when autograd
-  records it (grad mode on and the layer's input or a parameter requiring
-  grad; a prefill runs no checkpoint, as ``jax.checkpoint`` acts only
-  under differentiation): ``"full"`` keeps only the layer's input
-  (``torch.utils.checkpoint``), ``"dots"`` also the matrix products'
-  outputs (a selective checkpoint), ``"none"`` everything.  It changes
-  memory, not values.
+  policy does, around each layer body (or pair, group or decoder layer)
+  when autograd records it (grad mode on and the body's input or a
+  parameter requiring grad; a prefill runs no checkpoint, as
+  ``jax.checkpoint`` acts only under differentiation): ``"full"`` keeps
+  only the body's inputs (``torch.utils.checkpoint``), ``"dots"`` also
+  the matrix products' outputs (a selective checkpoint), ``"none"``
+  everything.  It changes memory, not values.
 * ``forward`` returns (logits, aux): the MoE layers' aux losses summed
   in float32 layer by layer (a pair adds its dense layer's 0 and then
-  its MoE layer's), 0 for the dense family.  ``loss_fn`` is the logits'
-  ``cross_entropy_loss`` plus aux.
-* Every layer's full-sequence attention goes through
-  ``attention.flash_attention``: the hand-written kernel on the card.
+  its MoE layer's), 0 for the other families.  ``loss_fn`` is the
+  logits' ``cross_entropy_loss`` plus aux.
+* Every full-sequence attention goes through ``attention.flash_attention``:
+  the hand-written kernel on the card.  Self-attention is causal, the
+  audio encoder's is not; cross-attention runs it non-causal with one
+  chunk of all the keys, which on CPU tensors is ``full_attention``, the
+  JAX package's own cross-attention path.
 * KV caches live in (L, B, H_kv_eff, S, hd) stacked form, bf16 or int8,
   with a per-slot (B,) position vector.  The int8 cache keeps a float32
   scale per (layer, slot, head, position): the new K/V row's largest
   magnitude over 127, the row rounded half to even and clipped to
   [-127, 127]; a read is the int8 value times its scale in bf16.  The
   pair layout's cache is in layer order: pair i's dense layer at 2i, its
-  MoE layer at 2i + 1.
+  MoE layer at 2i + 1.  The VLM and audio decode states also hold the
+  cross-attention K/V, projected once from the features
+  (``precompute_cross_kv``): (n_cross, B, H_kv_eff, n_features, hd).
 * Decode writes the new K/V into a layer's cache slice by a one-hot
   ``where`` (``_dus_per_slot``), as the JAX package does, and returns new
   cache tensors; the inputs are not written.  The JAX package's decode
@@ -42,7 +68,7 @@
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -51,25 +77,23 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.common import (ParamDecl, apply_rope, cast_compute,
-                                       cross_entropy_loss, rms_norm, swiglu,
-                                       tree_leaves)
+                                       cross_entropy_loss, gelu_mlp,
+                                       layer_norm, rms_norm, squared_relu_mlp,
+                                       swiglu, tree_leaves, tree_map)
 
 P = ParamDecl
 
 
 def _check_ported(c: ArchConfig) -> None:
-    """Raise for what the port does not run: only the dense and MoE
-    families with RMS norm and SwiGLU.  ``build_decls`` calls it, so
-    ``api.build`` refuses the rest."""
-    if c.family not in ("dense", "moe"):
+    """Raise for what the port does not run: the attention-free RWKV6
+    (``ssm``) and hybrid Mamba2 (``hybrid``) families.  ``build_decls``
+    calls it, so ``api.build`` refuses them."""
+    if c.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"family {c.family!r} is not ported yet (ROADMAP Queue 1 #4: "
-            f"VLM, audio, RWKV6 and hybrid SSM)")
-    if c.norm != "rms" or c.activation != "swiglu":
-        raise NotImplementedError(
-            f"norm {c.norm!r} / activation {c.activation!r} is not ported "
-            f"yet (ROADMAP Queue 1 #3: squared_relu for nemotron; #4: layer "
-            f"norm and GELU for whisper)")
+            f"RWKV6 and hybrid SSM)")
+    if c.family not in ("dense", "moe", "vlm", "audio"):
+        raise ValueError(f"unknown family {c.family!r}")
 
 
 # --------------------------------------------------------------- declarations
@@ -93,10 +117,23 @@ def _attn_decls(c: ArchConfig, L: int) -> Dict[str, P]:
 def _ffn_decls(c: ArchConfig, L: int, d_ff: int, prefix: str = ""
                ) -> Dict[str, P]:
     d = c.d_model
+    if c.activation == "swiglu":
+        return {
+            prefix + "w_gate": P((L, d, d_ff), ("layers", "embed", "mlp")),
+            prefix + "w_up": P((L, d, d_ff), ("layers", "embed", "mlp")),
+            prefix + "w_down": P((L, d_ff, d), ("layers", "mlp", "embed")),
+        }
+    if c.activation == "squared_relu":
+        return {
+            prefix + "w_up": P((L, d, d_ff), ("layers", "embed", "mlp")),
+            prefix + "w_down": P((L, d_ff, d), ("layers", "mlp", "embed")),
+        }
+    # gelu (whisper)
     return {
-        prefix + "w_gate": P((L, d, d_ff), ("layers", "embed", "mlp")),
         prefix + "w_up": P((L, d, d_ff), ("layers", "embed", "mlp")),
+        prefix + "b_up": P((L, d_ff), ("layers", "mlp"), init="zeros"),
         prefix + "w_down": P((L, d_ff, d), ("layers", "mlp", "embed")),
+        prefix + "b_down": P((L, d), ("layers", "embed"), init="zeros"),
     }
 
 
@@ -110,14 +147,19 @@ def _moe_decls(c: ArchConfig, L: int) -> Dict[str, P]:
         "we_down": P((L, e, f, d), ("layers", "experts", None, "embed")),
     }
     if c.shared_expert:
-        out.update(_ffn_decls(c, L, c.d_ff_shared, "shared_"))
+        out.update(_ffn_decls(c.replace(activation="swiglu"), L,
+                              c.d_ff_shared, "shared_"))
     return out
 
 
 def _norm_decls(c: ArchConfig, L: int, names: Tuple[str, ...]
                 ) -> Dict[str, P]:
-    return {nm: P((L, c.d_model), ("layers", None), init="zeros")
-            for nm in names}
+    out: Dict[str, P] = {}
+    for nm in names:
+        out[nm] = P((L, c.d_model), ("layers", None), init="zeros")
+        if c.norm == "layer":
+            out[nm + "_b"] = P((L, c.d_model), ("layers", None), init="zeros")
+    return out
 
 
 def _block_decls(c: ArchConfig, L: int, *, moe: bool) -> Dict[str, P]:
@@ -130,24 +172,51 @@ def _block_decls(c: ArchConfig, L: int, *, moe: bool) -> Dict[str, P]:
     return out
 
 
+def _cross_decls(c: ArchConfig, L: int) -> Dict[str, P]:
+    """Cross-attention block (the VLM's gated variant, the whisper
+    decoder's)."""
+    out = {("x_" + k): v for k, v in _attn_decls(c, L).items()}
+    out.update(_norm_decls(c, L, ("x_ln",)))
+    if c.family == "vlm":
+        # llama-3.2 style gated cross-attention and its own gated FFN
+        out["x_attn_gate"] = P((L,), ("layers",), init="zeros")
+        out["x_mlp_gate"] = P((L,), ("layers",), init="zeros")
+        out.update({("x_" + k): v
+                    for k, v in _ffn_decls(c, L, c.d_ff).items()})
+        out.update(_norm_decls(c, L, ("x_ln_mlp",)))
+    return out
+
+
 def build_decls(c: ArchConfig) -> Dict[str, Any]:
-    """Full parameter declaration tree of the dense and MoE families."""
+    """Full parameter declaration tree of the dense, MoE, VLM and audio
+    families."""
     _check_ported(c)
     d, v = c.d_model, c.vocab_size
     out: Dict[str, Any] = {
         "embed": P((v, d), ("vocab", "embed"), init="embed"),
         "final_norm": P((d,), (None,), init="zeros"),
     }
+    if c.norm == "layer":
+        out["final_norm_b"] = P((d,), (None,), init="zeros")
     if not c.tie_embeddings:
         out["unembed"] = P((d, v), ("embed", "vocab"))
     if c.family == "dense":
         out["layers"] = _block_decls(c, c.n_layers, moe=False)
-    elif c.moe_every == 1:
+    elif c.family == "moe" and c.moe_every == 1:
         out["layers"] = _block_decls(c, c.n_layers, moe=True)
-    else:  # llama4: alternating dense / moe pairs
+    elif c.family == "moe":  # llama4: alternating dense / moe pairs
         n_pairs = c.n_layers // 2
         out["dense_layers"] = _block_decls(c, n_pairs, moe=False)
         out["moe_layers"] = _block_decls(c, n_pairs, moe=True)
+    elif c.family == "vlm":
+        out["layers"] = _block_decls(c, c.n_layers, moe=False)
+        out["cross"] = _cross_decls(c, c.n_layers // c.cross_attn_every)
+    else:  # audio
+        out["enc_layers"] = _block_decls(c, c.n_enc_layers, moe=False)
+        out["dec_layers"] = _block_decls(c, c.n_layers, moe=False)
+        out["dec_cross"] = _cross_decls(c, c.n_layers)
+        out["enc_final_norm"] = P((d,), (None,), init="zeros")
+        out["enc_final_norm_b"] = P((d,), (None,), init="zeros")
     return out
 
 
@@ -166,24 +235,31 @@ def layer_slice(stacked: Dict[str, torch.Tensor], l: int
 
 
 def _norm(c: ArchConfig, p, x, name: str):
+    if c.norm == "layer":
+        return layer_norm(x, 1.0 + p[name], p[name + "_b"])
     return rms_norm(x, p[name])
 
 
-def _project_qkv(c: ArchConfig, p, x, positions):
-    """Project to (B,H,S,hd) with qk-norm + RoPE; KV repeated to kv_eff."""
+def _project_qkv(c: ArchConfig, p, x, positions, prefix: str = "",
+                 rope: bool = True, kv_from: Optional[torch.Tensor] = None):
+    """Project to (B,H,S,hd) with qk-norm + RoPE; KV repeated to kv_eff.
+    ``kv_from``: the features K and V are projected from (cross-attention,
+    no RoPE) instead of ``x``."""
     hd, hq, hkv = c.hd, c.n_heads, c.n_kv_heads
-    b, s = x.shape[0], x.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    kv_src = x if kv_from is None else kv_from
+    b, sq, sk = x.shape[0], x.shape[1], kv_src.shape[1]
+    q = (x @ p[prefix + "wq"]).reshape(b, sq, hq, hd)
+    k = (kv_src @ p[prefix + "wk"]).reshape(b, sk, hkv, hd)
+    v = (kv_src @ p[prefix + "wv"]).reshape(b, sk, hkv, hd)
     if c.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, p[prefix + "q_norm"])
+        k = rms_norm(k, p[prefix + "k_norm"])
     q = q.transpose(1, 2)  # (B,H,S,hd)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    q = apply_rope(q, positions, c.rope_theta)
-    k = apply_rope(k, positions, c.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, c.rope_theta)
+        k = apply_rope(k, positions, c.rope_theta)
     reps = c.kv_eff // hkv
     return q, attn.repeat_kv(k, reps), attn.repeat_kv(v, reps)
 
@@ -197,8 +273,14 @@ def _self_attn(c: ArchConfig, p, x, positions, causal=True):
     return o @ p["wo"]
 
 
-def _ffn(c: ArchConfig, p, x):
-    return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+def _ffn(c: ArchConfig, p, x, prefix: str = ""):
+    if c.activation == "swiglu" or prefix == "shared_":
+        return swiglu(x, p[prefix + "w_gate"], p[prefix + "w_up"],
+                      p[prefix + "w_down"])
+    if c.activation == "squared_relu":
+        return squared_relu_mlp(x, p[prefix + "w_up"], p[prefix + "w_down"])
+    return gelu_mlp(x, p[prefix + "w_up"], p[prefix + "b_up"],
+                    p[prefix + "w_down"], p[prefix + "b_down"])
 
 
 def _moe_ffn(c: ArchConfig, p, x):
@@ -208,8 +290,7 @@ def _moe_ffn(c: ArchConfig, p, x):
         top_k=c.top_k, capacity_factor=c.capacity_factor)
     y = out.y
     if c.shared_expert:
-        y = y + swiglu(x, p["shared_w_gate"], p["shared_w_up"],
-                       p["shared_w_down"])
+        y = y + _ffn(c, p, x, prefix="shared_")
     return y, out.aux_loss
 
 
@@ -225,11 +306,49 @@ def _block(c: ArchConfig, p, x, positions, *, moe: bool, causal: bool = True):
     return x + y, aux
 
 
-def _logits(params, x):
-    x = rms_norm(x, params["final_norm"])
+def _gated(c: ArchConfig, p, gate: str, x, y):
+    """x + tanh(gate) y for the VLM (the gate's tanh in float32, cast to
+    x's dtype), x + y otherwise."""
+    if c.family == "vlm":
+        return x + torch.tanh(p[gate]).to(x.dtype) * y
+    return x + y
+
+
+def _cross_block(c: ArchConfig, p, x, kv_feats):
+    """Cross-attention over precomputed features (no RoPE, every feature
+    visible), plus the VLM's gated FFN."""
+    h = _norm(c, p, x, "x_ln")
+    q, k, v = _project_qkv(c, p, h, None, prefix="x_", rope=False,
+                           kv_from=kv_feats)
+    o = attn.flash_attention(q, k, v, causal=False, chunk=k.shape[2])
+    b, _, s, _ = q.shape
+    o = o.transpose(1, 2).reshape(b, s, c.n_heads * c.hd) @ p["x_wo"]
+    x = _gated(c, p, "x_attn_gate", x, o)
+    if c.family == "vlm":
+        m = _ffn(c, p, _norm(c, p, x, "x_ln_mlp"), prefix="x_")
+        x = _gated(c, p, "x_mlp_gate", x, m)
+    return x
+
+
+def _logits(c: ArchConfig, params, x):
+    x = _norm(c, params, x, "final_norm")
     unembed = params["embed"].T if "unembed" not in params \
         else params["unembed"]
     return x @ unembed.to(x.dtype)
+
+
+def _sinusoid(length: int, channels: int, device) -> torch.Tensor:
+    """Whisper's sinusoid positions (length, channels), float32, in the
+    JAX package's float32 order (its log and divisor as float32
+    tensors)."""
+    f32 = torch.float32
+    pos = torch.arange(length, dtype=f32, device=device)[:, None]
+    dim = torch.arange(channels // 2, dtype=f32, device=device)[None, :]
+    log_base = torch.log(torch.tensor(10000.0, dtype=f32, device=device))
+    inv = torch.exp(-log_base * dim / torch.tensor(
+        float(max(1, channels // 2 - 1)), dtype=f32, device=device))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------- remat
@@ -260,8 +379,8 @@ def _remat(c: ArchConfig, body, *args):
     raise ValueError(f"remat {c.remat!r}: want full, dots or none")
 
 
-def _layer(c: ArchConfig, positions, moe: bool, x, p):
-    return _block(c, cast_compute(p), x, positions, moe=moe)
+def _layer(c: ArchConfig, positions, moe: bool, x, p, causal: bool = True):
+    return _block(c, cast_compute(p), x, positions, moe=moe, causal=causal)
 
 
 def _pair(c: ArchConfig, positions, x, p):
@@ -272,41 +391,121 @@ def _pair(c: ArchConfig, positions, x, p):
     return x, a1, a2
 
 
+def _group_cast(p):
+    """A VLM self layer's parameters cast as the JAX package casts a
+    group's stacked layers: every float32 leaf, the (d,) norm scales too,
+    to bf16."""
+    return tree_map(lambda t: t.to(torch.bfloat16)
+                    if t.dtype == torch.float32 and t.dim() >= 1 else t, p)
+
+
+def _group(c: ArchConfig, positions, x, p, img):
+    """A VLM group: the cross-attention block over the image features,
+    then ``cross_attn_every`` self-attention layers."""
+    x = _cross_block(c, cast_compute(p["cross"]), x, img)
+    for lp in p["self"]:
+        x, _ = _block(c, _group_cast(lp), x, positions, moe=False)
+    return x
+
+
+def _dec_layer(c: ArchConfig, positions, x, p, enc):
+    """A whisper decoder layer: causal self-attention, then
+    cross-attention over the encoder's output."""
+    p = cast_compute(p)
+    x, _ = _block(c, p["self"], x, positions, moe=False)
+    return _cross_block(c, p["cross"], x, enc)
+
+
+def _per_layer(stacked: Dict[str, torch.Tensor]) -> List[Dict]:
+    """A stacked layer tree as per-layer views, unbound once: the
+    gradient of a stacked leaf is then one stack of its layers' gradients
+    (a slice per layer would add a zero-filled stacked tensor per
+    layer)."""
+    cols = {k: t.unbind(0) for k, t in stacked.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: col[l] for k, col in cols.items()} for l in range(n)]
+
+
+def features(c: ArchConfig, img_embeds, enc_embeds):
+    """The VLM's image features in bf16, or the audio family's frames;
+    raises when the family's are missing."""
+    if c.family == "vlm":
+        if img_embeds is None:
+            raise ValueError("the vlm family needs img_embeds "
+                             "(B, n_img_tokens, d_model)")
+        return img_embeds.to(torch.bfloat16)
+    if c.family == "audio" and enc_embeds is None:
+        raise ValueError("the audio family needs enc_embeds "
+                         "(B, n_frames, d_model)")
+    return enc_embeds
+
+
 # --------------------------------------------------------------- full forward
 
 
-def forward(c: ArchConfig, params, tokens: torch.Tensor
+def forward(c: ArchConfig, params, tokens: torch.Tensor, *,
+            img_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill forward: tokens (B, S) int -> (logits (B, S, V)
-    bf16, aux loss float32).  Each stacked layer tree is unbound once
-    into per-layer views, so the gradient of a stacked leaf is one stack
-    of its layers' gradients (a slice per layer would add a zero-filled
-    stacked tensor per layer)."""
+    bf16, aux loss float32).  ``img_embeds``: (B, n_img, D) for the VLM;
+    ``enc_embeds``: (B, n_frames, D) stub frame embeddings for audio."""
+    feats = features(c, img_embeds, enc_embeds)
     x = params["embed"][tokens].to(torch.bfloat16)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _pairs(c):
-        stacks = {k: {n: t.unbind(0) for n, t in params[k + "_layers"].items()}
-                  for k in ("dense", "moe")}
+        pairs = zip(_per_layer(params["dense_layers"]),
+                    _per_layer(params["moe_layers"]))
         body = functools.partial(_pair, c, positions)
-        for i in range(c.n_layers // 2):
-            x, a1, a2 = _remat(c, body, x, {
-                k: {n: t[i] for n, t in st.items()}
-                for k, st in stacks.items()})
+        for dense, moe in pairs:
+            x, a1, a2 = _remat(c, body, x, {"dense": dense, "moe": moe})
             aux = aux + a1 + a2
+    elif c.family == "vlm":
+        every = c.cross_attn_every
+        layers = _per_layer(params["layers"])
+        body = functools.partial(_group, c, positions)
+        for g, cross in enumerate(_per_layer(params["cross"])):
+            x = _remat(c, body, x, {"cross": cross, "self": layers[
+                g * every:(g + 1) * every]}, feats)
+    elif c.family == "audio":
+        enc = encode_audio(c, params, feats)
+        body = functools.partial(_dec_layer, c, positions)
+        for p in zip(_per_layer(params["dec_layers"]),
+                     _per_layer(params["dec_cross"])):
+            x = _remat(c, body, x, {"self": p[0], "cross": p[1]}, enc)
     else:
-        layers = {k: t.unbind(0) for k, t in params["layers"].items()}
         body = functools.partial(_layer, c, positions, c.family == "moe")
-        for l in range(c.n_layers):
-            x, a = _remat(c, body, x, {k: t[l] for k, t in layers.items()})
+        for p in _per_layer(params["layers"]):
+            x, a = _remat(c, body, x, p)
             aux = aux + a
-    return _logits(params, x), aux
+    return _logits(c, params, x), aux
+
+
+def encode_audio(c: ArchConfig, params, enc_embeds: torch.Tensor
+                 ) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings (B, n_frames, D): the
+    frames in bf16 plus sinusoid positions, the non-causal encoder layers,
+    a final layer norm.  Returns (B, n_frames, D) bf16."""
+    s = enc_embeds.shape[1]
+    dev = enc_embeds.device
+    x = enc_embeds.to(torch.bfloat16) + _sinusoid(s, c.d_model, dev).to(
+        torch.bfloat16)
+    body = functools.partial(_layer, c, torch.arange(s, device=dev), False,
+                             causal=False)
+    for p in _per_layer(params["enc_layers"]):
+        x, _ = _remat(c, body, x, p)
+    return layer_norm(x, 1.0 + params["enc_final_norm"],
+                      params["enc_final_norm_b"])
 
 
 def loss_fn(c: ArchConfig, params, batch) -> Tuple[torch.Tensor,
                                                    Dict[str, torch.Tensor]]:
-    """(ce + aux, {"ce", "aux"}) of a batch {tokens, labels[, mask]}."""
-    logits, aux = forward(c, params, batch["tokens"])
+    """(ce + aux, {"ce", "aux"}) of a batch {tokens, labels[, mask]
+    [, img_embeds | enc_embeds]}."""
+    logits, aux = forward(c, params, batch["tokens"],
+                          img_embeds=batch.get("img_embeds"),
+                          enc_embeds=batch.get("enc_embeds"))
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -384,9 +583,11 @@ def _cache_read(ck, cv, sk, sv):
 
 
 class DecodeState(NamedTuple):
-    """The JAX package's DecodeState without the cross-attention K/V of
-    the families the port does not run."""
     cache: KVCache
+    # the VLM's and the audio decoder's cross-attention K/V,
+    # (L_cross, B, H_kv_eff, n_features, hd) bf16; None for the others
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
 
 def _decode_self_attn(c: ArchConfig, p, x, cache_layer, pos):
@@ -403,6 +604,23 @@ def _decode_self_attn(c: ArchConfig, p, x, cache_layer, pos):
     return o @ p["wo"], cache_layer
 
 
+def _decode_cross_attn(c: ArchConfig, p, x, xk, xv):
+    """The cross-attention block for one token (B, 1, D) against the
+    precomputed K/V of its layer (every feature visible)."""
+    q = _norm(c, p, x, "x_ln") @ p["x_wq"]
+    b = x.shape[0]
+    q = q.reshape(b, 1, c.n_heads, c.hd).transpose(1, 2)
+    if c.qk_norm:
+        q = rms_norm(q.transpose(1, 2), p["x_q_norm"]).transpose(1, 2)
+    o = attn.decode_attention(q, xk, xv, xk.shape[2])
+    o = o.transpose(1, 2).reshape(b, 1, c.n_heads * c.hd) @ p["x_wo"]
+    x = _gated(c, p, "x_attn_gate", x, o)
+    if c.family == "vlm":
+        m = _ffn(c, p, _norm(c, p, x, "x_ln_mlp"), prefix="x_")
+        x = _gated(c, p, "x_mlp_gate", x, m)
+    return x
+
+
 def _decode_block(c: ArchConfig, p, x, cache_layer, pos, *, moe: bool):
     a, cache_layer = _decode_self_attn(c, p, _norm(c, p, x, "ln1"),
                                        cache_layer, pos)
@@ -412,35 +630,70 @@ def _decode_block(c: ArchConfig, p, x, cache_layer, pos, *, moe: bool):
     return x + y, cache_layer
 
 
+def precompute_cross_kv(c: ArchConfig, params, feats: torch.Tensor,
+                        stack_key: str
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of every layer of ``params[stack_key]``,
+    projected once from ``feats`` (B, S, D): (L, B, H_kv_eff, S, hd)
+    each."""
+    b, sk = feats.shape[0], feats.shape[1]
+    reps = c.kv_eff // c.n_kv_heads
+    ks, vs = [], []
+    for l in range(next(iter(params[stack_key].values())).shape[0]):
+        lp = layer_slice(params[stack_key], l)
+        k = (feats @ lp["x_wk"]).reshape(b, sk, c.n_kv_heads, c.hd)
+        v = (feats @ lp["x_wv"]).reshape(b, sk, c.n_kv_heads, c.hd)
+        if c.qk_norm:
+            k = rms_norm(k, lp["x_k_norm"])
+        ks.append(attn.repeat_kv(k.transpose(1, 2), reps))
+        vs.append(attn.repeat_kv(v.transpose(1, 2), reps))
+    return torch.stack(ks), torch.stack(vs)
+
+
 def _decode_layers(c: ArchConfig, params) -> Iterator[Tuple[Dict, bool]]:
     """(layer parameters cast for compute, whether MoE), in the cache's
     layer order: the pair layout's dense layer of pair i at 2i and its MoE
-    layer at 2i + 1."""
+    layer at 2i + 1; the VLM's self layers cast as its groups are
+    (``_group_cast``), the audio decoder's self layers."""
     if _pairs(c):
         for i in range(c.n_layers // 2):
             yield layer_slice(params["dense_layers"], i), False
             yield layer_slice(params["moe_layers"], i), True
-    else:
+    elif c.family == "vlm":
         for l in range(c.n_layers):
-            yield layer_slice(params["layers"], l), c.family == "moe"
+            yield _group_cast({k: t[l] for k, t in params["layers"].items()}
+                              ), False
+    else:
+        stack = params["dec_layers" if c.family == "audio" else "layers"]
+        for l in range(c.n_layers):
+            yield layer_slice(stack, l), c.family == "moe"
 
 
 def decode_step(c: ArchConfig, params, token: torch.Tensor,
                 state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
-    """One-token decode: token (B,) int -> (logits (B, V), new state)."""
+    """One-token decode: token (B,) int -> (logits (B, V), new state).
+    The VLM runs group g's cross-attention block before its first self
+    layer, the audio decoder layer l's after its self-attention block."""
     cache = state.cache
     pos = cache.pos
     int8 = cache.k_scale is not None
     x = params["embed"][token][:, None, :].to(torch.bfloat16)   # (B,1,D)
     new = []
     for l, (p, moe) in enumerate(_decode_layers(c, params)):
+        if c.family == "vlm" and l % c.cross_attn_every == 0:
+            g = l // c.cross_attn_every
+            x = _decode_cross_attn(c, layer_slice(params["cross"], g), x,
+                                   state.cross_k[g], state.cross_v[g])
         layer = (cache.k[l], cache.v[l],
                  cache.k_scale[l] if int8 else None,
                  cache.v_scale[l] if int8 else None)
         x, layer = _decode_block(c, p, x, layer, pos, moe=moe)
         new.append(layer)
+        if c.family == "audio":
+            x = _decode_cross_attn(c, layer_slice(params["dec_cross"], l), x,
+                                   state.cross_k[l], state.cross_v[l])
     ks, vs, sks, svs = zip(*new)
     new_cache = KVCache(torch.stack(ks), torch.stack(vs),
                         torch.stack(sks) if int8 else None,
                         torch.stack(svs) if int8 else None, pos + 1)
-    return _logits(params, x)[:, 0], DecodeState(new_cache)
+    return _logits(c, params, x)[:, 0], state._replace(cache=new_cache)

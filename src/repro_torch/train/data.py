@@ -45,12 +45,21 @@ def _hash_tokens(step: int, seed: int, shape, vocab: int, alpha: float
 def make_batch(c: ArchConfig, cell: ShapeCell, step: int,
                cfg: DataConfig = DataConfig()) -> Dict[str, np.ndarray]:
     """The full global batch for ``step``, as host numpy arrays: tokens
-    and labels (the JAX package's VLM and audio inputs come with those
-    families, which the port does not build yet)."""
+    and labels, and the VLM's stub image features or the audio family's
+    stub frame embeddings (float32 normal draws times 0.02, from a
+    generator seeded ``seed + 7 + step``)."""
     b, s = cell.global_batch, cell.seq_len
     toks = _hash_tokens(step, cfg.seed, (b, s + 1), c.vocab_size,
                         cfg.zipf_alpha)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    rng = np.random.default_rng(cfg.seed + 7 + step)
+    if c.family == "vlm":
+        out["img_embeds"] = rng.standard_normal(
+            (b, c.n_img_tokens, c.d_model)).astype(np.float32) * 0.02
+    if c.family == "audio":
+        out["enc_embeds"] = rng.standard_normal(
+            (b, c.n_frames, c.d_model)).astype(np.float32) * 0.02
+    return out
 
 
 class DataPipeline:

@@ -70,7 +70,13 @@ on k and v that are not 16-byte aligned; and the dense model's
 REDUCED size on the card, every layer's attention through the wgmma kernel,
 against the same model on the CPU within 2^-5 of each logit row's largest
 magnitude (bf16 matmuls on the card sum in another order, and the CPU path
-rounds its probabilities to bf16).
+rounds its probabilities to bf16).  That prefill check covers every
+registered config, nemotron (head dim 24), llama-3.2-vision (cross
+attention, gates at 0.5) and whisper (its encoder over the frames, its
+decoder's cross attention) with their bf16 features, every attention call
+launching the wgmma kernel; those three also decode on the card against
+the CPU.  Both flash kernels also run at the head dims 24 and 192, GQA
+groups 1, 2 and 6 and the new families' lengths (448, 1 500, 1 600).
 
 Training: ``FlashAttentionFn`` (the kernel forward, the chunked mirror's
 gradient) on card tensors, bf16 and float32: its output within the
@@ -1665,6 +1671,34 @@ def test_float32_flash_kernel_on_unaligned_kv(cuda_device):
     _assert_attention_close(out, _ref(q, k, v, True), torch.float32)
 
 
+# nemotron-4-340b's head dim 192 and its REDUCED config's 24, causal and
+# not, GQA groups 1, 2 and 6, at the new families' ragged lengths: whisper's
+# 448-token decoder and 1 500 frames, the VLM's 1 600 image tokens
+HEAD_DIM_SHAPES = [
+    (1, 6, 1, 448, 448, 192, True), (1, 12, 2, 300, 1600, 192, False),
+    (2, 4, 4, 130, 1500, 192, False), (1, 6, 3, 1500, 1500, 192, True),
+    (1, 6, 1, 448, 448, 24, True), (2, 4, 2, 300, 1600, 24, False),
+    (1, 4, 4, 1500, 1500, 24, False), (1, 12, 2, 77, 300, 24, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HEAD_DIM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_head_dims_24_and_192(cuda_device, shape, dtype):
+    """Both kernels at the head dims nemotron brings, each launch its own
+    kernel's, under the contracts of the other head dims."""
+    b, hq, hk, sq, sk, d, causal = shape
+    q, k, v = _qkv(*shape[:6], dtype, cuda_device, seed=sq * 7 + sk)
+    launches = flash_attention_fwd_kernel.launches
+    wgmma = flash_attention_fwd_kernel.wgmma_launches
+    out = flash_attention_fwd_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_kernel.launches == launches + 1
+    assert flash_attention_fwd_kernel.wgmma_launches == \
+        wgmma + (dtype == torch.bfloat16)
+    _assert_attention_close(out, _ref(q, k, v, causal), dtype)
+
+
 @pytest.mark.cuda
 def test_flash_attention_wrapper_rejects_bad_inputs(cuda_device):
     q, k, v = _qkv(1, 4, 2, 64, 64, 16, torch.float32, cuda_device, seed=1)
@@ -1795,6 +1829,39 @@ def _decided(probs, k, gap):
     return (top[..., :-1] - top[..., 1:]).min(-1).values > gap
 
 
+def _side_inputs(c, b, seed, dev):
+    """The VLM's image features or whisper's frames for a batch of ``b``,
+    bf16 (the input specs' dtype), on ``dev``; empty for the others."""
+    key = {"vlm": "img_embeds", "audio": "enc_embeds"}.get(c.family)
+    if key is None:
+        return {}
+    n = c.n_img_tokens if c.family == "vlm" else c.n_frames
+    e = np.random.default_rng(seed).standard_normal(
+        (b, n, c.d_model)).astype(np.float32)
+    return {key: _card(e, dev).to(torch.bfloat16)}
+
+
+def _live_gates(c, params):
+    """The VLM's cross-attention gates at 0.5 (at their init of 0 the
+    cross blocks add nothing)."""
+    if c.family != "vlm":
+        return params
+    cross = {k: torch.full_like(v, 0.5) if k in ("x_attn_gate", "x_mlp_gate")
+             else v for k, v in params["cross"].items()}
+    return dict(params, cross=cross)
+
+
+def _attention_calls(c):
+    """Full-sequence attention calls of one prefill: every self layer,
+    plus the VLM's cross blocks, plus whisper's encoder layers and its
+    decoder's cross blocks."""
+    if c.family == "vlm":
+        return c.n_layers + c.n_layers // c.cross_attn_every
+    if c.family == "audio":
+        return c.n_enc_layers + 2 * c.n_layers
+    return c.n_layers
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 @pytest.mark.parametrize("bs", [(2, 8), (1, 2048)])
@@ -1803,21 +1870,25 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs,
     c = configs.get(arch, reduced=True)
     m = model_api.build(c)
     toks = np.random.default_rng(bs[1]).integers(0, c.vocab_size, bs)
-    cpu_params = init_params(m.decls, seed=0, device="cpu")
+    cpu_params = _live_gates(c, init_params(m.decls, seed=0, device="cpu"))
     moe = c.family == "moe"
     if moe:       # the card's layers routed as the CPU's run routes them
         ids, seen, force = _routes(monkeypatch)
-    cpu = m.prefill_fn(cpu_params, {"tokens": torch.from_numpy(toks)})
+    side = _side_inputs(c, bs[0], bs[1] + 1, "cpu")
+    cpu = m.prefill_fn(cpu_params, {"tokens": torch.from_numpy(toks), **side})
     if moe:
         force()
-    params = init_params(m.decls, seed=0, device=cuda_device)
+    params = _live_gates(c, init_params(m.decls, seed=0, device=cuda_device))
+    side = {k: v.to(cuda_device) for k, v in side.items()}
     launches = flash_attention_fwd_kernel.launches
     wgmma = flash_attention_fwd_kernel.wgmma_launches
-    card = m.prefill_fn(params, {"tokens": _card(toks, cuda_device)})
+    card = m.prefill_fn(params, {"tokens": _card(toks, cuda_device), **side})
     torch.cuda.synchronize()
-    # every layer through the wgmma kernel, none through the float32 one
-    assert flash_attention_fwd_kernel.wgmma_launches == wgmma + c.n_layers
-    assert flash_attention_fwd_kernel.launches == launches + c.n_layers
+    # every attention call through the wgmma kernel, none through the
+    # float32 one
+    calls = _attention_calls(c)
+    assert flash_attention_fwd_kernel.wgmma_launches == wgmma + calls
+    assert flash_attention_fwd_kernel.launches == launches + calls
     if moe:
         assert len(seen) == len(ids)
         for own, taken, probs in seen:
@@ -1828,6 +1899,42 @@ def test_prefill_on_the_card_matches_the_cpu(cuda_device, arch, bs,
     diff = np.abs(a - b).max(axis=-1)
     rel = 2.0 ** -4 if moe else 2.0 ** -5
     assert np.all(diff <= rel * np.abs(a).max(axis=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["nemotron-4-340b", "llama-3.2-vision-11b",
+                                  "whisper-large-v3"])
+def test_decode_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The three families of the last slice decode on the card as on the
+    CPU: 8 steps over (2, 8) tokens from the same weights and features,
+    each step's logits within 2^-5 of the row's largest magnitude (the
+    prefill's bound; nemotron's int8 cache rounds the same bf16 K/V on
+    both devices), the cross-attention K/V within 2^-6 of their largest
+    magnitude plus 2^-6 relative (tests/test_torch_models.py's
+    CACHE_REL)."""
+    c = configs.get(arch, reduced=True)
+    m = model_api.build(c)
+    toks = np.random.default_rng(11).integers(0, c.vocab_size, (2, 8))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = _live_gates(c, init_params(m.decls, seed=0, device=dev))
+        st = m.init_decode_state(params, 2, 16,
+                                 **_side_inputs(c, 2, 12, dev))
+        steps = []
+        for t in range(8):
+            logits, st = m.decode_fn(params, _card(toks[:, t], dev), st)
+            steps.append(logits.float().cpu().numpy())
+        runs.append((steps, st))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert np.isfinite(b).all()
+        assert np.all(np.abs(a - b).max(-1) <= 2.0 ** -5 * np.abs(a).max(-1))
+    host, card = runs[0][1], runs[1][1]
+    if c.family in ("vlm", "audio"):
+        for a, b in ((host.cross_k, card.cross_k),
+                     (host.cross_v, card.cross_v)):
+            a, b = a.float().numpy(), b.float().cpu().numpy()
+            assert np.all(np.abs(a - b) <= 2.0 ** -6 * np.abs(a).max()
+                          + 2.0 ** -6 * np.abs(a))
 
 
 @pytest.mark.cuda

@@ -26,7 +26,8 @@ within the card tests' bound.  Three terms (P's 24 bits) keep to it; two
 The float32 kernel (``csrc/flash_attention_fwd.cu``) is emulated the same
 way (``tf32_recipe``: q scaled first, every operand split into hi and lo
 TF32 values rounded as ``cvt.rna.tf32.f32`` rounds, each product as three
-TF32 products small terms first, the online softmax over 32-key tiles,
+TF32 products small terms first, the online softmax over 32-key tiles
+(16 at D = 192),
 each tile's P.V added to O * alpha in f32) and held to the JAX package's
 float32 ``attention_ref`` within the card's rtol = atol = 1e-5 at the
 card tests' shapes and seeds, 512 queries over 4096 keys, and scores up
@@ -61,6 +62,20 @@ CARD_SHAPES = [
     (1, 4, 2, 100, 1000, 128, True), (1, 4, 1, 1000, 100, 128, False),
     (2, 4, 4, 100, 100, 32, True), (1, 8, 2, 300, 77, 64, True),
     (1, 2, 1, 77, 300, 16, False), (1, 4, 2, 300, 300, 128, True)]
+# tests/test_torch_cuda.py's HEAD_DIM_SHAPES: nemotron's head dims 192 and
+# 24, GQA groups 1, 2 and 6, whisper's and the VLM's lengths
+HEAD_DIM_SHAPES = [
+    (1, 6, 1, 448, 448, 192, True), (1, 12, 2, 300, 1600, 192, False),
+    (2, 4, 4, 130, 1500, 192, False), (1, 6, 3, 1500, 1500, 192, True),
+    (1, 6, 1, 448, 448, 24, True), (2, 4, 2, 300, 1600, 24, False),
+    (1, 4, 4, 1500, 1500, 24, False), (1, 12, 2, 77, 300, 24, True)]
+# the kernels' arithmetic is emulated (below) at those head dims, groups
+# and masks with shorter lengths, ragged edges kept: the CPU emulation of
+# the full lengths takes minutes
+RECIPE_HEAD_DIM_SHAPES = [
+    (1, 6, 1, 200, 200, 192, True), (1, 4, 2, 100, 448, 192, False),
+    (2, 4, 4, 130, 150, 192, True), (1, 6, 1, 448, 448, 24, True),
+    (2, 4, 2, 100, 1600, 24, False), (1, 12, 2, 77, 300, 24, True)]
 
 
 def _inputs(b, hq, hk, sq, sk, d, seed):
@@ -96,7 +111,7 @@ def assert_matches(j_out, t_out, dtype):
         assert np.all(np.abs(a - b) <= bound)
 
 
-@pytest.mark.parametrize("shape", SHAPES + RAGGED)
+@pytest.mark.parametrize("shape", SHAPES + RAGGED + HEAD_DIM_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_ref_matches_jax(shape, dtype):
     b, hq, hk, sq, sk, d, causal = shape
@@ -122,15 +137,16 @@ def test_entry_point_on_cpu_is_the_plain_version(shape, dtype):
 
 
 def test_wrapper_rejects_shapes_the_kernel_lacks():
-    q = torch.zeros(1, 4, 8, 24)
-    with pytest.raises(ValueError, match="head dim 24"):
+    q = torch.zeros(1, 4, 8, 40)
+    with pytest.raises(ValueError, match="head dim 40"):
         flash_attention_fwd_kernel(q, q[:, :2], q[:, :2])
     q = torch.zeros(1, 4, 8, 16)
     with pytest.raises(ValueError, match="multiple"):
         flash_attention_fwd_kernel(q, q[:, :3], q[:, :3])
     with pytest.raises(ValueError, match="do not match"):
         flash_attention_fwd_kernel(q, q[:, :2], q[:, :2, :4])
-    assert HEAD_DIMS == (16, 32, 64, 128)
+    # every head dim of the registered configs, nemotron's 192 and 24 too
+    assert HEAD_DIMS == (16, 24, 32, 64, 128, 192)
 
 
 def test_plain_version_matches_model_path():
@@ -199,7 +215,7 @@ def _beyond_bound(shape, terms):
     return float((np.abs(out - j_out) / bound).max())
 
 
-@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("shape", CARD_SHAPES + RECIPE_HEAD_DIM_SHAPES)
 def test_wgmma_recipe_matches_jax(shape):
     assert _beyond_bound(shape, terms=3) <= 1.0
 
@@ -266,7 +282,7 @@ def tf32_recipe(q, k, v, causal, terms=3, block_k=32):
 # the float32 card tests' cases beyond CARD_SHAPES, (shape, q scale): 512
 # queries over 4096 keys (non-causal: causal masking is aligned top left),
 # and scores up to |s| of about 16 (q times 3)
-TF32_CASES = ([(shape, 1.0) for shape in CARD_SHAPES]
+TF32_CASES = ([(shape, 1.0) for shape in CARD_SHAPES + RECIPE_HEAD_DIM_SHAPES]
               + [((1, 4, 2, 512, 4096, 128, False), 1.0),
                  ((1, 8, 4, 512, 512, 128, True), 3.0)])
 
@@ -278,7 +294,9 @@ def _tf32_vs(shape, q_scale, terms):
     arrs = _inputs(b, hq, hk, sq, sk, d, seed=sq * 7 + sk)
     arrs[0] = arrs[0] * np.float32(q_scale)
     j_out = np.asarray(j_attention_ref(*_jax(arrs, "float32"), causal=causal))
-    out = tf32_recipe(*_torch(arrs, "float32"), causal, terms=terms).numpy()
+    # the kernel's key tile: 32 keys, 16 at D = 192 (its own geometry)
+    out = tf32_recipe(*_torch(arrs, "float32"), causal, terms=terms,
+                      block_k=16 if d > 128 else 32).numpy()
     return out, j_out
 
 

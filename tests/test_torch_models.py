@@ -1,7 +1,12 @@
-"""The port's dense language model ≡ the JAX package's, on the CPU.
+"""The port's language models ≡ the JAX package's, on the CPU.
 
 The same numpy inputs (made from a seed) and the same weights go through
-both packages at the configs' REDUCED sizes (2 layers, d_model 64).
+both packages at the configs' REDUCED sizes (2 to 4 layers, d_model 64 to
+96): every registered config, the dense, MoE, VLM (llama-3.2-vision) and
+audio (whisper) families.  The VLM and whisper take their stub features
+in bf16, the input specs' dtype (``_side_inputs``); the VLM's tanh gates
+are set to 0.5 in both packages (``_live_gates``), since at their init of
+0 its cross-attention blocks add nothing.
 
 * ``init_params`` draws the JAX package's weights bit for bit, leaf by leaf
   in the same (sorted-key) order; ``params_from_numpy`` carries a JAX tree
@@ -179,6 +184,34 @@ def _cache_close(j_cache, t_cache):
         assert np.all(np.abs(a - b) <= bound)
 
 
+def _side_inputs(c, b, seed):
+    """The VLM's image features or whisper's frames for a batch of ``b``,
+    bf16 in both packages: (JAX kwargs, port kwargs), empty for the
+    other families."""
+    key = {"vlm": "img_embeds", "audio": "enc_embeds"}.get(c.family)
+    if key is None:
+        return {}, {}
+    n = c.n_img_tokens if c.family == "vlm" else c.n_frames
+    e = np.random.default_rng(seed).standard_normal(
+        (b, n, c.d_model)).astype(np.float32)
+    return ({key: jnp.asarray(e, jnp.bfloat16)},
+            {key: torch.from_numpy(e).to(torch.bfloat16)})
+
+
+def _live_gates(c, params, value=0.5):
+    """The VLM's parameter tree (either package's) with its
+    cross-attention gates at ``value`` (they start at 0, where the cross
+    blocks add nothing); the tree as it is for the other families."""
+    if c.family != "vlm":
+        return params
+    gates = ("x_attn_gate", "x_mlp_gate")
+    cross = params["cross"]
+    full = torch.full_like if torch.is_tensor(cross[gates[0]]) \
+        else jnp.full_like
+    return dict(params, cross={k: full(v, value) if k in gates else v
+                               for k, v in cross.items()})
+
+
 def _pair(arr, dtype):
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
@@ -279,11 +312,10 @@ def test_cast_compute_keeps_1d_leaves_f32():
 
 
 def test_unported_parts_raise():
-    """The families not ported yet raise, naming their ROADMAP item;
-    ``loss_fn`` is ported."""
+    """The families not ported yet (RWKV6, hybrid SSM) raise, naming
+    their ROADMAP item; ``loss_fn`` is ported."""
     for arch, item in (("rwkv6-1.6b", "Queue 1 #4"),
-                       ("llama-3.2-vision-11b", "Queue 1 #4"),
-                       ("nemotron-4-340b", "Queue 1 #3")):
+                       ("zamba2-1.2b", "Queue 1 #4")):
         with pytest.raises(NotImplementedError, match=item):
             t_api.build(ArchConfig.from_dict(
                 j_configs.get(arch, reduced=True).to_dict()))
@@ -384,10 +416,12 @@ def test_attention_paths_match(dtype):
 @pytest.mark.parametrize("bs", [(2, 8), (1, 2048)])
 def test_prefill_logits_match(arch, bs, models, monkeypatch):
     jc, tc, jm, tm, jp, tp = models[arch]
+    jp, tp = _live_gates(tc, jp), _live_gates(tc, tp)
     toks = np.random.default_rng(bs[1]).integers(0, jc.vocab_size, bs)
+    jside, tside = _side_inputs(tc, bs[0], bs[1] + 1)
     jcalls, seen = _route_like_jax(tc, monkeypatch, tp)
-    a = jm.prefill_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
-    b = tm.prefill_fn(tp, {"tokens": torch.from_numpy(toks)})
+    a = jm.prefill_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32), **jside})
+    b = tm.prefill_fn(tp, {"tokens": torch.from_numpy(toks), **tside})
     assert b.dtype == torch.bfloat16
     assert len(seen) == len(jcalls)
     assert_decided_alike(seen)
@@ -397,13 +431,24 @@ def test_prefill_logits_match(arch, bs, models, monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_logits_and_cache_match(arch, models, monkeypatch):
     jc, tc, jm, tm, jp, tp = models[arch]
+    jp, tp = _live_gates(tc, jp), _live_gates(tc, tp)
     B, S = 2, 8
     toks = np.random.default_rng(11).integers(0, jc.vocab_size, (B, S))
+    jside, tside = _side_inputs(tc, B, 12)
     jcalls, seen = _route_like_jax(tc, monkeypatch, tp, per_step=True)
     if tc.kv_cache_dtype == "int8":
         monkeypatch.setattr(j_tr, "_decode_self_attn",
                             _jax_decode_self_attn_bf16)
-    js, ts = jm.init_decode_state(jp, B, 16), tm.init_decode_state(tp, B, 16)
+    js = jm.init_decode_state(jp, B, 16, **jside)
+    ts = tm.init_decode_state(tp, B, 16, **tside)
+    if tside:       # the cross-attention K/V, projected once
+        for a, b in ((js.cross_k, ts.cross_k), (js.cross_v, ts.cross_v)):
+            assert b.dtype == torch.bfloat16 and b.shape == a.shape
+            a, b = _np(a), _np(b)
+            assert np.all(np.abs(a - b) <= CACHE_REL * np.abs(a).max()
+                          + CACHE_REL * np.abs(a))
+    else:
+        assert ts.cross_k is None and ts.cross_v is None
     for t in range(S):
         jl, js = jm.decode_fn(jp, jnp.asarray(toks[:, t], jnp.int32), js)
         tl, ts = tm.decode_fn(tp, torch.from_numpy(toks[:, t]), ts)
@@ -425,25 +470,27 @@ def test_decode_matches_prefill(arch, models, monkeypatch):
     them wherever decided)."""
     jc, tc, _, tm, _, _ = models[arch]
     params = t_common.init_params(tm.decls, seed=1, device="cpu")
+    params = _live_gates(tc, params)
     B, S = 2, 8
     toks = torch.from_numpy(
         np.random.default_rng(5).integers(0, tc.vocab_size, (B, S)))
+    side = _side_inputs(tc, B, 6)[1]
     rel = LOGIT_REL
     if tc.family == "moe":
         routers = moe_routers(params)
         recorded = force_port_routing(monkeypatch, routers, None)
         prefill = t_api.build(tc.replace(
             capacity_factor=tc.n_experts / tc.top_k)).prefill_fn
-        logits = prefill(params, {"tokens": toks})
+        logits = prefill(params, {"tokens": toks, **side})
         ids = [own.reshape(B, S, -1) for _, own, _, _ in recorded]
         seen = force_port_routing(monkeypatch, routers,
                                   lambda layer, n: ids[layer][:, n])
         rel = MOE_LOGIT_REL
     else:
-        logits = tm.prefill_fn(params, {"tokens": toks})
+        logits = tm.prefill_fn(params, {"tokens": toks, **side})
     if tc.kv_cache_dtype == "int8":
         rel = max(rel, INT8_LOGIT_REL)
-    st = tm.init_decode_state(params, B, 16)
+    st = tm.init_decode_state(params, B, 16, **side)
     for t in range(S):
         dl, st = tm.decode_fn(params, toks[:, t], st)
     np.testing.assert_array_equal(torch.argmax(logits[:, -1], -1).numpy(),
