@@ -2,10 +2,8 @@
 resolution for launchers and tests.
 
 Each module defines CONFIG (the exact published dims) and REDUCED (a same-
-family small config for CPU tests).  The port holds the dense, MoE, VLM
-and audio configs, in the JAX registry's order; the JAX package's RWKV6
-and hybrid SSM architectures join when their families are ported (ROADMAP
-Queue 1 #4).
+family small config for CPU tests).  The port holds every config of the
+JAX registry, in its order.
 """
 from __future__ import annotations
 
@@ -23,6 +21,8 @@ _MODULES = {
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "zamba2-1.2b": "zamba2_1_2b",
     "whisper-large-v3": "whisper_large_v3",
 }
 

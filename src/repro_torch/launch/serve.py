@@ -9,9 +9,15 @@ of ``repro.launch.serve``).
   * a finished slot (EOS/max_new) is recycled for the next queued request;
   * greedy sampling (argmax, first index on ties) for determinism.
 
-The engine owns its batch state, so a prefilled slot is written into it
-in place.  It runs on the device its parameters lie on, which must be the
-one it was asked for (the card unless the caller names another).
+Every family runs: the transformer families' KV caches (a per-slot
+position vector), RWKV6's recurrent state and Zamba2's (conv buffers, SSM
+states and the shared block's caches).  A prefilled slot writes every leaf
+of the one-slot state into the batch state by the JAX package's rules
+(``_slot_write``); a scalar position (Zamba2's, and RWKV6's unused one) is
+replaced by the one-slot state's, the JAX package's "shared timeline".
+The engine owns its batch state, so it is written in place.  It runs on
+the device its parameters lie on, which must be the one it was asked for
+(the card unless the caller names another).
 """
 from __future__ import annotations
 
@@ -26,7 +32,6 @@ from repro_torch.graph.structure import resolve_device
 from repro_torch.models import api as model_api
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.common import tree_leaves
-from repro_torch.models.transformer import DecodeState
 
 
 @dataclasses.dataclass
@@ -55,8 +60,7 @@ class ServeEngine:
         self.B = batch_slots
         self.max_seq = max_seq
 
-    def _prefill_into(self, state: DecodeState, slot: int,
-                      prompt: Sequence[int]):
+    def _prefill_into(self, state, slot: int, prompt: Sequence[int]):
         """Single-sequence prefill via repeated decode steps on a one-slot
         state, then written into the batch state at ``slot``."""
         one = self.model.init_decode_state(self.params, 1, self.max_seq)
@@ -65,9 +69,8 @@ class ServeEngine:
             tok = torch.full((1,), int(t), dtype=torch.int64,
                              device=self.device)
             last_logits, one = self.model.decode_fn(self.params, tok, one)
-        for batch_t, one_t in zip(state.cache, one.cache):
-            if batch_t is not None:       # the int8 cache's scales
-                _slot_write(batch_t, one_t, slot)
+        for batch_t, one_t in zip(tree_leaves(state), tree_leaves(one)):
+            _slot_write(batch_t, one_t, slot)
         return state, last_logits
 
     def run(self, requests: List[Request]) -> List[Request]:
@@ -79,8 +82,9 @@ class ServeEngine:
         cur_tok = np.zeros((self.B,), np.int64)
         t_start = [0.0] * self.B
         done: List[Request] = []
-        # the KV cache carries a PER-SLOT position vector, so slots hold
-        # sequences of different lengths and recycle independently
+        # a KV cache carries a PER-SLOT position vector, so slots hold
+        # sequences of different lengths and recycle independently (the
+        # recurrent states are position-free by construction)
         while queue or any(a is not None for a in active):
             for i in range(self.B):
                 if active[i] is None and queue:
@@ -114,9 +118,14 @@ class ServeEngine:
 def _slot_write(batch_t: torch.Tensor, one_t: torch.Tensor, slot: int
                 ) -> None:
     """Write a one-slot state tensor into batch position ``slot``, in
-    place: (L, 1, ...) cache stacks (K, V and the int8 cache's scales) at
-    axis 1, the (1,) position vector at its one axis."""
-    if batch_t.dim() == 1:
+    place, by the JAX package's rules: a scalar (a shared position) takes
+    the one-slot value; a (1,) position vector goes in at ``slot``;
+    (L, 1, ...) stacks (caches, their scales, recurrent states, conv
+    buffers) go in at axis 1; anything else is left as it is."""
+    if batch_t.dim() == 0:
+        batch_t.copy_(one_t)
+    elif batch_t.dim() == 1 and one_t.shape[0] == 1:
         batch_t[slot] = one_t[0]
-    else:
+    elif (batch_t.dim() >= 2 and one_t.shape[0] == batch_t.shape[0]
+          and one_t.shape[1] == 1):
         batch_t[:, slot:slot + 1] = one_t

@@ -1,2 +1,3 @@
-"""Language-model substrate (port of ``repro.models``): the dense decoder
-family's prefill and KV-cache decode, on the card unless told otherwise."""
+"""Language-model substrate (port of ``repro.models``): every family of the
+JAX registry (transformer, RWKV6, Zamba2 hybrid), on the card unless told
+otherwise."""

@@ -15,8 +15,7 @@ fields are optional and ignored by other families.  Families:
             embeddings), decoder is a standard causal transformer.
 
 The config covers every family so that ``from_dict(jax_cfg.to_dict())``
-round-trips; the port's ``models.api.build`` runs the dense, MoE, VLM and
-audio families (not yet ``ssm`` and ``hybrid``).
+round-trips; the port's ``models.api.build`` runs all six.
 """
 from __future__ import annotations
 

@@ -84,16 +84,13 @@ from repro_torch.models.common import (ParamDecl, apply_rope, cast_compute,
 P = ParamDecl
 
 
-def _check_ported(c: ArchConfig) -> None:
-    """Raise for what the port does not run: the attention-free RWKV6
-    (``ssm``) and hybrid Mamba2 (``hybrid``) families.  ``build_decls``
-    calls it, so ``api.build`` refuses them."""
-    if c.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {c.family!r} is not ported yet (ROADMAP Queue 1 #4: "
-            f"RWKV6 and hybrid SSM)")
+def _check_family(c: ArchConfig) -> None:
+    """Raise for a family this module does not build: the RWKV6 (``ssm``)
+    and hybrid (``hybrid``) families are ``models/rwkv6.py`` and
+    ``models/ssm.py``; anything else is unknown.  ``build_decls`` calls
+    it."""
     if c.family not in ("dense", "moe", "vlm", "audio"):
-        raise ValueError(f"unknown family {c.family!r}")
+        raise ValueError(f"family {c.family!r} is not a transformer family")
 
 
 # --------------------------------------------------------------- declarations
@@ -190,7 +187,7 @@ def _cross_decls(c: ArchConfig, L: int) -> Dict[str, P]:
 def build_decls(c: ArchConfig) -> Dict[str, Any]:
     """Full parameter declaration tree of the dense, MoE, VLM and audio
     families."""
-    _check_ported(c)
+    _check_family(c)
     d, v = c.d_model, c.vocab_size
     out: Dict[str, Any] = {
         "embed": P((v, d), ("vocab", "embed"), init="embed"),

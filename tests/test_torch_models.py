@@ -1,10 +1,10 @@
 """The port's language models ≡ the JAX package's, on the CPU.
 
 The same numpy inputs (made from a seed) and the same weights go through
-both packages at the configs' REDUCED sizes (2 to 4 layers, d_model 64 to
-96): every registered config, the dense, MoE, VLM (llama-3.2-vision) and
-audio (whisper) families.  The VLM and whisper take their stub features
-in bf16, the input specs' dtype (``_side_inputs``); the VLM's tanh gates
+both packages at the configs' REDUCED sizes (2 to 8 layers, d_model 64 to
+96): every registered config, the dense, MoE, VLM (llama-3.2-vision),
+audio (whisper), RWKV6 and hybrid (zamba2) families.  The VLM and whisper
+take their stub features in bf16, the input specs' dtype (``_side_inputs``); the VLM's tanh gates
 are set to 0.5 in both packages (``_live_gates``), since at their init of
 0 its cross-attention blocks add nothing.
 
@@ -42,6 +42,18 @@ are set to 0.5 in both packages (``_live_gates``), since at their init of
   decode ≡ prefill check runs at ``capacity_factor = n_experts / top_k``,
   whose capacity is the token count: a prefill at the configs' 1.25 drops
   assignments that a one-token decode step never drops.
+* The recurrent families (rwkv6, zamba2) decode from their recurrent
+  states, compared leaf by leaf after every step (``_state_close``).
+  Their logits hold ``RECURRENT_Q99_REL`` (2^-4) at the 99th-percentile
+  row and ``RECURRENT_LOGIT_REL`` (2^-2) at every row.  With random
+  weights both are ill-conditioned: rwkv6's per-head group norm divides
+  a head's WKV output by that head's own spread, and where the output is
+  a cancelling sum the bf16 ulps of its inputs become a large share of
+  it.  A 2^-9 relative perturbation of the embedding alone moves the
+  port's own logits at (1, 2048) by up to 0.44 (rwkv6) and 0.14 (zamba2)
+  of the row scale, 99th percentile 0.12 and 0.07; the port against the
+  JAX package: at most 0.175 and 0.038, 99th percentile 0.039 and 0.028
+  (measured on the CPU).
 * llama4's int8 KV cache: the JAX package's decode casts the new K/V to
   the cache dtype before quantizing, which truncates them to integers
   (ROADMAP Queue 3); the port quantizes the bf16 K/V.  The comparison
@@ -90,6 +102,8 @@ CACHE_REL = 2.0 ** -6         # four bf16 ulps, relative
 F32_TOL = 1e-5
 MOE_LOGIT_REL = 2.0 ** -4     # MoE configs routed alike (docstring)
 INT8_LOGIT_REL = 2.0 ** -4    # int8-cache decode against prefill
+RECURRENT_LOGIT_REL = 2.0 ** -2  # rwkv6, zamba2: every row (docstring)
+RECURRENT_Q99_REL = 2.0 ** -4    # rwkv6, zamba2: the 99th-percentile row
 
 
 def bf16_ulp(x: np.ndarray) -> np.ndarray:
@@ -117,19 +131,27 @@ def _close(j_out, t_out, dtype, rounded_once=False):
                                    rtol=BF16_REL)
 
 
-def _logits_close(j_logits, t_logits, rel=LOGIT_REL):
-    """Within ``rel`` of each row's largest |logit|; returns the per-row
+def _logits_close(j_logits, t_logits, rel=LOGIT_REL, q99=None):
+    """Within ``rel`` of each row's largest |logit|, and with ``q99`` the
+    99th percentile of the rows' shares within it; returns the per-row
     largest difference."""
     a, b = _np(j_logits), _np(t_logits)
     assert a.shape == b.shape and np.isfinite(b).all()
     diff = np.abs(a - b).max(axis=-1)
     scale = np.abs(a).max(axis=-1)
     assert np.all(diff <= rel * scale), (diff / scale).max()
+    if q99 is not None:
+        assert np.quantile(diff / scale, 0.99) <= q99
     return diff
 
 
 def _logit_rel(c) -> float:
-    return MOE_LOGIT_REL if c.family == "moe" else LOGIT_REL
+    return {"moe": MOE_LOGIT_REL, "hybrid": RECURRENT_LOGIT_REL,
+            "ssm": RECURRENT_LOGIT_REL}.get(c.family, LOGIT_REL)
+
+
+def _logit_q99(c):
+    return RECURRENT_Q99_REL if c.family in ("ssm", "hybrid") else None
 
 
 def _route_like_jax(c, monkeypatch, tp, per_step=False):
@@ -312,13 +334,20 @@ def test_cast_compute_keeps_1d_leaves_f32():
 
 
 def test_unported_parts_raise():
-    """The families not ported yet (RWKV6, hybrid SSM) raise, naming
-    their ROADMAP item; ``loss_fn`` is ported."""
-    for arch, item in (("rwkv6-1.6b", "Queue 1 #4"),
-                       ("zamba2-1.2b", "Queue 1 #4")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_api.build(ArchConfig.from_dict(
-                j_configs.get(arch, reduced=True).to_dict()))
+    """Every family of the JAX registry builds (the RWKV6 and hybrid SSM
+    families too); an unknown family raises ``ValueError``, and so does
+    the transformer module asked for another family's declarations;
+    ``loss_fn`` is ported."""
+    from repro_torch.models import transformer as t_tr
+
+    for arch in ("rwkv6-1.6b", "zamba2-1.2b"):
+        c = ArchConfig.from_dict(j_configs.get(arch, reduced=True).to_dict())
+        assert t_api.build(c).decls
+        with pytest.raises(ValueError, match="not a transformer family"):
+            t_tr.build_decls(c)
+    with pytest.raises(ValueError, match="unknown family"):
+        t_api.build(t_configs.get("qwen3-1.7b", reduced=True).replace(
+            family="mlp"))
     c = t_configs.get("qwen3-1.7b", reduced=True)
     m = t_api.build(c)
     # loss_fn is ported: a finite (loss, {"ce", "aux"})
@@ -330,13 +359,33 @@ def test_unported_parts_raise():
     assert set(metrics) == {"ce", "aux"}
 
 
+def _spec_leaves(tree) -> list:
+    """The ``TensorSpec`` leaves of a state of specs, in field order."""
+    if isinstance(tree, t_api.TensorSpec):
+        return [tree]
+    if tree is None:
+        return []
+    return [x for field in tree for x in _spec_leaves(field)]
+
+
 def test_decode_state_specs_match(models):
-    jc, _, jm, tm, _, _ = models["qwen3-1.7b"]
+    """Every leaf of the decode state's specs has the JAX package's shape,
+    and a real state (``init_decode_state``) the spec's shape and dtype:
+    the KV cache (per-slot positions), RWKV6's and Zamba2's recurrent
+    states (one scalar position)."""
     cell = SHAPE_CELLS[2]
-    j = jm.decode_state_specs(cell).cache
-    t = tm.decode_state_specs(cell).cache
-    assert t.k.shape == j.k.shape and t.pos.shape == j.pos.shape
-    assert t.k.dtype == torch.bfloat16 and t.pos.dtype == torch.int32
+    small = cell.replace(seq_len=16, global_batch=2)
+    for arch in ("qwen3-1.7b", "rwkv6-1.6b", "zamba2-1.2b"):
+        _, _, jm, tm, _, tp = models[arch]
+        j = jax.tree.leaves(jm.decode_state_specs(cell))
+        t = _spec_leaves(tm.decode_state_specs(cell))
+        assert [tuple(x.shape) for x in t] == [tuple(x.shape) for x in j]
+        for a, b in zip(j, t):
+            assert str(b.dtype).split(".")[-1] == str(a.dtype)
+        real = t_common.tree_leaves(tm.init_decode_state(tp, 2, 16))
+        spec = _spec_leaves(tm.decode_state_specs(small))
+        assert [(tuple(x.shape), x.dtype) for x in real] == [
+            (tuple(x.shape), x.dtype) for x in spec]
 
 
 # ------------------------------------------------------------ layers
@@ -425,11 +474,35 @@ def test_prefill_logits_match(arch, bs, models, monkeypatch):
     assert b.dtype == torch.bfloat16
     assert len(seen) == len(jcalls)
     assert_decided_alike(seen)
-    _logits_close(a, b, _logit_rel(tc))
+    _logits_close(a, b, _logit_rel(tc), _logit_q99(tc))
+
+
+def _state_close(j_state, t_state):
+    """Every leaf of two decode states (the RWKV6 and Zamba2 recurrent
+    states: time-mix and channel-mix carries, WKV and SSM states, conv
+    buffers, the shared block's caches): integers equal, floats within
+    CACHE_REL of the leaf's largest magnitude plus CACHE_REL relative
+    (the bf16 carries hold one rounding a step, the float32 states sum
+    the bf16 projections' ulps)."""
+    j_leaves = jax.tree.leaves(j_state)
+    t_leaves = t_common.tree_leaves(t_state)
+    assert len(j_leaves) == len(t_leaves)
+    for a, t in zip(j_leaves, t_leaves):
+        assert tuple(t.shape) == tuple(a.shape)
+        assert str(t.dtype).split(".")[-1] == str(a.dtype)
+        a, b = _np(a), _np(t)
+        if not t.is_floating_point():
+            np.testing.assert_array_equal(b, a)
+        bound = CACHE_REL * np.abs(a).max() + CACHE_REL * np.abs(a)
+        assert np.all(np.abs(a - b) <= bound)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_logits_and_cache_match(arch, models, monkeypatch):
+    """Eight decode steps: logits within the family's tolerance, and the
+    state after every step: a KV cache (``_cache_close``, positions
+    equal) or the recurrent families' state (``_state_close``, the scalar
+    position equal)."""
     jc, tc, jm, tm, jp, tp = models[arch]
     jp, tp = _live_gates(tc, jp), _live_gates(tc, tp)
     B, S = 2, 8
@@ -441,24 +514,32 @@ def test_decode_logits_and_cache_match(arch, models, monkeypatch):
                             _jax_decode_self_attn_bf16)
     js = jm.init_decode_state(jp, B, 16, **jside)
     ts = tm.init_decode_state(tp, B, 16, **tside)
+    recurrent = tc.family in ("ssm", "hybrid")
     if tside:       # the cross-attention K/V, projected once
         for a, b in ((js.cross_k, ts.cross_k), (js.cross_v, ts.cross_v)):
             assert b.dtype == torch.bfloat16 and b.shape == a.shape
             a, b = _np(a), _np(b)
             assert np.all(np.abs(a - b) <= CACHE_REL * np.abs(a).max()
                           + CACHE_REL * np.abs(a))
-    else:
+    elif not recurrent:
         assert ts.cross_k is None and ts.cross_v is None
     for t in range(S):
         jl, js = jm.decode_fn(jp, jnp.asarray(toks[:, t], jnp.int32), js)
         tl, ts = tm.decode_fn(tp, torch.from_numpy(toks[:, t]), ts)
-        _logits_close(jl, tl, _logit_rel(tc))
+        _logits_close(jl, tl, _logit_rel(tc), _logit_q99(tc))
+        if recurrent:
+            assert int(ts.pos) == int(js.pos) == t + 1
+            _state_close(js, ts)
+            continue
         np.testing.assert_array_equal(ts.cache.pos.numpy(),
                                       np.asarray(js.cache.pos))
         _cache_close(js.cache, ts.cache)
     assert len(seen) == len(jcalls)
     assert_decided_alike(seen)
-    assert not ts.cache.k[:, :, :, S:].any()
+    if tc.family == "hybrid":
+        assert not ts.attn_k[:, :, :, S:].any()
+    elif not recurrent:
+        assert not ts.cache.k[:, :, :, S:].any()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -488,6 +569,7 @@ def test_decode_matches_prefill(arch, models, monkeypatch):
         rel = MOE_LOGIT_REL
     else:
         logits = tm.prefill_fn(params, {"tokens": toks, **side})
+        rel = _logit_rel(tc)
     if tc.kv_cache_dtype == "int8":
         rel = max(rel, INT8_LOGIT_REL)
     st = tm.init_decode_state(params, B, 16, **side)

@@ -74,7 +74,10 @@ def test_every_module_is_visited():
               "repro_torch.launch.ranks", "repro_torch.configs.phi3_medium_14b",
               "repro_torch.utils.tree", "repro_torch.utils.prng",
               "repro_torch.train.optim", "repro_torch.train.data",
-              "repro_torch.launch.train_step", "repro_torch.launch.train"):
+              "repro_torch.launch.train_step", "repro_torch.launch.train",
+              "repro_torch.models.rwkv6", "repro_torch.models.ssm",
+              "repro_torch.configs.rwkv6_1_6b",
+              "repro_torch.configs.zamba2_1_2b"):
         assert m in mods
 
 
