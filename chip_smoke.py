@@ -198,8 +198,9 @@ Phases, each failing loudly (exit code 1, no result line):
    temperature and power draw are printed before and after this phase.
 5. LM: ``qwen3-1.7b`` at full width and depth (28 layers, d_model 2048,
    16 query heads over 8 KV heads repeated to 16, head dim 128, vocab
-   151 936), its f32 master weights drawn by ``init_params(seed=0)`` on
-   the card (parameter count, init time, peak memory logged).
+   151 936), its f32 master weights drawn on the card from a seeded CUDA
+   generator with ``init_params``' standard deviations (as 5m draws them;
+   parameter count, init time, peak memory logged).
    ``prefill_fn`` on (2, 4096) tokens drawn from the seed — 4096 is past
    the JAX package's 1024-key chunk, so the reference there takes its
    chunked path; ``prefill_32k`` (32 x 32 768) is cut to this for the
@@ -263,6 +264,35 @@ Phases, each failing loudly (exit code 1, no result line):
    for bit.  The ``kernels`` rows of the flash kernels carry the three
    steps' launches as ``train_launches``.
 
+5p. Data- and model-parallel training (``[par]`` lines), on phase 5t's
+   qwen3-1.7b float32 weights at full width, their first 7 of 28 layers
+   (at 28 a mesh step took 35-52 s a rank on the H100 80GB HBM3 at
+   700 W, at 14 22-32 s; the cut is logged), saved once
+   with ``train/checkpoint.save``.  The unsharded ``make_train_step``
+   takes 2 steps on
+   ``ShapeCell("train_par", "train", 1024, 8)`` (AdamW, ``grad_accum`` 4),
+   the gradients its step 0 hands the optimizer and its parameters after
+   step 1 saved too; its weights are then freed.
+   Four gloo ranks spawned on cuda:0 (``launch.ranks.spawn_ranks``; NCCL
+   refuses two ranks on a card) form a (2, 2) ``make_host_mesh``: each
+   restores its blocks of the checkpoint (``param_specs``) and takes the
+   same 2 mesh steps, each data rank one row of each microbatch of 2, the
+   heads, FFN columns and vocabulary split over ``model``.  Per rank and
+   step, with the flash counters and the mesh's traffic counters set to 0
+   just before the step and read just after: exactly 2 x 7 x 4 = 56
+   wgmma launches and attention calls, every one at 8 query and 8 KV
+   heads (16 and 16 split in two), none of the float32 kernel; the loss
+   within 1e-3 and the grad norm within 2^-8 relative of the unsharded
+   step's; every gradient block step 0 hands the optimizer within
+   TRAIN_GRAD_REL (2^-5, ``tests/test_torch_cuda.py``'s) of the leaf's
+   largest magnitude of the unsharded step's; every rank's loss equal.
+   The parameters after step 1 are logged against the unsharded step's
+   in lr (within 2 lr whatever the gradients: AdamW's first update is at
+   most 1 in magnitude).  Step s, peak
+   memory and the bytes each rank received in gathers and in sums are
+   logged.  The wgmma row of the ``kernels`` line carries the ranks'
+   launches as ``par_launches``; the phase's seconds are logged.
+
 5m. MoE (``[moe]`` lines), once phase 5's weights are freed:
    ``qwen3-moe-30b-a3b`` at every published width (d_model 2048, 32 query
    heads over 4 KV heads repeated to 16, head dim 128, 128 experts top-8,
@@ -289,8 +319,8 @@ Phases, each failing loudly (exit code 1, no result line):
    row's largest |y| on the tokens routed alike, aux within 1e-5
    relative, the two card runs bit-identical.  Serving:
    ``ServeEngine(batch_slots=4, max_seq=512)`` answers 8 requests as in
-   phase 5, timed with nothing else in its run; then, untimed, each
-   prompt's decode steps (the engine's ``_prefill_into``) beside the
+   phase 5, timed with nothing else in its run; then, untimed, the first
+   4 prompts' decode steps (the engine's ``_prefill_into``) beside the
    prefill of ``replace(capacity_factor=n_experts / top_k)`` (capacity =
    the prompt's tokens: a prefill at 1.25 drops assignments that a
    one-token decode step never drops): routing themselves on the first 4
@@ -485,6 +515,29 @@ TRAIN_RESUME_AT = 4
 TRAIN_RESUME_STEPS = 6
 TRAIN_LOSS_REL = 2.0 ** -8
 TRAIN_GRAD_REL = 2.0 ** -5
+
+# Phase 5p: data- and model-parallel training of LM_ARCH at full width on
+# a (2, 2) mesh of gloo ranks sharing the card, at PAR_LAYERS of its 28
+# layers (at 28 a mesh step took 35-52 s a rank on the H100 80GB HBM3 at
+# 700 W, at 14 22-32 s: about 0.4 GiB a layer, rank and step through
+# gloo's host path), (8 x 1024) with the config's grad_accum 4, so each
+# data rank runs one row of each microbatch of 2;
+# the steps; the ranks' time limits (spawn to the last exit; a rank
+# waiting on a peer); the gates against the unsharded step,
+# tests/test_torch_parallel_train.py's: the loss within 1e-3 relative,
+# the grad norm within one bf16 ulp, and step 0's gradient blocks within
+# TRAIN_GRAD_REL of each leaf's largest magnitude.  (The parameters after
+# step 1 lie within 2 lr of the unsharded step's whatever the gradients,
+# AdamW's first update being at most 1 in magnitude: that distance is
+# logged, not gated.)
+PAR_MESH = (2, 2)
+PAR_LAYERS = 7
+PAR_CELL = ("train_par", "train", 1024, 8)
+PAR_STEPS = 2
+PAR_TIMEOUT_S = 900
+PAR_COLLECTIVE_S = 600
+PAR_LOSS_REL = 1e-3
+PAR_GNORM_REL = 2.0 ** -8
 
 # Phase 5m: qwen3-moe-30b-a3b at every published width and MOE_LAYERS of
 # its 48 layers (the float32 master weights of all 48, ~122 GB, do not fit
@@ -2477,7 +2530,9 @@ def phase_lm(args, torch, rt):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    params = rt.init_params(model.decls, seed=0, device=dev)
+    # drawn on the card (numpy's draws took 45-48 s on the H100 machine's
+    # host)
+    params = device_init(torch, rt, model.decls, 0, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     n_params = rt.param_count(params)
@@ -2845,6 +2900,300 @@ def phase_train(args, torch, rt, params):
     out["resume"] = train_resume_check(torch, rt, dev)
     launches = {WGMMA: sum(s["launches"][WGMMA] for s in steps),
                 F32_FLASH: sum(s["launches"][F32_FLASH] for s in steps)}
+    return out, launches
+
+
+def capture_grads(rt, seen: dict):
+    """Wraps ``optim.apply_opt`` (the train step's call) to keep a copy of
+    the first gradients it is handed in ``seen["grads"]``; returns the
+    real function, to put back."""
+    real = rt.optim.apply_opt
+
+    def capture(name, cfg, grads, state, params, specs=None):
+        if "grads" not in seen:
+            seen["grads"] = rt.tree.tree_map(lambda g: g.detach().clone(),
+                                             grads)
+        return real(name, cfg, grads, state, params, specs)
+
+    rt.optim.apply_opt = capture
+    return real
+
+
+def par_rank(rank: int, world: int, ckpt: str, arch: str, reduced: bool,
+             device: str) -> dict:
+    """One rank of phase 5p's (2, 2) gloo mesh (spawned): restores its
+    blocks of the parent's checkpoint (step 0), takes PAR_STEPS mesh
+    steps, the flash counters and the mesh's traffic counters set to 0
+    just before each and read just after.  After step 1 it measures the
+    gradient blocks its step 0 handed the optimizer against the same
+    blocks of the parent's unsharded step 0 (each leaf's distance over
+    the leaf's largest magnitude, taken across the ranks that split it),
+    and its parameter blocks against the unsharded step 1's (both in
+    checkpoint step 1)."""
+    import numpy as np
+    import torch
+
+    rt = runtime(torch)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    c = rt.configs.get(arch, reduced=reduced)
+    c = c.replace(n_layers=min(c.n_layers, PAR_LAYERS))
+    model = rt.model_api.build(c)
+    cell = rt.ShapeCell(*PAR_CELL)
+    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
+    mesh = rt.mesh_lib.make_host_mesh(*PAR_MESH)
+    step_fn, (pspecs, ospecs, _), _, _ = rt.train_step.make_train_step(
+        model, opt_cfg, cell, mesh)
+    like = {"params": rt.tree.tree_map(
+        lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"),
+        model.decls)}
+    t = time.perf_counter()
+    with rt.sharding.use_mesh(mesh):
+        params = rt.checkpoint.restore(ckpt, 0, like, device=dev,
+                                       specs={"params": pspecs})["params"]
+    opt_state = rt.optim.init_opt(c.optimizer, like["params"], opt_cfg)
+    opt_state = rt.tree.tree_map(lambda t, s: torch.zeros(
+        rt.sharding.local_shape(t.shape, s, mesh), dtype=t.dtype,
+        device=dev), opt_state, ospecs)
+    out = {"coords": dict(mesh.coords), "restore_s": time.perf_counter() - t,
+           "state_gib": (torch.cuda.memory_allocated() / 2**30
+                         if dev.type == "cuda" else None), "steps": []}
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    heads = []
+    entry = rt.attention.flash_attention
+
+    def counted(q, k, v, causal=True, chunk=1024):
+        heads.append((q.shape[1], k.shape[1]))
+        return entry(q, k, v, causal, chunk)
+
+    rt.attention.flash_attention = counted
+    seen = {}
+    real_opt = capture_grads(rt, seen)
+    try:
+        for step in range(PAR_STEPS):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in rt.train_data.make_batch(c, cell,
+                                                          step).items()}
+            heads.clear()
+            kern.launches = kern.wgmma_launches = 0
+            mesh.bytes_gathered = mesh.bytes_summed = 0
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            rec = {"step": step, "s": time.perf_counter() - t,
+                   "loss": float(met["loss"]),
+                   "grad_norm": float(met["grad_norm"]),
+                   "lr": float(met["lr"]),
+                   "launches": {WGMMA: kern.wgmma_launches,
+                                F32_FLASH: kern.launches
+                                - kern.wgmma_launches},
+                   "heads": sorted(set(heads)), "calls": len(heads),
+                   "bytes_gathered": mesh.bytes_gathered,
+                   "bytes_summed": mesh.bytes_summed,
+                   "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if dev.type == "cuda" else None)}
+            if step == 0:
+                # the unsharded step 0's gradient blocks and step 1's
+                # parameter blocks, on the host
+                rt.optim.apply_opt = real_opt
+                like2 = {"params": like["params"], "grads": like["params"]}
+                with rt.sharding.use_mesh(mesh):
+                    ref = rt.checkpoint.restore(
+                        ckpt, 1, like2, device="cpu",
+                        specs={"params": pspecs, "grads": pspecs})
+                grad_rel, worst_leaf = 0.0, None
+                names = list(rt.tree.flatten_dict(ref["grads"]))
+                for name, a, g, s in zip(
+                        names, rt.tree.tree_leaves(ref["grads"]),
+                        rt.tree.tree_leaves(seen.pop("grads")),
+                        rt.tree.tree_leaves(pspecs)):
+                    a = a.to(dev).float()
+                    diff = (a - g.float()).abs().max()
+                    top = a.abs().max()
+                    for ax in rt.sharding.split_axes(s, mesh, a.dim()):
+                        top = mesh.max(top, ax)
+                    diff, top = float(diff), float(top)
+                    rel = diff / top if top > 0 else (
+                        0.0 if diff == 0 else float("inf"))
+                    if worst_leaf is None or rel > grad_rel:
+                        grad_rel, worst_leaf = rel, name
+                lr = rec["lr"]
+                worst = 0.0
+                for a, b in zip(rt.tree.tree_leaves(ref["params"]),
+                                rt.tree.tree_leaves(params)):
+                    d = (a.to(dev).float() - b.float()).abs()
+                    worst = max(worst, float(d.max()) / lr)
+                rec.update(grad_rel=grad_rel, grad_worst_leaf=worst_leaf,
+                           param_over_lr=worst)
+                del ref
+            out["steps"].append(rec)
+    finally:
+        rt.attention.flash_attention = entry
+        rt.optim.apply_opt = real_opt
+    return out
+
+
+def phase_parallel(args, torch, rt, params, arch: str = LM_ARCH,
+                   reduced: bool = False, device: str = "cuda"):
+    """Phase 5p: data- and model-parallel training on a (2, 2) mesh of four
+    gloo ranks sharing the card, held against the unsharded step on the
+    same weights.  ``params`` (phase 5's float32 weights; its first
+    PAR_LAYERS layers are copied and the tree emptied, as the ranks need
+    the card's memory) is saved once with ``train/checkpoint.save``."""
+    import numpy as np
+
+    dev = torch.device(device)
+    full = rt.configs.get(arch, reduced=reduced)
+    c = full.replace(n_layers=min(full.n_layers, PAR_LAYERS))
+    # the first layers' weights (a copy); the caller's tree is emptied
+    layers = params.pop("layers")
+    cut = {k: params.pop(k) for k in list(params)}
+    # detached: phase 5t's weights require grad, and a clone of one would
+    # be no leaf, whose .grad a backward leaves empty
+    cut["layers"] = {k: v[:c.n_layers].detach().clone()
+                     for k, v in layers.items()}
+    del layers
+    params = cut
+    model = rt.model_api.build(c)
+    cell = rt.ShapeCell(*PAR_CELL)
+    accum = c.grad_accum
+    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
+    world = PAR_MESH[0] * PAR_MESH[1]
+    per_step = 2 * c.n_layers * accum
+    heads = (c.n_heads // PAR_MESH[1], c.kv_eff // PAR_MESH[1])
+    out = {"mesh": list(PAR_MESH), "cell": list(PAR_CELL),
+           "layers": c.n_layers, "grad_accum": accum, "backend": "gloo",
+           "reduced": ([f"{full.n_layers} layers cut to {c.n_layers} (at "
+                        f"{full.n_layers} a mesh step took 35-52 s a rank, "
+                        f"at 14 22-32 s, the ranks' gloo traffic through "
+                        f"the host)"]
+                       if c.n_layers < full.n_layers else []) + [
+                       f"train_4k's (256 x 4096) cut to {PAR_CELL[3]} x "
+                       f"{PAR_CELL[2]} ({PAR_MESH[0]} data ranks, one row of "
+                       f"each microbatch of {PAR_CELL[3] // accum} each)",
+                       f"{world} ranks share one card (gloo; NCCL refuses "
+                       f"two ranks on a card)", f"{PAR_STEPS} steps",
+                       "weights phase 5t's"]}
+    log(f"[par] {arch} {c.n_layers} layers, d_model {c.d_model}, mesh "
+        f"{PAR_MESH} (data, model) of gloo ranks on one card, cell "
+        f"{PAR_CELL}, grad_accum {accum}; reduced: {out['reduced']}")
+    with tempfile.TemporaryDirectory(prefix="repro-par-") as tmp:
+        t = time.perf_counter()
+        rt.checkpoint.save(tmp, 0, {"params": params},
+                           config_json=c.to_json())
+        out["save_s"] = time.perf_counter() - t
+        log(f"[par] the weights saved in {out['save_s']:.1f} s")
+        # the unsharded steps on the same weights
+        step_fn = rt.train_step.make_train_step(model, opt_cfg, cell)[0]
+        opt_state = rt.optim.init_opt(c.optimizer, params, opt_cfg)
+        ref = []
+        seen = {}
+        real_opt = capture_grads(rt, seen)
+        for step in range(PAR_STEPS):
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in rt.train_data.make_batch(c, cell,
+                                                          step).items()}
+            t = time.perf_counter()
+            params, opt_state, met = step_fn(params, opt_state, batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ref.append({"loss": float(met["loss"]),
+                        "grad_norm": float(met["grad_norm"]),
+                        "lr": float(met["lr"]),
+                        "s": time.perf_counter() - t})
+            if step == 0:
+                rt.optim.apply_opt = real_opt
+                rt.checkpoint.save(tmp, 1, {"params": params,
+                                            "grads": seen.pop("grads")},
+                                   config_json=c.to_json())
+            log(f"[par] unsharded step {step}: loss {ref[-1]['loss']:.6f}, "
+                f"grad norm {ref[-1]['grad_norm']:.4f}, "
+                f"{ref[-1]['s']:.3f} s")
+        out["unsharded"] = ref
+        del opt_state, step_fn
+        params.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            out["parent_gib"] = torch.cuda.memory_allocated() / 2**30
+            log(f"[par] the parent holds {out['parent_gib']:.2f} GiB "
+                f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as "
+                f"the ranks start")
+        # the ranks' allocators map memory as they grow (four share a card)
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t = time.perf_counter()
+        try:
+            ranks = rt.spawn_ranks(par_rank, world, backend="gloo",
+                                   args=(tmp, arch, reduced, device),
+                                   timeout_s=PAR_TIMEOUT_S,
+                                   collective_timeout_s=PAR_COLLECTIVE_S)
+        finally:
+            if alloc is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        out["ranks_s"] = time.perf_counter() - t
+    out["ranks"] = ranks
+    launches = {WGMMA: 0, F32_FLASH: 0}
+    for rank, r in enumerate(ranks):
+        for rec in r["steps"]:
+            base = ref[rec["step"]]
+            loss_rel = abs(rec["loss"] - base["loss"]) / abs(base["loss"])
+            gn_rel = abs(rec["grad_norm"] - base["grad_norm"]) / \
+                base["grad_norm"]
+            rec.update(loss_rel=loss_rel, grad_norm_rel=gn_rel)
+            log(f"[par] rank {rank} {tuple(r['coords'].values())} step "
+                f"{rec['step']}: {rec['s']:.3f} s, loss {rec['loss']:.6f} "
+                f"(unsharded {base['loss']:.6f}, relative {loss_rel:.3g}), "
+                f"grad norm {rec['grad_norm']:.4f} (relative {gn_rel:.3g})"
+                f", peak {rec['peak_gib'] or 0:.2f} GiB, gathered "
+                f"{rec['bytes_gathered'] / 2**30:.3f} GiB, summed "
+                f"{rec['bytes_summed'] / 2**30:.3f} GiB, flash "
+                f"{rec['launches']} at heads {rec['heads']}"
+                + (f"; step 0's gradient blocks within "
+                   f"{rec['grad_rel']:.4g} of the leaf's largest magnitude "
+                   f"(worst {rec['grad_worst_leaf']}; gate "
+                   f"{TRAIN_GRAD_REL}); parameters after step 1 at most "
+                   f"{rec['param_over_lr']:.4f} lr from the unsharded "
+                   f"step's (2 lr by construction, not gated)"
+                   if rec["step"] == 0 else ""))
+            if loss_rel > PAR_LOSS_REL or gn_rel > PAR_GNORM_REL:
+                fail(f"[par] rank {rank} step {rec['step']}: loss relative "
+                     f"{loss_rel:.3g} (gate {PAR_LOSS_REL}), grad norm "
+                     f"relative {gn_rel:.3g} (gate {PAR_GNORM_REL})")
+            if rec["step"] == 0 and not rec["grad_rel"] <= TRAIN_GRAD_REL:
+                fail(f"[par] rank {rank}: step 0's gradient of "
+                     f"{rec['grad_worst_leaf']} {rec['grad_rel']:.4g} of "
+                     f"the leaf's largest magnitude from the unsharded "
+                     f"step's (gate {TRAIN_GRAD_REL})")
+            if device == "cuda" and rec["launches"] != {WGMMA: per_step,
+                                                        F32_FLASH: 0}:
+                fail(f"[par] rank {rank} step {rec['step']} launched the "
+                     f"flash kernels {rec['launches']}, want {per_step} "
+                     f"wgmma (forward and remat recompute of {c.n_layers} "
+                     f"layers x {accum} microbatches)")
+            if rec["calls"] != per_step or rec["heads"] != [heads]:
+                fail(f"[par] rank {rank} step {rec['step']}: {rec['calls']}"
+                     f" attention calls at (q, kv) heads {rec['heads']}, "
+                     f"want {per_step} at {heads}")
+            for k in launches:
+                launches[k] += rec["launches"][k]
+        if r["steps"][0]["loss"] != ranks[0]["steps"][0]["loss"]:
+            fail(f"[par] rank {rank}'s loss differs from rank 0's")
+    log(f"[par] a rank's state after its restore "
+        f"{max(r['state_gib'] or 0 for r in ranks):.2f} GiB; restore "
+        f"{max(r['restore_s'] for r in ranks):.1f} s a rank, "
+        f"checkpoint save {out['save_s']:.1f} s, ranks spawn to exit "
+        f"{out['ranks_s']:.1f} s; flash launches in the ranks' steps "
+        f"{launches}")
     return out, launches
 
 
@@ -4244,6 +4593,8 @@ def runtime(torch):
                                                param_count)
         from repro_torch.launch import train as train_launcher
         from repro_torch.launch import train_step
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.launch import sharding
         from repro_torch.train import checkpoint, optim
         from repro_torch.train import data as train_data
         from repro_torch.utils import tree
@@ -4277,6 +4628,7 @@ def runtime(torch):
         smoke_requests=smoke_requests, init_group=init_group,
         spawn_ranks=spawn_ranks, attention=attention, ShapeCell=ShapeCell,
         train_launcher=train_launcher, train_step=train_step,
+        mesh_lib=mesh_lib, sharding=sharding,
         checkpoint=checkpoint, optim=optim, train_data=train_data, tree=tree,
         build=build)
 
@@ -4326,10 +4678,18 @@ def main(argv) -> int:
                                                     lm_params)
     main_out["train"]["phase_s"] = time.perf_counter() - t
     log(f"[train] phase 5t took {main_out['train']['phase_s']:.1f} s")
-    del lm_params
     for row in lm_kernels:
         row["train_launches"] = train_launches[row["name"]]
     clocks("after phase 5t")
+    t = time.perf_counter()
+    main_out["par"], par_launches = phase_parallel(args, torch, rt,
+                                                   lm_params)
+    main_out["par"]["phase_s"] = time.perf_counter() - t
+    log(f"[par] phase 5p took {main_out['par']['phase_s']:.1f} s")
+    del lm_params
+    for row in lm_kernels:
+        row["par_launches"] = par_launches[row["name"]]
+    clocks("after phase 5p")
     if args.profile:
         main_out["profile"] = phase_profile(
             torch, rt, MAIN_GRAPH[0], graphs[MAIN_GRAPH[0]][0])

@@ -27,13 +27,11 @@ import torch.distributed as dist
 BACKENDS = ("gloo", "nccl")
 
 
-def init_group(backend: str, rank: int, world_size: int, init_method: str,
-               *, timeout_s: float = 120.0):
-    """``init_process_group`` with the rendezvous, rank and world size
-    given.  ``nccl`` needs the card: without one it raises instead of
-    running anything on the CPU, and with fewer cards than ranks it
-    raises too.  Each ``nccl`` rank binds its own card (``rank`` mod the
-    card count).  Returns the world group."""
+def check_backend(backend: str, world_size: int) -> None:
+    """Raise unless ``backend`` can join ``world_size`` ranks here:
+    ``nccl`` needs the card (it never runs on the CPU) and a card a rank
+    (NCCL refuses two ranks on one card); gloo runs anywhere, several
+    ranks sharing one card too."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "nccl":
@@ -46,7 +44,16 @@ def init_group(backend: str, rank: int, world_size: int, init_method: str,
             raise ValueError(
                 f"an nccl group needs a card a rank: {world_size} ranks, "
                 f"{cards} cards; use gloo for several ranks on one card")
-        torch.cuda.set_device(rank % cards)
+
+
+def init_group(backend: str, rank: int, world_size: int, init_method: str,
+               *, timeout_s: float = 120.0):
+    """``init_process_group`` with the rendezvous, rank and world size
+    given, after ``check_backend``.  Each ``nccl`` rank binds its own card
+    (``rank`` mod the card count).  Returns the world group."""
+    check_backend(backend, world_size)
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.graph.structure import resolve_device
+from repro_torch.launch import collectives as coll
+from repro_torch.launch import sharding as shd
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -184,19 +186,66 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       vocab_valid: Optional[int] = None) -> torch.Tensor:
+                       vocab_valid: Optional[int] = None, *,
+                       vocab_axis: Optional[str] = None) -> torch.Tensor:
     """Stable CE over (possibly padded) logits, in float32: the mean
     negative log-likelihood of ``labels``, over the positions where
     ``mask`` is set when it is given.  Vocabulary columns from
-    ``vocab_valid`` on are padding and take no probability."""
+    ``vocab_valid`` on are padding and take no probability.
+
+    Under an active mesh: ``vocab_axis`` names the axis the logits'
+    columns are split over (each rank holds its block; the max and the
+    log-sum-exp are taken across it, and the label's logit and
+    ``vocab_valid`` at global column indices), and rows split over mesh
+    axes (``launch.sharding.split_rows``) make the mean one over every
+    rank's rows."""
+    mesh = shd.active_mesh()
+    tp = vocab_axis is not None and mesh is not None \
+        and mesh.axis_size(vocab_axis) > 1
+    rows = shd.row_axes()
     lg = logits.float()
-    if vocab_valid is not None and vocab_valid < lg.shape[-1]:
-        pad = torch.arange(lg.shape[-1], device=lg.device) >= vocab_valid
+    width = lg.shape[-1]
+    first = mesh.coord(vocab_axis) * width if tp else 0
+    total = width * mesh.axis_size(vocab_axis) if tp else width
+    if vocab_valid is not None and vocab_valid < total:
+        pad = torch.arange(first, first + width, device=lg.device) \
+            >= vocab_valid
         lg = torch.where(pad, -1e30, lg)
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    if tp:
+        top = mesh.max(lg.detach().amax(dim=-1), vocab_axis)
+        sumexp = coll.reduce_from(torch.sum(torch.exp(lg - top[..., None]),
+                                            dim=-1), mesh, vocab_axis)
+        lse = top + torch.log(sumexp)
+        local = labels.long() - first
+        mine = (local >= 0) & (local < width)
+        gold = torch.gather(lg, -1, local.clamp(0, width - 1)[..., None]
+                            )[..., 0]
+        gold = coll.reduce_from(torch.where(mine, gold, 0.0), mesh,
+                                vocab_axis)
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
+    if rows:
+        return _mean_over_rows(nll, mask, mesh, rows)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _mean_over_rows(nll, mask, mesh, rows) -> torch.Tensor:
+    """The mean of ``nll`` over every rank's rows along ``rows``: each
+    rank's sum, summed over the axes (the gradient of each rank's rows
+    stays its own), over the count summed alike."""
+    if mask is not None:
+        mask = mask.float()
+        num, den = torch.sum(nll * mask), torch.sum(mask).detach()
+    else:
+        num = torch.sum(nll)
+        den = torch.full((), nll.numel(), dtype=torch.float32,
+                         device=nll.device)
+    for a in rows:
+        num = coll.reduce_from(num, mesh, a)
+        den = mesh.sum(den, a)
+    return num / torch.clamp(den, min=1.0)

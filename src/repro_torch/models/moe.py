@@ -13,8 +13,9 @@ capacity.  Every gather and scatter stays inside a dispatch group:
   expert FFN                     SwiGLU, batched over (G, E)
   combine                        each token's k slots summed in order
 
-The port has no device mesh yet, so ``_n_groups`` is 1; the group axis
-stays so that a data-parallel mesh only has to set it.
+``_n_groups`` follows the active mesh's data extent, as the JAX
+package's does; a data-parallel train step runs each data rank's rows as
+one of the JAX package's dispatch groups (``launch/train_step.py``).
 
 Parity with the JAX package, which the port's tests hold bit for bit on
 the integer parts:
@@ -30,13 +31,17 @@ the integer parts:
   does.
 
 Aux losses: the Switch load-balance loss plus the router z-loss, averaged
-over groups.  Plain PyTorch throughout, differentiable under autograd.
+over groups (over every data rank's groups when the rows are split over
+the mesh).  Plain PyTorch throughout, differentiable under autograd.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
+
+from repro_torch.launch import collectives as coll
+from repro_torch.launch import sharding as shd
 
 
 # the aux loss's weights (the JAX package's ``moe_layer`` defaults; no
@@ -51,9 +56,25 @@ class MoEOut(NamedTuple):
 
 
 def _n_groups(total_tokens: int) -> int:
-    """Dispatch groups: 1, as the JAX package has without an active mesh
-    (the port has no mesh yet, ROADMAP Queue 1 #2)."""
-    return 1
+    """Dispatch groups of this rank's ``total_tokens``: the JAX package's
+    static count, the data-parallel extent of the active mesh halved until
+    it divides the tokens, taken over every rank's tokens where the rows
+    are split over the mesh (``launch.sharding.split_rows``), of which
+    this rank holds its share."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return 1
+    g = 1
+    for ax in ("pod", "data"):
+        g *= mesh.axis_size(ax)
+    split = 1
+    for ax in shd.row_axes():
+        split *= mesh.axis_size(ax)
+    while g > 1 and (total_tokens * split) % g:
+        g //= 2
+    if max(1, g) % split:
+        raise ValueError(f"{g} dispatch groups over rows split {split} ways")
+    return max(1, g) // split
 
 
 def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int,
@@ -142,13 +163,30 @@ def combine(yb: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 
 def aux_loss(logits: torch.Tensor, probs: torch.Tensor,
              top_e: torch.Tensor) -> torch.Tensor:
-    """Switch load-balance loss plus router z-loss, float32 scalar."""
+    """Switch load-balance loss plus router z-loss, float32 scalar; its
+    means over every rank's tokens where the rows are split over the
+    mesh."""
     e = probs.shape[-1]
-    me = torch.mean(probs, dim=(0, 1))                          # (E,)
     one_hot_top1 = torch.nn.functional.one_hot(top_e[..., 0], e).float()
-    ce = torch.mean(one_hot_top1, dim=(0, 1))
+    z2 = torch.logsumexp(logits, dim=-1) ** 2
+    rows = shd.row_axes()
+    if rows:
+        mesh = shd.active_mesh()
+        n = probs.shape[0] * probs.shape[1]
+        me, ce = torch.sum(probs, dim=(0, 1)), torch.sum(one_hot_top1,
+                                                         dim=(0, 1))
+        z = torch.sum(z2)
+        for a in rows:
+            me = coll.reduce_from(me, mesh, a)
+            ce = mesh.sum(ce, a)
+            z = coll.reduce_from(z, mesh, a)
+            n *= mesh.axis_size(a)
+        me, ce, z = me / n, ce / n, z / n
+    else:
+        me = torch.mean(probs, dim=(0, 1))                      # (E,)
+        ce = torch.mean(one_hot_top1, dim=(0, 1))
+        z = torch.mean(z2)
     balance = e * torch.sum(me * ce)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return (BALANCE_COEF * balance + ROUTER_Z_COEF * z).float()
 
 

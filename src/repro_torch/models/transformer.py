@@ -8,9 +8,23 @@ embeddings and a causal decoder with cross-attention).
 * Layers are STACKED (leading L dim) as in the JAX package; its
   ``lax.scan`` over them becomes a loop over layers that slices layer l and
   casts the slice to bf16 (``cast_compute``), so the 1-D norm scales stay
-  float32.  The sharding constraints have no counterpart on one device
-  (nemotron's ``shard_residual_embed`` only moves its residual's sharding:
-  nothing on one card).
+  float32.
+* Tensor parallelism (the dense family, under an active mesh whose
+  ``model`` axis has more than one rank; ``launch/train_step.py`` runs
+  it).  The parameters come as each rank's blocks of ``param_specs``
+  (gathered over ``data``).  The compute splits a dim over ``model`` only
+  where the JAX package's sharding constraint at that point resolves to
+  ``model`` for that shape, otherwise the weight is gathered over
+  ``model`` first (``gather_from``): the attention heads where q's
+  ``heads_act`` resolves (each rank's q heads, the K/V heads they read
+  from the replicated ``wk``/``wv``, the partial ``wo`` product summed
+  over ``model``), the FFN where its ``mlp`` dim is stored split
+  (columns of ``w_gate``/``w_up``, rows of ``w_down``, then a sum), and
+  the vocabulary where ``vocab_act`` resolves (a masked local embedding
+  lookup then a sum; local logit columns into the vocab-parallel
+  ``cross_entropy_loss``).  The residual stays replicated over ``model``:
+  nemotron's ``shard_residual_embed`` (``embed_act`` -> ``model``) only
+  moves its layout.  The other families raise at ``model`` above 1.
 * Dense FFNs follow ``c.activation``: SwiGLU, nemotron's squared ReLU (no
   gate), or whisper's GELU MLP with biases.  Norms follow ``c.norm``: RMS,
   or whisper's layer norm (scale ``1 + p[name]`` and bias ``p[name_b]``).
@@ -73,6 +87,9 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.launch import collectives as coll
+from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.arch_config import ArchConfig
@@ -82,6 +99,11 @@ from repro_torch.models.common import (ParamDecl, apply_rope, cast_compute,
                                        swiglu, tree_leaves, tree_map)
 
 P = ParamDecl
+
+
+NO_TP = ("tensor parallelism (a mesh's model axis of {n} ranks) is ported "
+         "for the dense family only; the {family} family's is ROADMAP "
+         "Queue 1 #2b")
 
 
 def _check_family(c: ArchConfig) -> None:
@@ -228,6 +250,100 @@ def layer_slice(stacked: Dict[str, torch.Tensor], l: int
     return cast_compute({k: t[l] for k, t in stacked.items()})
 
 
+# --------------------------------------------------------------- tensor parallel
+
+
+class TPPlan(NamedTuple):
+    """Where the model axis splits the compute: q's heads (``heads``), the
+    K/V heads as q's (``kv``: ``kv_eff`` divides too), ``wq``'s columns
+    and ``wo``'s rows stored split (``qkv_stored``), the FFN's ``mlp`` dim
+    and the vocabulary."""
+    mesh: Mesh
+    n: int
+    m: int
+    heads: bool
+    kv: bool
+    qkv_stored: bool
+    mlp: bool
+    vocab: bool
+
+
+def tp_plan(c: ArchConfig) -> Optional[TPPlan]:
+    """The active mesh's tensor-parallel plan for ``c``; None without a
+    mesh or with one rank on ``model``.  Raises for a family other than
+    dense."""
+    mesh = shd.active_mesh()
+    n = 1 if mesh is None else mesh.axis_size("model")
+    if n == 1:
+        return None
+    if c.family != "dense":
+        raise NotImplementedError(NO_TP.format(n=n, family=c.family))
+
+    def on_model(names, shape, dim):
+        return shd.resolve_spec(names, shape).padded(len(shape))[dim] \
+            == "model"
+
+    act = ("batch", "heads_act", None, None)
+    return TPPlan(
+        mesh, n, mesh.coord("model"),
+        heads=on_model(act, (1, c.n_heads, 1, c.hd), 1),
+        kv=on_model(act, (1, c.kv_eff, 1, c.hd), 1),
+        qkv_stored=on_model(("embed", "heads"),
+                            (c.d_model, c.n_heads * c.hd), 1),
+        mlp=on_model(("embed", "mlp"), (c.d_model, c.d_ff), 1),
+        vocab=on_model(("batch", None, "vocab_act"),
+                       (1, 1, c.vocab_size), 2))
+
+
+def _project_qkv_tp(c: ArchConfig, tp: TPPlan, p, x, positions):
+    """``_project_qkv`` for this rank's q heads (``tp.heads``): q from its
+    ``wq`` columns, K and V of the KV heads those q heads read (their
+    own block where ``kv_eff`` splits too, else one per q head), from the
+    replicated ``wk``/``wv`` whose gradients are summed over ``model``."""
+    hd, hq = c.hd, c.n_heads
+    mesh = tp.mesh
+    b, s = x.shape[0], x.shape[1]
+    hl = hq // tp.n
+    x = coll.copy_to(x, mesh, "model")
+    q = (x @ p["wq"]).reshape(b, s, hl, hd)
+    # the eff KV head of each local q head, then its original head
+    eff = torch.arange(tp.m * hl, (tp.m + 1) * hl) // (hq // c.kv_eff)
+    if tp.kv:
+        eff = eff[::hq // c.kv_eff]
+    orig = eff // (c.kv_eff // c.n_kv_heads)
+    lo, hi = int(orig[0]), int(orig[-1]) + 1
+    cols = slice(lo * hd, hi * hd)
+    k = (x @ coll.copy_to(p["wk"], mesh, "model")[:, cols]).reshape(
+        b, s, hi - lo, hd)
+    v = (x @ coll.copy_to(p["wv"], mesh, "model")[:, cols]).reshape(
+        b, s, hi - lo, hd)
+    if c.qk_norm:
+        q = rms_norm(q, coll.copy_to(p["q_norm"], mesh, "model"))
+        k = rms_norm(k, coll.copy_to(p["k_norm"], mesh, "model"))
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    q = apply_rope(q, positions, c.rope_theta)
+    k = apply_rope(k, positions, c.rope_theta)
+    idx = (orig - lo).to(x.device)
+    return q, k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _self_attn_tp(c: ArchConfig, tp: TPPlan, p, x, positions, causal):
+    """Self-attention on the model axis: this rank's heads and the sum of
+    the partial ``wo`` products, or, where q's heads do not split, the
+    whole attention on every rank with ``wq``/``wo`` gathered."""
+    if not tp.heads:
+        if tp.qkv_stored:
+            p = dict(p, wq=coll.gather_from(p["wq"], tp.mesh, "model", 1),
+                     wo=coll.gather_from(p["wo"], tp.mesh, "model", 0))
+        return _self_attn(c, p, x, positions, causal, tp=None)
+    q, k, v = _project_qkv_tp(c, tp, p, x, positions)
+    o = attn.flash_attention(q, k, v, causal=causal,
+                             chunk=min(1024, q.shape[2]))
+    b, hl, s, _ = q.shape
+    o = o.transpose(1, 2).reshape(b, s, hl * c.hd)
+    return coll.reduce_from(o @ p["wo"], tp.mesh, "model")
+
+
 # --------------------------------------------------------------- layer bodies
 
 
@@ -261,7 +377,10 @@ def _project_qkv(c: ArchConfig, p, x, positions, prefix: str = "",
     return q, attn.repeat_kv(k, reps), attn.repeat_kv(v, reps)
 
 
-def _self_attn(c: ArchConfig, p, x, positions, causal=True):
+def _self_attn(c: ArchConfig, p, x, positions, causal=True, *,
+               tp: Optional[TPPlan] = None):
+    if tp is not None:
+        return _self_attn_tp(c, tp, p, x, positions, causal)
     q, k, v = _project_qkv(c, p, x, positions)
     o = attn.flash_attention(q, k, v, causal=causal,
                              chunk=min(1024, q.shape[2]))
@@ -270,7 +389,12 @@ def _self_attn(c: ArchConfig, p, x, positions, causal=True):
     return o @ p["wo"]
 
 
-def _ffn(c: ArchConfig, p, x, prefix: str = ""):
+def _ffn(c: ArchConfig, p, x, prefix: str = "", *,
+         tp: Optional[TPPlan] = None):
+    if tp is not None and tp.mlp:
+        # this rank's d_ff columns, then the sum of the partial products
+        y = _ffn(c, p, coll.copy_to(x, tp.mesh, "model"), prefix)
+        return coll.reduce_from(y, tp.mesh, "model")
     if c.activation == "swiglu" or prefix == "shared_":
         return swiglu(x, p[prefix + "w_gate"], p[prefix + "w_up"],
                       p[prefix + "w_down"])
@@ -293,12 +417,14 @@ def _moe_ffn(c: ArchConfig, p, x):
 
 def _block(c: ArchConfig, p, x, positions, *, moe: bool, causal: bool = True):
     """Pre-norm transformer block; returns (x, aux loss)."""
-    x = x + _self_attn(c, p, _norm(c, p, x, "ln1"), positions, causal=causal)
+    tp = tp_plan(c)
+    x = x + _self_attn(c, p, _norm(c, p, x, "ln1"), positions, causal=causal,
+                       tp=tp)
     h = _norm(c, p, x, "ln2")
     if moe:
         y, aux = _moe_ffn(c, p, h)
     else:
-        y = _ffn(c, p, h)
+        y = _ffn(c, p, h, tp=tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
@@ -328,10 +454,30 @@ def _cross_block(c: ArchConfig, p, x, kv_feats):
 
 
 def _logits(c: ArchConfig, params, x):
+    """The logits: this rank's vocabulary columns where the vocabulary
+    splits over ``model``."""
     x = _norm(c, params, x, "final_norm")
     unembed = params["embed"].T if "unembed" not in params \
         else params["unembed"]
+    tp = tp_plan(c)
+    if tp is not None and tp.vocab:
+        x = coll.copy_to(x, tp.mesh, "model")
     return x @ unembed.to(x.dtype)
+
+
+def _embed(c: ArchConfig, params, tokens):
+    """The token embeddings in bf16; where the vocabulary splits over
+    ``model``, each rank looks up the tokens in its rows, zeros elsewhere,
+    and the ranks' float32 rows are summed (one term is not zero)."""
+    tp = tp_plan(c)
+    if tp is None or not tp.vocab:
+        return params["embed"][tokens].to(torch.bfloat16)
+    table = params["embed"]
+    rows = table.shape[0]
+    local = tokens - tp.m * rows
+    mine = (local >= 0) & (local < rows)
+    x = torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0.0)
+    return coll.reduce_from(x, tp.mesh, "model").to(torch.bfloat16)
 
 
 def _sinusoid(length: int, channels: int, device) -> torch.Tensor:
@@ -367,6 +513,13 @@ def _remat(c: ArchConfig, body, *args):
     if c.remat == "none" or not torch.is_grad_enabled() or not any(
             t.requires_grad for t in tree_leaves(args)):
         return body(*args)
+    # the recompute sees the mesh this forward saw, whichever thread runs it
+    state, inner = shd.snapshot(), body
+
+    def body(*a):
+        with shd.restored(state):
+            return inner(*a)
+
     if c.remat == "full":
         return ckpt.checkpoint(body, *args, use_reentrant=False)
     if c.remat == "dots":
@@ -448,7 +601,7 @@ def forward(c: ArchConfig, params, tokens: torch.Tensor, *,
     bf16, aux loss float32).  ``img_embeds``: (B, n_img, D) for the VLM;
     ``enc_embeds``: (B, n_frames, D) stub frame embeddings for audio."""
     feats = features(c, img_embeds, enc_embeds)
-    x = params["embed"][tokens].to(torch.bfloat16)
+    x = _embed(c, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _pairs(c):
@@ -503,7 +656,10 @@ def loss_fn(c: ArchConfig, params, batch) -> Tuple[torch.Tensor,
     logits, aux = forward(c, params, batch["tokens"],
                           img_embeds=batch.get("img_embeds"),
                           enc_embeds=batch.get("enc_embeds"))
-    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    tp = tp_plan(c)
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"),
+                            vocab_axis="model" if tp is not None and tp.vocab
+                            else None)
     return ce + aux, {"ce": ce, "aux": aux}
 
 

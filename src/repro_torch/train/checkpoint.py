@@ -18,6 +18,13 @@ views (``np.save`` cannot hold bfloat16), their true dtype and shape in
 the manifest.  ``restore`` rebuilds the structure of ``like`` and puts
 every tensor leaf on one device: the one it is given, else the card
 (``graph.structure.resolve_device``), as every entry point of the port.
+
+Sharded trees (a mesh's train state, ``launch/train.py``): ``save`` given
+``specs`` gathers each tensor leaf whole from every rank's block, one
+leaf at a time, and the rank at coordinate 0 of every axis writes it;
+the manifest records ``mesh_shape``.  ``restore`` given ``specs`` reads
+the whole arrays and keeps this rank's block of each.  A checkpoint
+therefore holds unsharded arrays, and a run resumes on another mesh.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.graph.structure import resolve_device
+from repro_torch.launch import sharding as shd
+from repro_torch.utils.tree import tree_leaves
 
 
 def _leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -71,29 +80,48 @@ def _as_bytes(leaf) -> Tuple[np.ndarray, list, str, str]:
         "numpy"
 
 
+def _spec_list(specs, n: int) -> list:
+    """``specs``' leaves in ``_leaves`` order, or n Nones."""
+    return [None] * n if specs is None else tree_leaves(specs)
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *, config_json: str = "{}",
-         keep: int = 3) -> str:
-    """Atomically save ``tree`` at ``step``; returns the committed path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+         mesh_shape: Optional[dict] = None, keep: int = 3,
+         specs: Any = None) -> str:
+    """Atomically save ``tree`` at ``step``; returns the committed path.
+    With ``specs`` (under the active mesh) every rank calls it with its
+    blocks and the whole leaves are written once."""
+    mesh = shd.active_mesh() if specs is not None else None
+    writer = mesh is None or mesh.origin
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {"step": step, "config": json.loads(config_json),
-                "leaves": []}
-    for key, leaf in _leaves(tree):
+                "mesh_shape": dict(mesh_shape or {}), "leaves": []}
+    leaves = _leaves(tree)
+    for (key, leaf), spec in zip(leaves, _spec_list(specs, len(leaves))):
+        if spec is not None:
+            leaf = shd.full_leaf(leaf, spec, mesh)
+        if not writer:
+            continue
         raw, shape, dtype, kind = _as_bytes(leaf)
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), raw)
         manifest["leaves"].append({"key": key, "file": fname, "shape": shape,
                                    "dtype": dtype, "kind": kind})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)                       # commit point
-    _gc(ckpt_dir, keep)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                   # commit point
+        _gc(ckpt_dir, keep)
+    if mesh is not None:
+        mesh.barrier()                          # every rank sees the commit
     return final
 
 
@@ -129,12 +157,14 @@ def read_config(ckpt_dir: str, step: int) -> Any:
 
 def restore(ckpt_dir: str, step: int, like: Any, *,
             device: Union[str, torch.device, None] = None,
-            expect_config: Optional[str] = None) -> Any:
+            expect_config: Optional[str] = None, specs: Any = None) -> Any:
     """Restore into the structure of ``like``, whose leaves give each
     saved leaf's expected shape (torch tensors — on any device, ``meta``
     included — numpy arrays or scalars).  Tensor leaves land on
     ``device``, the card when it is None; numpy leaves stay on the host.
-    A leaf saved as a tensor comes back as one, with its saved dtype."""
+    A leaf saved as a tensor comes back as one, with its saved dtype.
+    With ``specs`` (under the active mesh) each tensor leaf is this rank's
+    block of the saved array, read through a memory map."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -147,8 +177,10 @@ def restore(ckpt_dir: str, step: int, like: Any, *,
                 f"(saved != running):\n{saved}\nvs\n{want}")
     dev = None
     by_key = {m["key"]: m for m in manifest["leaves"]}
+    mesh = shd.active_mesh() if specs is not None else None
     out = []
-    for key, leaf in _leaves(like):
+    leaves = _leaves(like)
+    for (key, leaf), spec in zip(leaves, _spec_list(specs, len(leaves))):
         meta = by_key.get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf '{key}'")
@@ -157,12 +189,23 @@ def restore(ckpt_dir: str, step: int, like: Any, *,
         if tuple(meta["shape"]) != want_shape:
             raise ValueError(
                 f"leaf '{key}': shape {tuple(meta['shape'])} != {want_shape}")
-        raw = np.load(os.path.join(path, meta["file"]))
+        raw = np.load(os.path.join(path, meta["file"]),
+                      mmap_mode="r" if spec is not None else None)
         if meta["kind"] == "torch":
             if dev is None:
                 dev = resolve_device(device)
-            t = torch.from_numpy(raw.copy()).view(
-                getattr(torch, meta["dtype"])).reshape(meta["shape"])
+            dtype = getattr(torch, meta["dtype"])
+            if spec is not None:
+                # the block of the raw bytes, viewed as the saved dtype's
+                # integer twin of the same width
+                width = torch.empty((), dtype=dtype).element_size()
+                block = shd.local_shard(
+                    raw.view(f"<i{width}").reshape(meta["shape"]), spec,
+                    mesh)
+                t = torch.from_numpy(np.array(block)).view(dtype)   # a copy
+            else:
+                t = torch.from_numpy(raw.copy()).view(dtype).reshape(
+                    meta["shape"])
             out.append(t.to(dev))
         else:
             out.append(np.frombuffer(raw.tobytes(), dtype=np.dtype(

@@ -19,6 +19,13 @@ Adafactor is the memory policy of the largest architectures: a factored
 second moment (row and column statistics instead of a full float32
 tensor) for every leaf whose last two dims are at least
 ``factored_min_dim``.
+
+Sharded trees: given ``specs`` (the leaves' ``PartitionSpec``s under the
+active mesh, ``launch.sharding``), each leaf is this rank's block and the
+quantities over a whole leaf or tree are taken across the ranks that
+split it, each replicated block counted once: the global norm, Adafactor's
+row and column means and its update RMS.  A leaf no axis splits takes the
+unsharded code path, so a mesh of one rank computes the same bits.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.config import ConfigBase
+from repro_torch.launch import sharding as shd
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -87,9 +95,39 @@ def lr_schedule(cfg: OptimConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def _split_dims(specs, leaves):
+    """Per leaf, per dim, the mesh axes that split it (all empty without
+    ``specs``)."""
+    if specs is None:
+        return [((),) * x.dim() for x in leaves]
+    mesh = shd.active_mesh()
+    return [shd.dim_axes(s, mesh, x.dim())
+            for s, x in zip(tree_leaves(specs), leaves)]
+
+
+def _sum_over(x: torch.Tensor, axes) -> torch.Tensor:
+    mesh = shd.active_mesh()
+    for a in axes:
+        x = mesh.sum(x, a)
+    return x
+
+
+def _mean(x: torch.Tensor, dim: int, axes, keepdim: bool = False
+          ) -> torch.Tensor:
+    """``torch.mean`` over ``dim``, whose blocks are split over mesh
+    ``axes``."""
+    if not axes:
+        return torch.mean(x, dim=dim, keepdim=keepdim)
+    return _sum_over(torch.sum(x, dim=dim, keepdim=keepdim), axes) / (
+        x.shape[dim] * _extent(axes))
+
+
+def global_norm(tree, specs=None) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    sums = [_sum_over(torch.sum(torch.square(x.float())),
+                      [a for axes in dims for a in axes])
+            for x, dims in zip(leaves, _split_dims(specs, leaves))]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -124,11 +162,12 @@ def adamw_init(params) -> AdamWState:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: OptimConfig, grads, state: AdamWState, params,
+                 specs=None):
     """One AdamW step on clipped gradients; writes ``params`` and the
     state's moments in place.  Returns (params, new state, {grad_norm,
     lr})."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, specs)
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
@@ -170,25 +209,28 @@ def adafactor_init(params, cfg: Optional[OptimConfig] = None
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptimConfig, grads, state: AdafactorState, params):
+def adafactor_update(cfg: OptimConfig, grads, state: AdafactorState, params,
+                     specs=None):
     """One Adafactor step on clipped gradients; writes ``params`` and the
     state's statistics in place.  Returns (params, new state, {grad_norm,
     lr})."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, specs)
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     beta2 = 1.0 - (step.float() + 1.0) ** (-cfg.decay_rate)
     # the stats tree's leaves are the per-parameter dicts
     stats = [st for _, st in _stat_leaves(state.stats)]
-    for p, g, st in zip(tree_leaves(params), tree_leaves(grads), stats):
+    leaves = tree_leaves(params)
+    for p, g, st, dims in zip(leaves, tree_leaves(grads), stats,
+                              _split_dims(specs, leaves)):
         g = g.float() * scale
         g2 = torch.square(g) + 1e-30
         if "vr" in st:
             vr, vc = st["vr"], st["vc"]
-            vr.mul_(beta2).add_((1 - beta2) * torch.mean(g2, dim=-1))
-            vc.mul_(beta2).add_((1 - beta2) * torch.mean(g2, dim=-2))
-            denom = torch.mean(vr, dim=-1, keepdim=True)
+            vr.mul_(beta2).add_((1 - beta2) * _mean(g2, -1, dims[-1]))
+            vc.mul_(beta2).add_((1 - beta2) * _mean(g2, -2, dims[-2]))
+            denom = _mean(vr, -1, dims[-2], keepdim=True)
             pre = (vr[..., None] / torch.clamp(denom[..., None], min=1e-30)) \
                 * vc[..., None, :]
             update = g * torch.rsqrt(torch.clamp(pre, min=1e-30))
@@ -197,12 +239,24 @@ def adafactor_update(cfg: OptimConfig, grads, state: AdafactorState, params):
             v.mul_(beta2).add_((1 - beta2) * g2)
             update = g * torch.rsqrt(torch.clamp(v, min=1e-30))
         # update clipping (RMS <= 1): the Adafactor stabilizer
-        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
+        axes = [a for d in dims for a in d]
+        if axes:
+            sq = _sum_over(torch.sum(torch.square(update)), axes)
+            rms = torch.sqrt(sq / (update.numel() * _extent(axes)) + 1e-30)
+        else:
+            rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-30)
         update = update / torch.clamp(rms, min=1.0)
         pf = p.float()
         _write(p, pf - lr * update - lr * cfg.weight_decay * pf)
     return params, AdafactorState(step, state.stats), \
         {"grad_norm": gn, "lr": lr}
+
+
+def _extent(axes) -> int:
+    n = 1
+    for a in axes:
+        n *= shd.active_mesh().axis_size(a)
+    return n
 
 
 def _stat_leaves(tree, path=()):
@@ -225,9 +279,13 @@ def init_opt(name: str, params, cfg: Optional[OptimConfig] = None):
     raise ValueError(name)
 
 
-def apply_opt(name: str, cfg: OptimConfig, grads, state, params):
+def apply_opt(name: str, cfg: OptimConfig, grads, state, params,
+              specs=None):
+    """One step of optimizer ``name``; ``specs`` (the parameters'
+    ``PartitionSpec`` tree under the active mesh) when the trees hold
+    each rank's blocks."""
     if name == "adamw":
-        return adamw_update(cfg, grads, state, params)
+        return adamw_update(cfg, grads, state, params, specs)
     if name == "adafactor":
-        return adafactor_update(cfg, grads, state, params)
+        return adafactor_update(cfg, grads, state, params, specs)
     raise ValueError(name)

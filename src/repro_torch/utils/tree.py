@@ -2,7 +2,8 @@
 ``repro.utils.tree``): parameter counting, byte accounting, flat dict views.
 
 A tree is nested dicts, NamedTuples, lists and tuples; anything else is a
-leaf, and ``None`` is an empty subtree.  Leaves are visited in the order
+leaf (other tuple subclasses too, such as ``launch.sharding``'s
+``PartitionSpec``, as in JAX), and ``None`` is an empty subtree.  Leaves are visited in the order
 ``jax.tree.flatten`` visits the same structure: dict keys sorted,
 NamedTuple fields and sequence entries in order.  ``flatten_dict`` keys
 are the JAX package's: the path's dict keys, field names and indices
@@ -19,6 +20,10 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _is_seq(x) -> bool:
+    return type(x) in (list, tuple)
+
+
 def tree_flatten_with_path(tree: Any, path: Tuple[str, ...] = ()
                            ) -> List[Tuple[Tuple[str, ...], Any]]:
     """``[(path, leaf), ...]`` in ``jax.tree.flatten`` order."""
@@ -30,7 +35,7 @@ def tree_flatten_with_path(tree: Any, path: Tuple[str, ...] = ()
     if _is_namedtuple(tree):
         return [kv for f, v in zip(tree._fields, tree)
                 for kv in tree_flatten_with_path(v, path + (f,))]
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [kv for i, v in enumerate(tree)
                 for kv in tree_flatten_with_path(v, path + (str(i),))]
     return [(path, tree)]
@@ -51,7 +56,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
                             for i, v in enumerate(tree)))
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
@@ -70,7 +75,7 @@ def tree_unflatten(template: Any, leaves: list) -> Any:
             return {k: out[k] for k in t}
         if _is_namedtuple(t):
             return type(t)(*(build(v) for v in t))
-        if isinstance(t, (list, tuple)):
+        if _is_seq(t):
             return type(t)(build(v) for v in t)
         return next(it)
 

@@ -39,6 +39,8 @@ ego-net stand-ins ``louvain_batch`` / ``plp_batch`` on ``pallas`` launch
 the resident ``local_move`` kernels and ``bin_rank`` and equal the
 single-graph ``pallas`` runs and the ``ell`` batch, and the service's
 clean flush on the card equals its requests' single-graph runs.
+Two gloo ranks on cuda:0 take a (2, 1) mesh train step of the REDUCED
+qwen3-1.7b that holds against the one-rank step on the card.
 Shard-local ``distributed_louvain`` in two gloo ranks spawned on cuda:0
 and in a one-rank NCCL group equals the single-device ``segment``
 ``louvain()`` bit for bit on unit and integer weights, ``bin_rank``
@@ -2194,9 +2196,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     seen = {}
     real = optim.apply_opt
 
-    def capture(name, opt_cfg, grads, state, params):
+    def capture(name, opt_cfg, grads, state, params, specs=None):
         seen["grads"] = tree_map(lambda t: t.detach().cpu(), grads)
-        return real(name, opt_cfg, grads, state, params)
+        return real(name, opt_cfg, grads, state, params, specs)
 
     monkeypatch.setattr(optim, "apply_opt", capture)
     runs = {}
@@ -2255,6 +2257,93 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     assert m_gpu["lr"] == pytest.approx(lr, rel=TRAIN_OPT_RTOL)
     for a, g in zip(p_cpu, p_gpu):
         assert bool(((a - g).abs() <= 2 * lr + 1e-6 * a.abs()).all())
+
+
+def _par_step(mesh_shape, dev):
+    """One ``make_train_step`` of the REDUCED qwen3-1.7b (``grad_accum``
+    2, a (4 x 64) batch) on ``dev``, on ``mesh_shape``'s mesh or none:
+    (metrics, the optimizer's gradients and the parameters after, whole
+    and on the host, the wgmma launches of the step)."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train_step import make_train_step
+    from repro_torch.models.arch_config import ShapeCell
+    from repro_torch.train import optim
+    from repro_torch.train.data import make_batch
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    c = configs.get("qwen3-1.7b", reduced=True).replace(grad_accum=2)
+    m = model_api.build(c)
+    cell = ShapeCell("t", "train", 64, 4)
+    batch = {k: _card(v, dev) for k, v in make_batch(c, cell, 0).items()}
+    cfg = optim.OptimConfig(name=c.optimizer)
+    mesh = None if mesh_shape is None else make_host_mesh(*mesh_shape)
+    step, specs, _, _ = make_train_step(m, cfg, cell, mesh)
+    params = init_params(m.decls, seed=0, device=dev)
+    opt = optim.init_opt(c.optimizer, params, cfg)
+    if mesh is not None:
+        block = lambda t, s: shd.local_shard(t, s, mesh).contiguous().clone()
+        params = tree_map(block, params, specs[0])
+        opt = tree_map(block, opt, specs[1])
+    seen, real = {}, optim.apply_opt
+
+    def capture(name, opt_cfg, grads, state, params, specs=None):
+        seen["grads"] = tree_map(torch.clone, grads)
+        return real(name, opt_cfg, grads, state, params, specs)
+
+    optim.apply_opt = capture
+    launches = flash_attention_fwd_kernel.wgmma_launches
+    try:
+        params, _, met = step(params, opt, batch)
+    finally:
+        optim.apply_opt = real
+    torch.cuda.synchronize()
+    launches = flash_attention_fwd_kernel.wgmma_launches - launches
+    grads = seen["grads"]
+    if mesh is not None:
+        with shd.use_mesh(mesh):
+            whole = lambda t, s: shd.full_leaf(t, s, mesh)
+            grads = tree_map(whole, grads, specs[0])
+            params = tree_map(whole, params, specs[0])
+    host = lambda t: [x.detach().float().cpu() for x in tree_leaves(t)]
+    return ({k: float(v) for k, v in met.items()}, host(grads),
+            host(params), launches)
+
+
+def _par_card_rank(rank, world, shape):
+    """One rank of a two-rank gloo mesh on cuda:0 (spawned)."""
+    return _par_step(shape, torch.device("cuda", 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_data_parallel_step_of_two_gloo_ranks_on_one_card(cuda_device,
+                                                          shape):
+    """Two gloo ranks on cuda:0 take one mesh step of the REDUCED
+    qwen3-1.7b: at (2, 1) each its row of each microbatch, at (1, 2) its
+    heads, FFN columns and vocabulary (the remat recompute in the card's
+    autograd thread): every rank's attention through the wgmma kernel
+    (forward and remat recompute, 2 x 2 layers x 2 microbatches), the
+    loss within TRAIN_LOSS_REL and every gradient within TRAIN_GRAD_REL
+    of the one-rank step on the card, the parameters within 2 lr, and the
+    ranks' metrics equal."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    ranks = spawn_ranks(_par_card_rank, 2, backend="gloo", args=(shape,),
+                        timeout_s=300)
+    met, grads, params, launches = _par_step(None, cuda_device)
+    assert launches == 8
+    for r_met, r_grads, r_params, r_launches in ranks:
+        assert r_launches == 8 and r_met == ranks[0][0]
+        assert abs(r_met["loss"] - met["loss"]) <= \
+            TRAIN_LOSS_REL * abs(met["loss"])
+        for a, g in zip(grads, r_grads):
+            assert torch.isfinite(g).all()
+            assert float((a - g).abs().max()) <= \
+                TRAIN_GRAD_REL * float(a.abs().max())
+        lr = met["lr"]
+        for a, p in zip(params, r_params):
+            assert bool(((a - p).abs() <= 2 * lr + 1e-6 * a.abs()).all())
 
 
 DIST_FIELDS = ("labels", "n_communities", "levels", "modularity",

@@ -77,7 +77,9 @@ def test_every_module_is_visited():
               "repro_torch.launch.train_step", "repro_torch.launch.train",
               "repro_torch.models.rwkv6", "repro_torch.models.ssm",
               "repro_torch.configs.rwkv6_1_6b",
-              "repro_torch.configs.zamba2_1_2b"):
+              "repro_torch.configs.zamba2_1_2b",
+              "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+              "repro_torch.launch.collectives"):
         assert m in mods
 
 

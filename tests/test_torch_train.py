@@ -575,9 +575,9 @@ def test_train_step_matches_jax(compress, monkeypatch):
     seen = {}
     real = t_optim.apply_opt
 
-    def capture(name, cfg, grads, state, params):
+    def capture(name, cfg, grads, state, params, specs=None):
         seen["grads"] = t_tree.tree_map(torch.clone, grads)
-        return real(name, cfg, grads, state, params)
+        return real(name, cfg, grads, state, params, specs)
 
     monkeypatch.setattr(t_optim, "apply_opt", capture)
     tstep = t_train_step.make_train_step(tm, tcfg, cell_t,
@@ -630,7 +630,7 @@ def test_grad_accum_averages_the_microbatches(monkeypatch):
     b = _tbatch(_batch(c.vocab_size, (4, 16), 9))
     seen = {}
 
-    def capture(name, cfg, grads, state, params):
+    def capture(name, cfg, grads, state, params, specs=None):
         seen["grads"] = grads
         return params, state, {"grad_norm": 0.0, "lr": 0.0}
 
@@ -654,17 +654,24 @@ def test_grad_accum_averages_the_microbatches(monkeypatch):
 
 
 def test_meshes_and_serve_steps():
-    """A mesh raises ``NotImplementedError`` naming the ROADMAP item; the
-    serve steps without one are the model's functions."""
+    """The mesh paths of the serve steps raise ``NotImplementedError``
+    naming their ROADMAP item (the dry run's), and so does a train step
+    on a model axis above 1 for a family other than dense; the serve
+    steps without a mesh are the model's functions."""
+    from repro_torch.launch.mesh import Mesh
+
     c = t_configs.get("qwen3-1.7b", reduced=True)
     m = t_api.build(c)
     cell = ShapeCell("t", "train", 8, 2)
-    for make in (lambda: t_train_step.make_train_step(
-            m, t_optim.OptimConfig(), cell, mesh=object()),
-                 lambda: t_train_step.make_prefill_step(m, cell, object()),
-                 lambda: t_train_step.make_decode_step(m, cell, object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 #2"):
+    mesh = Mesh((1, 2), ("data", "model"))
+    for make in (lambda: t_train_step.make_prefill_step(m, cell, mesh),
+                 lambda: t_train_step.make_decode_step(m, cell, mesh)):
+        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
             make()
+    rwkv = t_api.build(t_configs.get("rwkv6-1.6b", reduced=True))
+    with pytest.raises(NotImplementedError, match="Queue 1 #2b"):
+        t_train_step.make_train_step(rwkv, t_optim.OptimConfig(), cell,
+                                     mesh=mesh)
     params = t_common.init_params(m.decls, seed=0, device="cpu")
     toks = torch.from_numpy(np.arange(16).reshape(2, 8) % c.vocab_size)
     prefill = t_train_step.make_prefill_step(m, cell)[0]
@@ -779,9 +786,17 @@ def test_launcher_resumes_bit_identically(tmp_path):
 
 
 def test_launcher_refuses_meshes_and_a_missing_card():
-    p = _run(BASE + ["--data", "2"], check=False)
+    """``--model`` above 1 on a family other than dense and an ``nccl``
+    group without a card a rank raise before any rank starts; without a
+    card and without ``--device cpu`` the launcher raises "no CUDA
+    device"."""
+    p = _run(["--arch", "rwkv6-1.6b"] + BASE[2:] + ["--model", "2"],
+             check=False)
     assert p.returncode != 0
-    assert "NotImplementedError" in p.stderr and "Queue 1 #2" in p.stderr
+    assert "NotImplementedError" in p.stderr and "Queue 1 #2b" in p.stderr
+    p = _run(BASE + ["--data", "2", "--backend", "nccl"], check=False)
+    assert p.returncode != 0
     if not torch.cuda.is_available():
+        assert "the nccl backend needs the card" in p.stderr
         p = _run(BASE[:-2], check=False)
         assert p.returncode != 0 and "no CUDA device" in p.stderr
