@@ -121,7 +121,9 @@ Phases, each failing loudly (exit code 1, no result line):
    communities, levels, Q and every per-level history); the per-level
    driver and ``distributed_plp`` run too, as world-1 references.  (b)
    Four gloo ranks spawned by ``launch.ranks.spawn_ranks``, all on
-   cuda:0, each building com-dblp on the card from the seed: in every
+   cuda:0, each loading phase 3's com-dblp onto the card from a file the
+   parent writes (``torch.save`` of the graph's tensors; built from the
+   seed in every rank it took 31-47 s of the phase): in every
    rank shard-local Louvain must equal (a), replicated Louvain must equal
    shard-local, shard-local Leiden the single-device Leiden,
    ``pipeline_fused=False`` and ``distributed_plp`` the world-1 runs,
@@ -264,34 +266,62 @@ Phases, each failing loudly (exit code 1, no result line):
    for bit.  The ``kernels`` rows of the flash kernels carry the three
    steps' launches as ``train_launches``.
 
-5p. Data- and model-parallel training (``[par]`` lines), on phase 5t's
-   qwen3-1.7b float32 weights at full width, their first 7 of 28 layers
-   (at 28 a mesh step took 35-52 s a rank on the H100 80GB HBM3 at
-   700 W, at 14 22-32 s; the cut is logged), saved once
-   with ``train/checkpoint.save``.  The unsharded ``make_train_step``
-   takes 2 steps on
-   ``ShapeCell("train_par", "train", 1024, 8)`` (AdamW, ``grad_accum`` 4),
-   the gradients its step 0 hands the optimizer and its parameters after
-   step 1 saved too; its weights are then freed.
-   Four gloo ranks spawned on cuda:0 (``launch.ranks.spawn_ranks``; NCCL
-   refuses two ranks on a card) form a (2, 2) ``make_host_mesh``: each
-   restores its blocks of the checkpoint (``param_specs``) and takes the
-   same 2 mesh steps, each data rank one row of each microbatch of 2, the
-   heads, FFN columns and vocabulary split over ``model``.  Per rank and
-   step, with the flash counters and the mesh's traffic counters set to 0
-   just before the step and read just after: exactly 2 x 7 x 4 = 56
-   wgmma launches and attention calls, every one at 8 query and 8 KV
-   heads (16 and 16 split in two), none of the float32 kernel; the loss
+5p. Data- and model-parallel training (``[par]`` lines), in cases, each
+   saved once with ``train/checkpoint.save`` and held against the
+   unsharded ``make_train_step`` on the same weights, which runs first on
+   the card (the gradients its step 0 hands the optimizer and its
+   parameters after the last step saved too; its weights then freed):
+   (i) phase 5t's qwen3-1.7b float32 weights at full width, their first
+   2 of 28 layers (at 28 a mesh step took 35-52 s a rank on the H100
+   80GB HBM3 at 700 W, at 7 10.9-29.8 s; the cut is logged), 2 steps of
+   ``ShapeCell("train_par", "train", 1024, 8)`` (AdamW, ``grad_accum``
+   4); (ii) ``qwen3-moe-30b-a3b`` at every published width (d_model
+   2048, 32 query heads over 4 KV heads repeated to 16, head dim 128,
+   128 experts top-8, expert d_ff 768, vocab 151 936), its weights drawn
+   on the card, 2 of its 48 layers and ``grad_accum`` 4 for the config's
+   8 (both cuts logged), 2 steps of the same cell, the unsharded step
+   with the JAX package's two dispatch groups forced and its expert ids
+   saved; (iii) the REDUCED llama4-maverick (dense/MoE pairs),
+   llama-3.2-vision (cross blocks), whisper (encoder-decoder), rwkv6 and
+   zamba2, one step each of ``(4 x 64)`` at ``grad_accum`` 2 from
+   ``init_params``' weights.
+   Four gloo ranks spawned on cuda:0 once (``launch.ranks.spawn_ranks``;
+   NCCL refuses two ranks on a card) form a (2, 2) ``make_host_mesh`` and
+   run the cases in turn, each case's state freed before the next: each
+   rank restores its blocks of the case's checkpoint (``param_specs``)
+   and takes the same steps, each data rank one row of each microbatch,
+   the heads, FFN columns, experts and vocabulary split over ``model``
+   where the JAX sharding puts them (the recurrent families: the
+   vocabulary).  A MoE config's mesh step takes the unsharded step's
+   expert ids (a near-tie flips on a bf16 ulp), and its own routing is
+   held to them by phase 5m's rule: with d the largest distance of the
+   rank's router probabilities from the unsharded step's at a token, its
+   own ids must equal them where every gap among the unsharded top k + 1
+   exceeds 2d, and its own set of experts where the gap between the k-th
+   and the (k+1)-th does (set-decided); at step 0 at least
+   MOE_MIN_DECIDED of the token-layers must be set-decided, or the check
+   would pass any routing.  Per
+   rank and step, with the flash counters, the attention, expert-FFN and
+   router probes and the mesh's traffic counters set to 0 just before
+   the step and read just after: the wgmma launches and attention calls
+   those of the unsharded step (for (i) and (ii) exactly 2 x 2 x 4 = 16,
+   every layer's forward and remat recompute a microbatch), every call
+   at the rank's heads ((i) 8 query and 8 KV, 16 and 16 split in two;
+   (ii) 16 and 8, 32 and 16 split in two; zamba2's shared block whole),
+   none of the float32 kernel; a MoE config's expert FFN on E/2 experts
+   (64 for (ii)) and no router decision against the rule; the loss
    within 1e-3 and the grad norm within 2^-8 relative of the unsharded
    step's; every gradient block step 0 hands the optimizer within
-   TRAIN_GRAD_REL (2^-5, ``tests/test_torch_cuda.py``'s) of the leaf's
-   largest magnitude of the unsharded step's; every rank's loss equal.
-   The parameters after step 1 are logged against the unsharded step's
-   in lr (within 2 lr whatever the gradients: AdamW's first update is at
-   most 1 in magnitude).  Step s, peak
-   memory and the bytes each rank received in gathers and in sums are
-   logged.  The wgmma row of the ``kernels`` line carries the ranks'
-   launches as ``par_launches``; the phase's seconds are logged.
+   TRAIN_GRAD_REL (2^-5, ``tests/test_torch_cuda.py``'s; a REDUCED case
+   its family's of ``tests/test_torch_train.py``, PAR_REDUCED_GRAD_REL)
+   of the leaf's largest magnitude of the unsharded step's; every rank's
+   loss equal.  Every gate missed is listed before the phase fails.  The
+   parameters after step 0 are logged against the unsharded step's in
+   lr (within 2 lr whatever the gradients: AdamW's first update is at
+   most 1 in magnitude).  Step s, peak memory and the bytes
+   each rank received in gathers and in sums are logged.  The wgmma row
+   of the ``kernels`` line carries the ranks' launches as
+   ``par_launches``; the phase's seconds are logged.
 
 5m. MoE (``[moe]`` lines), once phase 5's weights are freed:
    ``qwen3-moe-30b-a3b`` at every published width (d_model 2048, 32 query
@@ -433,6 +463,7 @@ before that the ``kernels`` JSON line; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -516,28 +547,57 @@ TRAIN_RESUME_STEPS = 6
 TRAIN_LOSS_REL = 2.0 ** -8
 TRAIN_GRAD_REL = 2.0 ** -5
 
-# Phase 5p: data- and model-parallel training of LM_ARCH at full width on
-# a (2, 2) mesh of gloo ranks sharing the card, at PAR_LAYERS of its 28
+# Phase 5p: data- and model-parallel training on a (2, 2) mesh of gloo
+# ranks sharing the card.  LM_ARCH at full width and PAR_LAYERS of its 28
 # layers (at 28 a mesh step took 35-52 s a rank on the H100 80GB HBM3 at
-# 700 W, at 14 22-32 s: about 0.4 GiB a layer, rank and step through
-# gloo's host path), (8 x 1024) with the config's grad_accum 4, so each
+# 700 W, at 7 10.9-29.8 s: the embeddings' traffic through gloo's host
+# path dominates), (8 x 1024) with the config's grad_accum 4, so each
 # data rank runs one row of each microbatch of 2;
 # the steps; the ranks' time limits (spawn to the last exit; a rank
 # waiting on a peer); the gates against the unsharded step,
 # tests/test_torch_parallel_train.py's: the loss within 1e-3 relative,
 # the grad norm within one bf16 ulp, and step 0's gradient blocks within
 # TRAIN_GRAD_REL of each leaf's largest magnitude.  (The parameters after
-# step 1 lie within 2 lr of the unsharded step's whatever the gradients,
-# AdamW's first update being at most 1 in magnitude: that distance is
-# logged, not gated.)
+# the last step lie within 2 lr of the unsharded step's whatever the
+# gradients, AdamW's first update being at most 1 in magnitude: that
+# distance is logged, not gated.)
 PAR_MESH = (2, 2)
-PAR_LAYERS = 7
+PAR_LAYERS = 2
 PAR_CELL = ("train_par", "train", 1024, 8)
 PAR_STEPS = 2
 PAR_TIMEOUT_S = 900
 PAR_COLLECTIVE_S = 600
 PAR_LOSS_REL = 1e-3
 PAR_GNORM_REL = 2.0 ** -8
+# Then the model axis of the other families in the same ranks: MoE at
+# every published width, PAR_MOE_LAYERS of its 48 layers (a layer is
+# about 0.62 G parameters: the four ranks' blocks, AdamW's moments and
+# the gathered copy with its gradients come to about 14 GB a rank at 2
+# layers and pass the card's 80 GB at 4) and grad_accum PAR_MOE_ACCUM
+# (the config's 8 would leave a data rank half a row of a microbatch of
+# one); then the REDUCED PAR_REDUCED_ARCHS, one step each of
+# PAR_REDUCED_CELL at grad_accum PAR_REDUCED_ACCUM.  A MoE config's mesh
+# step takes the unsharded step's expert ids (a near-tie router decision
+# flips on the bf16 ulps that split heads and split experts move; at 128
+# experts top-8 the (1, 2) CPU rule's fixed gap of 2^-6 decides no
+# token), and its own ids must equal them where decided (ParProbes).
+PAR_MOE_ARCH = "qwen3-moe-30b-a3b"
+PAR_MOE_LAYERS = 2
+PAR_MOE_ACCUM = 4
+PAR_REDUCED_ARCHS = ("llama4-maverick-400b-a17b", "llama-3.2-vision-11b",
+                     "whisper-large-v3", "rwkv6-1.6b", "zamba2-1.2b")
+PAR_REDUCED_CELL = ("train_par_reduced", "train", 64, 4)
+PAR_REDUCED_ACCUM = 2
+# The REDUCED cases' gradient gates by family: tests/test_torch_train.py's
+# tolerances for two roundings of one step (MOE_GRAD_REL, HYBRID_GRAD_REL,
+# RWKV_GRAD_REL), TRAIN_GRAD_REL for the others.  rwkv6's per-head group
+# norm turns the bf16 ulps by which the split vocabulary's partial products
+# move the residual's cotangent into a large share of a cancelling sum
+# (mu_w's gradient 0.047 of its largest magnitude at (2, 2) on the CPU);
+# llama4's top-1 experts see a few tokens each (we_up's 0.0238 on the CPU,
+# 0.0446 on the H100 80GB HBM3 at 700 W).
+PAR_REDUCED_GRAD_REL = {"moe": 2.0 ** -4, "hybrid": 2.0 ** -4,
+                        "ssm": 2.0 ** -3}
 
 # Phase 5m: qwen3-moe-30b-a3b at every published width and MOE_LAYERS of
 # its 48 layers (the float32 master weights of all 48, ~122 GB, do not fit
@@ -1328,17 +1388,16 @@ def _sync(torch, g) -> None:
         torch.cuda.synchronize()
 
 
-def dist_rank(rank: int, world: int, name: str, scale: float,
-              device: str) -> dict:
-    """One rank of phase 3d's gloo group (spawned): builds the graph on
-    ``device`` (the card) from the seed, as every rank does, and runs
-    ``dist_cases``."""
+def dist_rank(rank: int, world: int, path: str, device: str) -> dict:
+    """One rank of phase 3d's gloo group (spawned): loads the parent's
+    graph onto ``device`` (the card) from ``path`` (``torch.save`` of its
+    fields), as every rank does, and runs ``dist_cases``."""
     import torch
 
-    from repro_torch.graph import datasets
+    from repro_torch.graph.structure import Graph
 
     t = time.perf_counter()
-    g = datasets.load(name, scale=scale, device=torch.device(device)).graph
+    g = Graph(**torch.load(path, map_location=device))
     _sync(torch, g)
     out = dist_cases(g)
     out["load_s"] = time.perf_counter() - t - sum(
@@ -1359,14 +1418,13 @@ def _same_dist(a: dict, b, what: str) -> None:
             fail(f"{what} differ in {f}")
 
 
-def phase_dist(torch, rt, graphs, card: str, scale: float | None = None):
+def phase_dist(torch, rt, graphs, card: str):
     """(a) a one-rank NCCL group in this process and (b) a 4-rank gloo
     group, every rank on cuda:0, run the distributed drivers on com-dblp;
     each must equal the single-device ``segment`` runs."""
     import numpy as np
 
     name = COMMUNITY_GRAPH[0]
-    scale = COMMUNITY_GRAPH[1] if scale is None else scale
     g = graphs[name][0]
     t0 = time.perf_counter()
     mode = subprocess.run(
@@ -1408,12 +1466,17 @@ def phase_dist(torch, rt, graphs, card: str, scale: float | None = None):
         f"the single-device segment runs field by field; comm "
         f"{res['comm_stats']}; partition {res['partition_stats']}")
 
-    # (b) four ranks, gloo, all on cuda:0, each building the graph itself
+    # (b) four ranks, gloo, all on cuda:0, each loading the parent's graph
+    # (built from the seed in every rank, it took 31-47 s of the phase)
     t = time.perf_counter()
-    ranks = rt.spawn_ranks(dist_rank, DIST_RANKS, backend="gloo",
-                           args=(name, scale, str(g.device)),
-                           timeout_s=DIST_TIMEOUT_S,
-                           collective_timeout_s=DIST_COLLECTIVE_S)
+    with tempfile.TemporaryDirectory(prefix="repro-dist-") as tmp:
+        path = os.path.join(tmp, "graph.pt")
+        torch.save({f.name: getattr(g, f.name)
+                    for f in dataclasses.fields(g)}, path)
+        ranks = rt.spawn_ranks(dist_rank, DIST_RANKS, backend="gloo",
+                               args=(path, str(g.device)),
+                               timeout_s=DIST_TIMEOUT_S,
+                               collective_timeout_s=DIST_COLLECTIVE_S)
     wall_b = time.perf_counter() - t
     for r, rep in enumerate(ranks):
         what = f"{name}: gloo rank {r}/{DIST_RANKS}"
@@ -1445,7 +1508,7 @@ def phase_dist(torch, rt, graphs, card: str, scale: float | None = None):
                     "louvain_halo8"):
             if rep[key]["bin_rank"] <= 0:
                 fail(f"{what} {key} launched no bin_rank")
-        log(f"[dist] (b) gloo rank {r}: graph built in {rep['load_s']:.2f} "
+        log(f"[dist] (b) gloo rank {r}: graph loaded in {rep['load_s']:.2f} "
             f"s; " + ", ".join(
                 f"{k} {v['wall_s']:.2f} s / bin_rank {v['bin_rank']}"
                 for k, v in rep.items() if isinstance(v, dict)
@@ -2919,31 +2982,156 @@ def capture_grads(rt, seen: dict):
     return real
 
 
-def par_rank(rank: int, world: int, ckpt: str, arch: str, reduced: bool,
-             device: str) -> dict:
-    """One rank of phase 5p's (2, 2) gloo mesh (spawned): restores its
-    blocks of the parent's checkpoint (step 0), takes PAR_STEPS mesh
-    steps, the flash counters and the mesh's traffic counters set to 0
-    just before each and read just after.  After step 1 it measures the
-    gradient blocks its step 0 handed the optimizer against the same
-    blocks of the parent's unsharded step 0 (each leaf's distance over
-    the leaf's largest magnitude, taken across the ranks that split it),
-    and its parameter blocks against the unsharded step 1's (both in
-    checkpoint step 1)."""
-    import numpy as np
-    import torch
+def par_cases(rt, tmp: str, arch: str, dense_c, reduced: bool) -> list:
+    """Phase 5p's cases in their order: the dense one (``arch`` as
+    ``dense_c``, phase 5t's weights), the full-width MoE one (not with ``reduced``, the
+    CPU's check of the phase), then the REDUCED ones; each a dict the
+    parent fills and every rank reads (its checkpoint directory under
+    ``tmp``)."""
+    moe_full = rt.configs.get(PAR_MOE_ARCH)
+    cases = [{"name": arch, "arch": arch,
+              "reduced": reduced, "layers": dense_c.n_layers,
+              "accum": dense_c.grad_accum, "cell": PAR_CELL,
+              "steps": PAR_STEPS}]
+    if not reduced:
+        cases.append({"name": PAR_MOE_ARCH, "arch": PAR_MOE_ARCH,
+                      "reduced": False, "layers": PAR_MOE_LAYERS,
+                      "accum": PAR_MOE_ACCUM, "cell": PAR_CELL,
+                      "steps": PAR_STEPS, "full_layers": moe_full.n_layers,
+                      "full_accum": moe_full.grad_accum})
+    cases += [{"name": f"{a} (REDUCED)", "arch": a, "reduced": True,
+               "layers": None, "accum": PAR_REDUCED_ACCUM,
+               "cell": PAR_REDUCED_CELL, "steps": 1}
+              for a in PAR_REDUCED_ARCHS]
+    for i, case in enumerate(cases):
+        case["dir"] = os.path.join(tmp, f"case{i}")
+    return cases
 
-    rt = runtime(torch)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", 0)
-        torch.cuda.set_device(dev)
-    c = rt.configs.get(arch, reduced=reduced)
-    c = c.replace(n_layers=min(c.n_layers, PAR_LAYERS))
+
+def par_config(rt, case):
+    """A phase 5p case's config: its depth and ``grad_accum``."""
+    c = rt.configs.get(case["arch"], reduced=case["reduced"])
+    if case["layers"] is not None:
+        c = c.replace(n_layers=case["layers"])
+    return c.replace(grad_accum=case["accum"])
+
+
+def par_heads(c, n: int) -> tuple:
+    """The (query, KV) heads of every attention call of a rank at ``n``
+    ranks on ``model``: split where the config's heads divide (the
+    transformer families), whole for the Zamba2 shared block (its JAX
+    module constrains no heads)."""
+    if c.family == "hybrid":
+        return (c.n_heads, c.kv_eff)
+    return (c.n_heads // n, c.kv_eff // n)
+
+
+class ParProbes:
+    """The module attributes a phase 5p step is watched through, replaced
+    while it is on: the attention entry (the (q, KV) heads of each
+    call), the MoE expert FFN (the experts it runs on), and, with
+    ``calls``, the router: recording each call's expert ids and
+    probabilities into ``calls``, or with ``force`` taking call n's ids
+    from ``calls[n]`` (the groups of this rank's data coordinate),
+    weighted by its own probabilities at those ids, renormalised.  Phase
+    5m's rule holds a forced call's own ids: with d the largest distance
+    of its probabilities from the recorded ones at a token (no such
+    distance can reorder probabilities more than 2d apart), the token is
+    decided where every gap among the recorded top k + 1 exceeds 2d (its
+    own ids must equal those taken) and set-decided where the gap
+    between the k-th and the (k+1)-th does (its own set of experts must
+    equal theirs)."""
+
+    def __init__(self, rt, calls=None, force=False, mesh=None):
+        self.rt, self.calls, self.force, self.mesh = rt, calls, force, mesh
+        self.heads, self.experts, self.routed, self.n = [], set(), [], 0
+
+    def __enter__(self):
+        rt, torch = self.rt, self.rt.torch
+        self.saved = (rt.attention.flash_attention, rt.moe.expert_ffn,
+                      rt.moe.route)
+        entry, ffn, route = self.saved
+
+        def attention(q, k, v, causal=True, chunk=1024):
+            self.heads.append((q.shape[1], k.shape[1]))
+            return entry(q, k, v, causal, chunk)
+
+        def expert_ffn(buf, *w):
+            self.experts.add(buf.shape[1])
+            return ffn(buf, *w)
+
+        def router(xg, w_router, top_k):
+            logits, probs, own, own_p = route(xg, w_router, top_k)
+            if not self.force:
+                self.calls.append((own.cpu(), probs.detach().cpu()))
+                return logits, probs, own, own_p
+            ids, ref = (t.to(own.device) for t in self.calls[self.n])
+            self.n += 1
+            g = xg.shape[0]
+            if ids.shape[0] != g:
+                r = self.mesh.coord("data")
+                ids, ref = ids[r * g:(r + 1) * g], ref[r * g:(r + 1) * g]
+            self.routed.append((own, ids, ref,
+                                (probs.detach() - ref).abs().amax(-1)))
+            top_p = torch.gather(probs, -1, ids)
+            return logits, probs, ids, top_p / top_p.sum(-1, keepdim=True)
+
+        rt.attention.flash_attention = attention
+        rt.moe.expert_ffn = expert_ffn
+        if self.calls is not None:
+            rt.moe.route = router
+        return self
+
+    def __exit__(self, *exc):
+        (self.rt.attention.flash_attention, self.rt.moe.expert_ffn,
+         self.rt.moe.route) = self.saved
+
+    def flips(self) -> tuple:
+        """(tokens against the rule, tokens whose own ids differ from those
+        taken, the set-decided share of the token-calls) over the forced
+        calls since the last reading."""
+        torch = self.rt.torch
+        wrong = flips = n_set = total = 0
+        for own, ids, ref, d in self.routed:
+            k = own.shape[-1]
+            top = torch.sort(ref, -1, descending=True).values[..., :k + 1]
+            gaps = top[..., :-1] - top[..., 1:]
+            decided = gaps.min(-1).values > 2 * d
+            set_decided = gaps[..., -1] > 2 * d
+            differ = (own != ids).any(-1)
+            other_set = (torch.sort(own, -1).values
+                         != torch.sort(ids, -1).values).any(-1)
+            wrong += int((differ & decided).sum()
+                         + (other_set & set_decided).sum())
+            flips += int(differ.sum())
+            n_set += int(set_decided.sum())
+            total += decided.numel()
+        self.routed.clear()
+        return wrong, flips, n_set / max(1, total)
+
+
+def par_batch(torch, rt, c, cell, step, dev):
+    """Step ``step``'s global batch of ``cell`` on ``dev``."""
+    import numpy as np
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in rt.train_data.make_batch(c, cell, step).items()}
+
+
+def par_case_rank(torch, rt, case: dict, mesh, dev) -> dict:
+    """One rank's run of a phase 5p case: restores its blocks of the
+    case's checkpoint (step 0), takes the case's mesh steps (a MoE
+    config's with the unsharded steps' expert ids), the flash counters,
+    the probes and the mesh's traffic counters set to 0 just before each
+    and read just after.  After step 0 it measures the gradient blocks
+    that step handed the optimizer against the same blocks of the
+    unsharded step 0 (each leaf's distance over the leaf's largest
+    magnitude, taken across the ranks that split it), and its parameter
+    blocks against the unsharded step 0's (checkpoint step 1)."""
+    c = par_config(rt, case)
     model = rt.model_api.build(c)
-    cell = rt.ShapeCell(*PAR_CELL)
+    cell = rt.ShapeCell(*case["cell"])
     opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
-    mesh = rt.mesh_lib.make_host_mesh(*PAR_MESH)
     step_fn, (pspecs, ospecs, _), _, _ = rt.train_step.make_train_step(
         model, opt_cfg, cell, mesh)
     like = {"params": rt.tree.tree_map(
@@ -2951,103 +3139,199 @@ def par_rank(rank: int, world: int, ckpt: str, arch: str, reduced: bool,
         model.decls)}
     t = time.perf_counter()
     with rt.sharding.use_mesh(mesh):
-        params = rt.checkpoint.restore(ckpt, 0, like, device=dev,
+        params = rt.checkpoint.restore(case["dir"], 0, like, device=dev,
                                        specs={"params": pspecs})["params"]
     opt_state = rt.optim.init_opt(c.optimizer, like["params"], opt_cfg)
     opt_state = rt.tree.tree_map(lambda t, s: torch.zeros(
         rt.sharding.local_shape(t.shape, s, mesh), dtype=t.dtype,
         device=dev), opt_state, ospecs)
     out = {"coords": dict(mesh.coords), "restore_s": time.perf_counter() - t,
-           "state_gib": (torch.cuda.memory_allocated() / 2**30
-                         if dev.type == "cuda" else None), "steps": []}
+           "state_gib": torch.cuda.memory_allocated() / 2**30
+           if dev.type == "cuda" else None, "steps": []}
+    ids = os.path.join(case["dir"], "expert_ids.pt")
+    calls = torch.load(ids) if os.path.exists(ids) else None
     kern = rt.fa_kernel.flash_attention_fwd_kernel
-    heads = []
-    entry = rt.attention.flash_attention
-
-    def counted(q, k, v, causal=True, chunk=1024):
-        heads.append((q.shape[1], k.shape[1]))
-        return entry(q, k, v, causal, chunk)
-
-    rt.attention.flash_attention = counted
     seen = {}
     real_opt = capture_grads(rt, seen)
     try:
-        for step in range(PAR_STEPS):
-            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                     for k, v in rt.train_data.make_batch(c, cell,
-                                                          step).items()}
-            heads.clear()
-            kern.launches = kern.wgmma_launches = 0
-            mesh.bytes_gathered = mesh.bytes_summed = 0
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            params, opt_state, met = step_fn(params, opt_state, batch)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            rec = {"step": step, "s": time.perf_counter() - t,
-                   "loss": float(met["loss"]),
-                   "grad_norm": float(met["grad_norm"]),
-                   "lr": float(met["lr"]),
-                   "launches": {WGMMA: kern.wgmma_launches,
-                                F32_FLASH: kern.launches
-                                - kern.wgmma_launches},
-                   "heads": sorted(set(heads)), "calls": len(heads),
-                   "bytes_gathered": mesh.bytes_gathered,
-                   "bytes_summed": mesh.bytes_summed,
-                   "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
-                                if dev.type == "cuda" else None)}
-            if step == 0:
-                # the unsharded step 0's gradient blocks and step 1's
-                # parameter blocks, on the host
-                rt.optim.apply_opt = real_opt
-                like2 = {"params": like["params"], "grads": like["params"]}
-                with rt.sharding.use_mesh(mesh):
-                    ref = rt.checkpoint.restore(
-                        ckpt, 1, like2, device="cpu",
-                        specs={"params": pspecs, "grads": pspecs})
-                grad_rel, worst_leaf = 0.0, None
-                names = list(rt.tree.flatten_dict(ref["grads"]))
-                for name, a, g, s in zip(
-                        names, rt.tree.tree_leaves(ref["grads"]),
-                        rt.tree.tree_leaves(seen.pop("grads")),
-                        rt.tree.tree_leaves(pspecs)):
-                    a = a.to(dev).float()
-                    diff = (a - g.float()).abs().max()
-                    top = a.abs().max()
-                    for ax in rt.sharding.split_axes(s, mesh, a.dim()):
-                        top = mesh.max(top, ax)
-                    diff, top = float(diff), float(top)
-                    rel = diff / top if top > 0 else (
-                        0.0 if diff == 0 else float("inf"))
-                    if worst_leaf is None or rel > grad_rel:
-                        grad_rel, worst_leaf = rel, name
-                lr = rec["lr"]
-                worst = 0.0
-                for a, b in zip(rt.tree.tree_leaves(ref["params"]),
-                                rt.tree.tree_leaves(params)):
-                    d = (a.to(dev).float() - b.float()).abs()
-                    worst = max(worst, float(d.max()) / lr)
-                rec.update(grad_rel=grad_rel, grad_worst_leaf=worst_leaf,
-                           param_over_lr=worst)
-                del ref
-            out["steps"].append(rec)
+        with ParProbes(rt, calls, True, mesh) as probe:
+            for step in range(case["steps"]):
+                batch = par_batch(torch, rt, c, cell, step, dev)
+                probe.heads.clear()
+                probe.experts.clear()
+                kern.launches = kern.wgmma_launches = 0
+                mesh.bytes_gathered = mesh.bytes_summed = 0
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                params, opt_state, met = step_fn(params, opt_state, batch)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                rec = {"step": step, "s": time.perf_counter() - t,
+                       "loss": float(met["loss"]),
+                       "grad_norm": float(met["grad_norm"]),
+                       "lr": float(met["lr"]),
+                       "launches": {WGMMA: kern.wgmma_launches,
+                                    F32_FLASH: kern.launches
+                                    - kern.wgmma_launches},
+                       "heads": sorted(set(probe.heads)),
+                       "calls": len(probe.heads),
+                       "experts": sorted(probe.experts),
+                       "flips": probe.flips() if calls else None,
+                       "bytes_gathered": mesh.bytes_gathered,
+                       "bytes_summed": mesh.bytes_summed,
+                       "peak_gib": (torch.cuda.max_memory_allocated()
+                                    / 2**30 if dev.type == "cuda" else None)}
+                if step == 0:
+                    rt.optim.apply_opt = real_opt
+                    rec.update(par_grad_rel(torch, rt, case, like, pspecs,
+                                            seen.pop("grads"), mesh, dev))
+                    out["param_over_lr"] = par_param_over_lr(
+                        torch, rt, case, like, pspecs, params, rec["lr"],
+                        mesh, dev)
+                out["steps"].append(rec)
     finally:
-        rt.attention.flash_attention = entry
         rt.optim.apply_opt = real_opt
     return out
+
+
+def par_param_over_lr(torch, rt, case, like, pspecs, params, lr, mesh,
+                      dev) -> float:
+    """The largest distance of the parameter blocks after step 0 from the
+    unsharded step 0's (the case's checkpoint step 1), in lr."""
+    with rt.sharding.use_mesh(mesh):
+        ref = rt.checkpoint.restore(case["dir"], 1, like, device="cpu",
+                                    specs={"params": pspecs})["params"]
+    worst = 0.0
+    for a, b in zip(rt.tree.tree_leaves(ref), rt.tree.tree_leaves(params)):
+        d = (a.to(dev).float() - b.float()).abs()
+        worst = max(worst, float(d.max()) / lr)
+    return worst
+
+
+def par_grad_rel(torch, rt, case, like, pspecs, grads, mesh, dev) -> dict:
+    """The gradient blocks ``grads`` against the same blocks of the
+    unsharded step 0's (the case's checkpoint ``grads`` step): the worst
+    leaf's distance over its largest magnitude, taken across the ranks
+    that split it."""
+    with rt.sharding.use_mesh(mesh):
+        ref = rt.checkpoint.restore(case["dir"], 1, {"grads": like["params"]},
+                                    device="cpu",
+                                    specs={"grads": pspecs})["grads"]
+    grad_rel, worst_leaf = 0.0, None
+    for name, a, g, s in zip(list(rt.tree.flatten_dict(ref)),
+                             rt.tree.tree_leaves(ref),
+                             rt.tree.tree_leaves(grads),
+                             rt.tree.tree_leaves(pspecs)):
+        a = a.to(dev).float()
+        diff = (a - g.float()).abs().max()
+        top = a.abs().max()
+        for ax in rt.sharding.split_axes(s, mesh, a.dim()):
+            top = mesh.max(top, ax)
+            diff = mesh.max(diff, ax)
+        diff, top = float(diff), float(top)
+        rel = diff / top if top > 0 else (0.0 if diff == 0 else float("inf"))
+        if worst_leaf is None or rel > grad_rel:
+            grad_rel, worst_leaf = rel, name
+    return {"grad_rel": grad_rel, "grad_worst_leaf": worst_leaf}
+
+
+def par_rank(rank: int, world: int, cases: list, device: str) -> dict:
+    """One rank of phase 5p's (2, 2) gloo mesh (spawned): every case in
+    turn (``par_case_rank``), each case's state freed before the next."""
+    import torch
+
+    rt = runtime(torch)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    mesh = rt.mesh_lib.make_host_mesh(*PAR_MESH)
+    out = {}
+    for case in cases:
+        out[case["name"]] = par_case_rank(torch, rt, case, mesh, dev)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def par_parent_case(torch, rt, case: dict, params, dev) -> dict:
+    """The parent's part of a phase 5p case: its weights ``params`` saved
+    (checkpoint step 0), the unsharded ``make_train_step`` taking the
+    case's steps on them (a MoE config's with the JAX package's dispatch
+    groups at the mesh's data extent forced, its expert ids and router
+    probabilities saved for the ranks), the gradients its step 0 hands
+    the optimizer and the parameters after it saved (step 1); then the
+    tree is emptied.  Returns the unsharded steps' metrics, seconds and wgmma
+    launches."""
+    c = par_config(rt, case)
+    model = rt.model_api.build(c)
+    cell = rt.ShapeCell(*case["cell"])
+    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
+    t = time.perf_counter()
+    rt.checkpoint.save(case["dir"], 0, {"params": params},
+                       config_json=c.to_json())
+    save_s = time.perf_counter() - t
+    step_fn = rt.train_step.make_train_step(model, opt_cfg, cell)[0]
+    opt_state = rt.optim.init_opt(c.optimizer, params, opt_cfg)
+    ref, seen, calls = [], {}, [] if c.family == "moe" else None
+    kern = rt.fa_kernel.flash_attention_fwd_kernel
+    real_groups = rt.moe._n_groups
+    if calls is not None:
+        rt.moe._n_groups = lambda tokens: PAR_MESH[0]
+    real_opt = capture_grads(rt, seen)
+    try:
+        with ParProbes(rt, calls) as probe:
+            for step in range(case["steps"]):
+                batch = par_batch(torch, rt, c, cell, step, dev)
+                probe.heads.clear()
+                kern.wgmma_launches = 0
+                t = time.perf_counter()
+                params, opt_state, met = step_fn(params, opt_state, batch)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                ref.append({"loss": float(met["loss"]),
+                            "grad_norm": float(met["grad_norm"]),
+                            "lr": float(met["lr"]),
+                            "s": time.perf_counter() - t,
+                            "wgmma": kern.wgmma_launches,
+                            "calls": len(probe.heads)})
+                log(f"[par] {case['name']}: unsharded step {step}: loss "
+                    f"{ref[-1]['loss']:.6f}, grad norm "
+                    f"{ref[-1]['grad_norm']:.4f}, {ref[-1]['s']:.3f} s")
+                if step == 0:
+                    rt.optim.apply_opt = real_opt
+                    t = time.perf_counter()
+                    rt.checkpoint.save(case["dir"], 1, {
+                        "params": params, "grads": seen.pop("grads")},
+                        config_json=c.to_json())
+                    save_s += time.perf_counter() - t
+    finally:
+        rt.optim.apply_opt = real_opt
+        rt.moe._n_groups = real_groups
+    if calls:
+        torch.save(calls, os.path.join(case["dir"], "expert_ids.pt"))
+    del opt_state, step_fn
+    params.clear()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"unsharded": ref, "save_s": save_s, "family": c.family,
+            "n_layers": c.n_layers, "heads": par_heads(c, PAR_MESH[1]),
+            "experts": c.n_experts // PAR_MESH[1] if c.n_experts else None}
 
 
 def phase_parallel(args, torch, rt, params, arch: str = LM_ARCH,
                    reduced: bool = False, device: str = "cuda"):
     """Phase 5p: data- and model-parallel training on a (2, 2) mesh of four
-    gloo ranks sharing the card, held against the unsharded step on the
-    same weights.  ``params`` (phase 5's float32 weights; its first
-    PAR_LAYERS layers are copied and the tree emptied, as the ranks need
-    the card's memory) is saved once with ``train/checkpoint.save``."""
-    import numpy as np
-
+    gloo ranks sharing the card, each case held against the unsharded
+    step on the same weights: ``arch`` (phase 5's float32 weights
+    ``params``; its first PAR_LAYERS layers are copied and the tree
+    emptied, as the ranks need the card's memory), PAR_MOE_ARCH at every
+    published width (weights drawn on the card), the REDUCED
+    PAR_REDUCED_ARCHS (``init_params``' weights)."""
     dev = torch.device(device)
     full = rt.configs.get(arch, reduced=reduced)
     c = full.replace(n_layers=min(full.n_layers, PAR_LAYERS))
@@ -3059,68 +3343,31 @@ def phase_parallel(args, torch, rt, params, arch: str = LM_ARCH,
     cut["layers"] = {k: v[:c.n_layers].detach().clone()
                      for k, v in layers.items()}
     del layers
-    params = cut
-    model = rt.model_api.build(c)
-    cell = rt.ShapeCell(*PAR_CELL)
-    accum = c.grad_accum
-    opt_cfg = rt.optim.OptimConfig(name=c.optimizer)
     world = PAR_MESH[0] * PAR_MESH[1]
-    per_step = 2 * c.n_layers * accum
-    heads = (c.n_heads // PAR_MESH[1], c.kv_eff // PAR_MESH[1])
-    out = {"mesh": list(PAR_MESH), "cell": list(PAR_CELL),
-           "layers": c.n_layers, "grad_accum": accum, "backend": "gloo",
-           "reduced": ([f"{full.n_layers} layers cut to {c.n_layers} (at "
-                        f"{full.n_layers} a mesh step took 35-52 s a rank, "
-                        f"at 14 22-32 s, the ranks' gloo traffic through "
-                        f"the host)"]
-                       if c.n_layers < full.n_layers else []) + [
-                       f"train_4k's (256 x 4096) cut to {PAR_CELL[3]} x "
-                       f"{PAR_CELL[2]} ({PAR_MESH[0]} data ranks, one row of "
-                       f"each microbatch of {PAR_CELL[3] // accum} each)",
-                       f"{world} ranks share one card (gloo; NCCL refuses "
-                       f"two ranks on a card)", f"{PAR_STEPS} steps",
-                       "weights phase 5t's"]}
-    log(f"[par] {arch} {c.n_layers} layers, d_model {c.d_model}, mesh "
-        f"{PAR_MESH} (data, model) of gloo ranks on one card, cell "
-        f"{PAR_CELL}, grad_accum {accum}; reduced: {out['reduced']}")
+    out = {"mesh": list(PAR_MESH), "backend": "gloo", "cases": {}}
     with tempfile.TemporaryDirectory(prefix="repro-par-") as tmp:
-        t = time.perf_counter()
-        rt.checkpoint.save(tmp, 0, {"params": params},
-                           config_json=c.to_json())
-        out["save_s"] = time.perf_counter() - t
-        log(f"[par] the weights saved in {out['save_s']:.1f} s")
-        # the unsharded steps on the same weights
-        step_fn = rt.train_step.make_train_step(model, opt_cfg, cell)[0]
-        opt_state = rt.optim.init_opt(c.optimizer, params, opt_cfg)
-        ref = []
-        seen = {}
-        real_opt = capture_grads(rt, seen)
-        for step in range(PAR_STEPS):
-            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                     for k, v in rt.train_data.make_batch(c, cell,
-                                                          step).items()}
-            t = time.perf_counter()
-            params, opt_state, met = step_fn(params, opt_state, batch)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            ref.append({"loss": float(met["loss"]),
-                        "grad_norm": float(met["grad_norm"]),
-                        "lr": float(met["lr"]),
-                        "s": time.perf_counter() - t})
-            if step == 0:
-                rt.optim.apply_opt = real_opt
-                rt.checkpoint.save(tmp, 1, {"params": params,
-                                            "grads": seen.pop("grads")},
-                                   config_json=c.to_json())
-            log(f"[par] unsharded step {step}: loss {ref[-1]['loss']:.6f}, "
-                f"grad norm {ref[-1]['grad_norm']:.4f}, "
-                f"{ref[-1]['s']:.3f} s")
-        out["unsharded"] = ref
-        del opt_state, step_fn
-        params.clear()
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        cases = par_cases(rt, tmp, arch, c, reduced)
+        for case in cases:
+            cc = par_config(rt, case)
+            if case is cases[0]:
+                weights = cut
+            elif case["reduced"]:
+                weights = rt.init_params(rt.model_api.build(cc).decls,
+                                         seed=0, device=dev)
+            else:
+                t = time.perf_counter()
+                weights = device_init(torch, rt, rt.model_api.build(cc).decls,
+                                      0, dev)
+                case["init_s"] = time.perf_counter() - t
+            red = par_reduced(cc, case, full)
+            log(f"[par] {case['name']}: {cc.n_layers} layers, d_model "
+                f"{cc.d_model}, mesh {PAR_MESH} (data, model) of gloo ranks "
+                f"on one card, cell {case['cell']}, grad_accum {cc.grad_accum}"
+                f"; reduced: {red}")
+            rec = par_parent_case(torch, rt, case, weights, dev)
+            rec["reduced"] = red
+            out["cases"][case["name"]] = rec
+            del weights
         if dev.type == "cuda":
             out["parent_gib"] = torch.cuda.memory_allocated() / 2**30
             log(f"[par] the parent holds {out['parent_gib']:.2f} GiB "
@@ -3132,7 +3379,7 @@ def phase_parallel(args, torch, rt, params, arch: str = LM_ARCH,
         t = time.perf_counter()
         try:
             ranks = rt.spawn_ranks(par_rank, world, backend="gloo",
-                                   args=(tmp, arch, reduced, device),
+                                   args=(cases, device),
                                    timeout_s=PAR_TIMEOUT_S,
                                    collective_timeout_s=PAR_COLLECTIVE_S)
         finally:
@@ -3141,60 +3388,134 @@ def phase_parallel(args, torch, rt, params, arch: str = LM_ARCH,
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
         out["ranks_s"] = time.perf_counter() - t
-    out["ranks"] = ranks
-    launches = {WGMMA: 0, F32_FLASH: 0}
-    for rank, r in enumerate(ranks):
-        for rec in r["steps"]:
-            base = ref[rec["step"]]
-            loss_rel = abs(rec["loss"] - base["loss"]) / abs(base["loss"])
-            gn_rel = abs(rec["grad_norm"] - base["grad_norm"]) / \
-                base["grad_norm"]
-            rec.update(loss_rel=loss_rel, grad_norm_rel=gn_rel)
-            log(f"[par] rank {rank} {tuple(r['coords'].values())} step "
-                f"{rec['step']}: {rec['s']:.3f} s, loss {rec['loss']:.6f} "
-                f"(unsharded {base['loss']:.6f}, relative {loss_rel:.3g}), "
-                f"grad norm {rec['grad_norm']:.4f} (relative {gn_rel:.3g})"
-                f", peak {rec['peak_gib'] or 0:.2f} GiB, gathered "
-                f"{rec['bytes_gathered'] / 2**30:.3f} GiB, summed "
-                f"{rec['bytes_summed'] / 2**30:.3f} GiB, flash "
-                f"{rec['launches']} at heads {rec['heads']}"
-                + (f"; step 0's gradient blocks within "
-                   f"{rec['grad_rel']:.4g} of the leaf's largest magnitude "
-                   f"(worst {rec['grad_worst_leaf']}; gate "
-                   f"{TRAIN_GRAD_REL}); parameters after step 1 at most "
-                   f"{rec['param_over_lr']:.4f} lr from the unsharded "
-                   f"step's (2 lr by construction, not gated)"
-                   if rec["step"] == 0 else ""))
-            if loss_rel > PAR_LOSS_REL or gn_rel > PAR_GNORM_REL:
-                fail(f"[par] rank {rank} step {rec['step']}: loss relative "
-                     f"{loss_rel:.3g} (gate {PAR_LOSS_REL}), grad norm "
-                     f"relative {gn_rel:.3g} (gate {PAR_GNORM_REL})")
-            if rec["step"] == 0 and not rec["grad_rel"] <= TRAIN_GRAD_REL:
-                fail(f"[par] rank {rank}: step 0's gradient of "
-                     f"{rec['grad_worst_leaf']} {rec['grad_rel']:.4g} of "
-                     f"the leaf's largest magnitude from the unsharded "
-                     f"step's (gate {TRAIN_GRAD_REL})")
-            if device == "cuda" and rec["launches"] != {WGMMA: per_step,
-                                                        F32_FLASH: 0}:
-                fail(f"[par] rank {rank} step {rec['step']} launched the "
-                     f"flash kernels {rec['launches']}, want {per_step} "
-                     f"wgmma (forward and remat recompute of {c.n_layers} "
-                     f"layers x {accum} microbatches)")
-            if rec["calls"] != per_step or rec["heads"] != [heads]:
-                fail(f"[par] rank {rank} step {rec['step']}: {rec['calls']}"
-                     f" attention calls at (q, kv) heads {rec['heads']}, "
-                     f"want {per_step} at {heads}")
-            for k in launches:
-                launches[k] += rec["launches"][k]
-        if r["steps"][0]["loss"] != ranks[0]["steps"][0]["loss"]:
-            fail(f"[par] rank {rank}'s loss differs from rank 0's")
-    log(f"[par] a rank's state after its restore "
-        f"{max(r['state_gib'] or 0 for r in ranks):.2f} GiB; restore "
-        f"{max(r['restore_s'] for r in ranks):.1f} s a rank, "
-        f"checkpoint save {out['save_s']:.1f} s, ranks spawn to exit "
-        f"{out['ranks_s']:.1f} s; flash launches in the ranks' steps "
-        f"{launches}")
+    launches, bad = {WGMMA: 0, F32_FLASH: 0}, []
+    for case in cases:
+        rec = out["cases"][case["name"]]
+        rec["ranks"] = [r[case["name"]] for r in ranks]
+        for k, v in par_gate(rt, case, rec, device, bad).items():
+            launches[k] += v
+    log(f"[par] ranks spawn to exit {out['ranks_s']:.1f} s; flash launches "
+        f"in the ranks' steps {launches}")
+    if bad:
+        fail("; ".join(bad))
     return out, launches
+
+
+def par_reduced(c, case, full) -> list:
+    """What a phase 5p case cut from its published configuration."""
+    if case["reduced"] and case["steps"] == 1:
+        return [f"REDUCED config, cell {case['cell']}, grad_accum "
+                f"{case['accum']}, {case['steps']} step"]
+    out = []
+    n_full = case.get("full_layers", full.n_layers)
+    if c.n_layers < n_full:
+        out.append(f"{n_full} layers cut to {c.n_layers} " + (
+            "(the four ranks' state at 4 layers would pass the card's 80 GB)"
+            if c.family == "moe" else
+            "(a mesh step took 35-52 s a rank at 28 layers)"))
+    if case.get("full_accum") and case["full_accum"] != case["accum"]:
+        out.append(f"grad_accum {case['full_accum']} cut to {case['accum']}"
+                   f" (each data rank runs one row of each microbatch of "
+                   f"{PAR_CELL[3] // case['accum']})")
+    out += [f"train_4k's (256 x 4096) cut to {PAR_CELL[3]} x {PAR_CELL[2]}",
+            f"{PAR_MESH[0] * PAR_MESH[1]} ranks share one card (gloo; NCCL "
+            f"refuses two ranks on a card)", f"{case['steps']} steps"]
+    return out
+
+
+def par_gate(rt, case: dict, rec: dict, device: str, bad: list) -> dict:
+    """Log a phase 5p case's ranks and fail on any gate: per rank and
+    step the loss within PAR_LOSS_REL and the grad norm within
+    PAR_GNORM_REL of the unsharded step's; step 0's gradient blocks
+    within TRAIN_GRAD_REL (a REDUCED case: PAR_REDUCED_GRAD_REL) of each
+    leaf's largest magnitude; the wgmma
+    launches (none of the float32 kernel) and the attention calls equal
+    to the unsharded step's, every one at the rank's heads; a MoE
+    config's expert FFN on E/2 experts, its routing by ParProbes' rule and
+    at step 0 at least MOE_MIN_DECIDED of it set-decided;
+    every rank's loss equal.  Each gate missed is appended to ``bad``.
+    Returns the ranks' flash launches."""
+    name = case["name"]
+    launches = {WGMMA: 0, F32_FLASH: 0}
+    heads = [tuple(rec["heads"])]
+    grad_gate = PAR_REDUCED_GRAD_REL.get(rec["family"], TRAIN_GRAD_REL) \
+        if case["reduced"] else TRAIN_GRAD_REL
+    for rank, r in enumerate(rec["ranks"]):
+        for s in r["steps"]:
+            base = rec["unsharded"][s["step"]]
+            loss_rel = abs(s["loss"] - base["loss"]) / abs(base["loss"])
+            gn_rel = abs(s["grad_norm"] - base["grad_norm"]) / \
+                base["grad_norm"]
+            s.update(loss_rel=loss_rel, grad_norm_rel=gn_rel)
+            log(f"[par] {name} rank {rank} {tuple(r['coords'].values())} "
+                f"step {s['step']}: {s['s']:.3f} s, loss {s['loss']:.6f} "
+                f"(unsharded {base['loss']:.6f}, relative {loss_rel:.3g}), "
+                f"grad norm {s['grad_norm']:.4f} (relative {gn_rel:.3g}), "
+                f"peak {s['peak_gib'] or 0:.2f} GiB, gathered "
+                f"{s['bytes_gathered'] / 2**30:.3f} GiB, summed "
+                f"{s['bytes_summed'] / 2**30:.3f} GiB, flash "
+                f"{s['launches']} in {s['calls']} calls at heads "
+                f"{s['heads']}"
+                + (f", experts a call {s['experts']}, router flips "
+                   f"where (set-)decided {s['flips'][0]}, in all "
+                   f"{s['flips'][1]}, set-decided share "
+                   f"{s['flips'][2]:.3f}"
+                   if s["flips"] else "")
+                + (f"; step 0's gradient blocks within {s['grad_rel']:.4g} "
+                   f"of the leaf's largest magnitude (worst "
+                   f"{s['grad_worst_leaf']}; gate {grad_gate})"
+                   if s["step"] == 0 else ""))
+            if loss_rel > PAR_LOSS_REL or gn_rel > PAR_GNORM_REL:
+                bad.append(f"[par] {name} rank {rank} step {s['step']}: loss "
+                     f"relative {loss_rel:.3g} (gate {PAR_LOSS_REL}), grad "
+                     f"norm relative {gn_rel:.3g} (gate {PAR_GNORM_REL})")
+            if s["step"] == 0 and not s["grad_rel"] <= grad_gate:
+                bad.append(f"[par] {name} rank {rank}: step 0's gradient of "
+                     f"{s['grad_worst_leaf']} {s['grad_rel']:.4g} of the "
+                     f"leaf's largest magnitude from the unsharded step's "
+                     f"(gate {grad_gate})")
+            want = base["wgmma"]
+            if device == "cuda" and s["launches"] != {WGMMA: want,
+                                                      F32_FLASH: 0}:
+                bad.append(f"[par] {name} rank {rank} step {s['step']} launched "
+                     f"the flash kernels {s['launches']}, want {want} "
+                     f"wgmma as the unsharded step")
+            if s["calls"] != base["calls"] or (
+                    s["calls"] and s["heads"] != heads):
+                bad.append(f"[par] {name} rank {rank} step {s['step']}: "
+                     f"{s['calls']} attention calls at (q, kv) heads "
+                     f"{s['heads']}, want {base['calls']} at {heads}")
+            if rec["experts"] and s["experts"] != [rec["experts"]]:
+                bad.append(f"[par] {name} rank {rank}: the expert FFN ran on "
+                     f"{s['experts']} experts, want {rec['experts']}")
+            if s["flips"] and s["flips"][0]:
+                bad.append(f"[par] {name} rank {rank}: {s['flips'][0]} router "
+                     f"decisions flipped where decided or set-decided")
+            if s["flips"] and s["step"] == 0 \
+                    and s["flips"][2] < MOE_MIN_DECIDED:
+                bad.append(f"[par] {name} rank {rank}: {s['flips'][2]:.3f} of "
+                     f"the token-layers set-decided, want "
+                     f"{MOE_MIN_DECIDED}")
+            for k in launches:
+                launches[k] += s["launches"][k]
+        if r["steps"][0]["loss"] != rec["ranks"][0]["steps"][0]["loss"]:
+            bad.append(f"[par] {name}: rank {rank}'s loss differs from rank 0's")
+    if not case["reduced"] and rec["family"] != "ssm":
+        per_step = 2 * rec["n_layers"] * case["accum"]
+        if device == "cuda" and rec["unsharded"][0]["wgmma"] != per_step:
+            bad.append(f"[par] {name}: the unsharded step launched "
+                 f"{rec['unsharded'][0]['wgmma']} wgmma, want {per_step} "
+                 f"(forward and remat recompute of {rec['n_layers']} layers "
+                 f"x {case['accum']} microbatches)")
+    ranks = rec["ranks"]
+    log(f"[par] {name}: a rank's state after its restore "
+        f"{max(r['state_gib'] or 0 for r in ranks):.2f} GiB; restore "
+        f"{max(r['restore_s'] for r in ranks):.1f} s a rank, checkpoints "
+        f"{rec['save_s']:.1f} s"
+        + f"; parameters after step 0 at most "
+        f"{max(r['param_over_lr'] for r in ranks):.4f} lr from the "
+        f"unsharded step's (2 lr by construction, not gated)")
+    return launches
 
 
 def device_init(torch, rt, decls, seed: int, dev):

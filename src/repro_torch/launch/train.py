@@ -7,8 +7,9 @@ or with ``--data D --model M`` on a (D, M) mesh of ``D * M`` ranks that
 it spawns (``launch/ranks.py``), joined by ``--backend`` (gloo, the
 default, runs anywhere and lets ranks share one card; nccl needs a card a
 rank).  Each rank trains on ``cuda:(rank mod the card count)``, or on the
-CPU with ``--device cpu``; rank 0 alone prints.  Tensor parallelism
-(``--model`` above 1) is the dense family's; the other families raise.
+CPU with ``--device cpu``; rank 0 alone prints.  ``--model`` above 1
+splits every family's compute over the model axis (tensor and expert
+parallelism, the vocabulary; ``models/transformer.py``).
 
 Fault-tolerance contract (``tests/test_torch_train.py``):
   * checkpoint every ``--ckpt-every`` steps (atomic; ``train/checkpoint.py``);
@@ -44,7 +45,6 @@ from repro_torch.launch.train_step import make_train_step
 from repro_torch.models import api as model_api
 from repro_torch.models.arch_config import ShapeCell
 from repro_torch.models.common import init_params
-from repro_torch.models.transformer import NO_TP
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optim
 from repro_torch.train.data import DataConfig, make_batch
@@ -212,11 +212,6 @@ def main(argv=None):
     if args.backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"the nccl backend runs on the card, not on "
                          f"{dev.type}; use gloo")
-    if args.model > 1:
-        family = configs.get(args.arch, reduced=args.reduced).family
-        if family != "dense":
-            raise NotImplementedError(NO_TP.format(n=args.model,
-                                                   family=family))
     try:
         ranks.spawn_ranks(_rank, world, backend=args.backend,
                           args=(args, unknown))

@@ -19,8 +19,9 @@ same global batch):
     parameters, Adafactor's factored statistics as ``_opt_specs`` drops
     the factored dim);
   * at step start each parameter is gathered over the data axes, keeping
-    its split over ``model`` (the tensor-parallel compute of
-    ``models/transformer.py``);
+    its split over ``model`` (the tensor-parallel compute of every
+    family: ``models/transformer.py``, ``moe.py``, ``rwkv6.py`` and
+    ``ssm.py``);
   * ``_batch_spec`` applies to each microbatch of the global batch: data
     rank r runs rows ``[i*mb + r*mb/n, i*mb + (r+1)*mb/n)`` of
     microbatch i, the losses' means taken over every rank's rows
@@ -32,10 +33,8 @@ same global batch):
   * the global norm and clipping, Adafactor's means and update RMS and
     the int8 compression's per-tensor max are taken over the whole tree,
     each replicated block counted once.
-The model axis above 1 is the dense family's alone: the other families
-raise ``NotImplementedError`` naming ROADMAP Queue 1 #2b.  Without a
-mesh the step runs on a ``(1, 1)`` one, which splits nothing and runs no
-collective: the unsharded step.  The mesh paths of the serve
+Without a mesh the step runs on a ``(1, 1)`` one, which splits nothing
+and runs no collective: the unsharded step.  The mesh paths of the serve
 steps raise: only the JAX package's dry run used them (ROADMAP #6).
 """
 from __future__ import annotations
@@ -48,7 +47,6 @@ from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.arch_config import ArchConfig, ShapeCell
-from repro_torch.models.transformer import NO_TP
 from repro_torch.train import optim
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -172,9 +170,6 @@ def make_train_step(model: ModelAPI, opt_cfg: optim.OptimConfig,
     c = model.cfg
     accum = max(1, c.grad_accum)
     on = make_host_mesh(1, 1) if mesh is None else mesh
-    tp = on.axis_size("model")
-    if tp > 1 and c.family != "dense":
-        raise NotImplementedError(NO_TP.format(n=tp, family=c.family))
     rules = _rules_for(c)
     with shd.use_mesh(on, rules):
         pspecs = shd.param_specs(model.decls)

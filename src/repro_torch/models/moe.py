@@ -17,6 +17,28 @@ capacity.  Every gather and scatter stays inside a dispatch group:
 package's does; a data-parallel train step runs each data rank's rows as
 one of the JAX package's dispatch groups (``launch/train_step.py``).
 
+Expert parallelism (``moe_layer(..., split=mesh)``, where the JAX
+package's ``experts_act`` resolves to ``model``: E divides by the model
+extent n).  The JAX layout has no all-to-all: ``xg`` is replicated over
+``model`` (``("batch", None, None)``), the dispatch into ``buf`` is
+local, and its one reshard puts E on ``model``.  So model rank m holds
+the expert weights of experts [m·E/n, (m+1)·E/n) and:
+
+* routes every token of its data shard (``route`` and
+  ``_dispatch_indices`` replicated: capacity and keep are the same on
+  every model rank);
+* fills only its experts' slots (``dispatch(..., experts=...)``) and runs
+  the expert FFN on (G, E/n, C, D);
+* combines a partial output from its own slots, and the ranks' partials
+  are summed over ``model`` in rank order.
+
+That sum, of one (G, Tg, D) tensor, is the one collective a MoE layer
+runs in the forward pass: no all-to-all and no gather of rows.  The
+tokens and the top-k weights are replicated values that feed the split
+dispatch and combine, so they enter through ``copy_to`` (their
+cotangents summed over ``model``), and the router's gradient comes out
+whole on every rank; the aux loss is replicated and already whole.
+
 Parity with the JAX package, which the port's tests hold bit for bit on
 the integer parts:
 
@@ -36,12 +58,13 @@ the mesh).  Plain PyTorch throughout, differentiable under autograd.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.launch import collectives as coll
 from repro_torch.launch import sharding as shd
+from repro_torch.launch.mesh import Mesh
 
 
 # the aux loss's weights (the JAX package's ``moe_layer`` defaults; no
@@ -116,16 +139,23 @@ def capacity_of(capacity_factor: float, top_k: int, tg: int, e: int) -> int:
 
 
 def dispatch(xg: torch.Tensor, top_e: torch.Tensor, n_experts: int,
-             capacity: int):
+             capacity: int, experts: Optional[Tuple[int, int]] = None):
     """Sort, rank and scatter: (buf (G, E, C, D), slot, keep), slot and
     keep (G, Tg·k) over the assignments in token-major order.  Kept rows
     go to their slots, which are unique; dropped rows write their zeros to
-    the spare row E·C, which is cut off."""
+    the spare row E·C, which is cut off.  ``experts`` (first, count): only
+    those experts' slots, buf (G, count, C, D), ``slot`` counted from the
+    first one's and ``keep`` false for the other experts' assignments."""
     G, tg, d = xg.shape
     top_k = top_e.shape[-1]
-    ec = n_experts * capacity
     slot, keep = _dispatch_indices(top_e.reshape(G, tg * top_k), n_experts,
                                    capacity)
+    if experts is not None:
+        first, n_experts = experts
+        slot = slot - first * capacity
+        keep = keep & (slot >= 0) & (slot < n_experts * capacity)
+        slot = slot.clamp(0, n_experts * capacity - 1)
+    ec = n_experts * capacity
     token_of = torch.arange(tg, device=xg.device).repeat_interleave(top_k)
     group_of = torch.arange(G, device=xg.device)[:, None]
     idx = torch.where(keep, slot, ec)
@@ -198,7 +228,12 @@ def moe_layer(
     w_down: torch.Tensor,       # (E, F, D)
     top_k: int,
     capacity_factor: float = 1.25,
+    *,
+    split: Optional[Mesh] = None,
 ) -> MoEOut:
+    """The MoE layer; with ``split``, the mesh whose ``model`` axis the
+    experts are split over (``w_gate``, ``w_up`` and ``w_down`` hold this
+    rank's E/n experts), expert-parallel as the module docstring says."""
     b, s, d = x.shape
     e = w_router.shape[-1]
     t = b * s
@@ -207,8 +242,18 @@ def moe_layer(
     xg = x.reshape(G, tg, d)
     logits, probs, top_e, top_p = route(xg, w_router, top_k)
     capacity = capacity_of(capacity_factor, top_k, tg, e)
-    buf, slot, keep = dispatch(xg, top_e, e, capacity)
-    yb = expert_ffn(buf, w_gate, w_up, w_down)
-    y = combine(yb, slot, keep, top_p)
+    if split is None:
+        buf, slot, keep = dispatch(xg, top_e, e, capacity)
+        yb = expert_ffn(buf, w_gate, w_up, w_down)
+        y = combine(yb, slot, keep, top_p)
+    else:
+        local = w_gate.shape[0]
+        buf, slot, keep = dispatch(
+            coll.copy_to(xg, split, "model"), top_e, e, capacity,
+            experts=(split.coord("model") * local, local))
+        yb = expert_ffn(buf, w_gate, w_up, w_down)
+        y = coll.reduce_from(
+            combine(yb, slot, keep, coll.copy_to(top_p, split, "model")),
+            split, "model")
     aux = aux_loss(logits, probs, top_e)
     return MoEOut(y.reshape(b, s, d), aux)

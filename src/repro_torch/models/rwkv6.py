@@ -26,6 +26,29 @@ a chunk's cumulative log-decay passes about -88 (at init the log-decay is
 about -1 a step, so the published chunk of 128 overflows; ROADMAP Queue
 3).  The port exponentiates the masked differences themselves, so every
 ``exp`` argument is <= 0, as the JAX module's docstring intends.
+
+The model axis (a mesh's ``model`` extent above 1): the JAX module
+constrains only ``embed_act`` (replicated: the residual stays whole on
+every rank) and ``vocab_act``; its ``heads``/``mlp`` names are those of
+the stored parameters.  So the port splits the vocabulary as
+``models/transformer.py`` does (``_embed``, ``_logits`` and the
+vocab-parallel ``cross_entropy_loss``) and gathers every other
+stored-split leaf over ``model`` (``transformer.gather_model``) before
+replicated compute:
+
+  leaf                              stored over model   compute
+  embed, unembed                    vocab               split
+  cm_wk (cols), cm_wv (rows)        mlp                 gathered
+  wr, wk, wv, wg, wo, cm_wr         heads (cols)        gathered
+  u                                 heads               gathered
+  mus, tm_w1/w2, decay_w1/w2, w0,   (replicated)        replicated
+  ln_x_*, ln1, ln2
+
+The channel mix's columns are independent, so it could split as the
+dense FFN does, but a split sums each rank's rounded bf16 partial
+product, and the per-head group norm amplifies that: at REDUCED size on
+(1, 2) it moved ``ln_x_bias``'s gradient by 0.39 of its largest
+magnitude from the unsharded step's (0.020 gathered).
 """
 from __future__ import annotations
 
@@ -38,8 +61,7 @@ import torch.nn.functional as F
 from repro_torch.graph.structure import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.arch_config import ArchConfig
-from repro_torch.models.common import (ParamDecl, cast_compute,
-                                       cross_entropy_loss, rms_norm)
+from repro_torch.models.common import ParamDecl, cast_compute, rms_norm
 
 P = ParamDecl
 MIX = ("r", "k", "v", "g", "w")
@@ -249,6 +271,9 @@ def init_state(c: ArchConfig, batch: int, device=None) -> RWKVState:
 
 def _layer(c: ArchConfig, h, lp, tm_prev, cm_prev, wkv):
     lp = cast_compute(lp)
+    tp = transformer.tp_plan(c)
+    if tp is not None:
+        lp = transformer.gather_model(tp, build_decls(c)["layers"], lp)
     y, tm_new, wkv = _time_mix(c, lp, rms_norm(h, lp["ln1"]), tm_prev, wkv,
                                chunk=c.chunk_size)
     h = h + y
@@ -262,7 +287,7 @@ def forward(c: ArchConfig, params, tokens, state: RWKVState | None = None,
     b, s = tokens.shape
     if state is None:
         state = init_state(c, b, tokens.device)
-    x = params["embed"][tokens].to(torch.bfloat16)
+    x = transformer._embed(c, params, tokens)
     body = functools.partial(_layer, c)
     tm, cm, wkv = [], [], []
     for l, lp in enumerate(transformer._per_layer(params["layers"])):
@@ -271,8 +296,7 @@ def forward(c: ArchConfig, params, tokens, state: RWKVState | None = None,
         tm.append(t_new)
         cm.append(c_new)
         wkv.append(w_new)
-    x = rms_norm(x, params["final_norm"])
-    logits = x @ params["unembed"].to(x.dtype)
+    logits = transformer._logits(c, params, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_state:
         return logits, aux, RWKVState(torch.stack(tm), torch.stack(cm),
@@ -281,9 +305,8 @@ def forward(c: ArchConfig, params, tokens, state: RWKVState | None = None,
 
 
 def loss_fn(c: ArchConfig, params, batch):
-    logits, aux = forward(c, params, batch["tokens"])
-    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
-    return ce + aux, {"ce": ce, "aux": aux}
+    return transformer.lm_loss(c, forward(c, params, batch["tokens"]),
+                               batch)
 
 
 def decode_step(c: ArchConfig, params, token, state: RWKVState):

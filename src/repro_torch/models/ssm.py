@@ -26,6 +26,29 @@ paper's "shared attn blocks".  ``x0`` is the bf16 embedding.
   ``shared_attn_every`` layers), runs under the full checkpoint when
   autograd records it, as the JAX module's ``nothing_saveable``
   checkpoints, whatever ``c.remat`` says.
+* The model axis (a mesh's ``model`` extent above 1): the JAX module
+  constrains only ``embed_act`` (replicated) and ``vocab_act``, so the
+  port splits the vocabulary as ``models/transformer.py`` does and
+  gathers every other stored-split leaf over ``model``
+  (``transformer.gather_model``) before replicated compute.  The shared
+  block's attention therefore runs every head on every rank:
+
+    leaf                               stored over model   compute
+    embed, unembed                     vocab               split
+    shared w_gate, w_up (cols),        mlp                 gathered
+      w_down (rows)
+    shared wq (cols), wo (rows)        heads               gathered
+    in_proj (packs z, x, B, C, dt)     mlp (cols)          gathered
+    norm_y, out_proj (rows)            mlp                 gathered
+    dt_bias, a_log, d_skip             heads               gathered
+    ln, conv_w, conv_b, shared wk/wv,  (replicated)        replicated
+      shared ln/ln_mlp, final_norm
+
+  The shared SwiGLU's columns are independent, so it could split as the
+  dense FFN does; split, its rounded partial sums moved ``shared/wk``'s
+  gradient by 0.0295 of its largest magnitude from the unsharded step's
+  at REDUCED size on (1, 2) (0.0187 gathered), too near the 2^-5 the
+  tests hold.
 """
 from __future__ import annotations
 
@@ -40,7 +63,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
 from repro_torch.models.arch_config import ArchConfig
 from repro_torch.models.common import (ParamDecl, apply_rope, cast_compute,
-                                       cross_entropy_loss, rms_norm)
+                                       rms_norm)
 from repro_torch.models.rwkv6 import checkpointed, pick_chunk
 
 P = ParamDecl
@@ -207,7 +230,11 @@ def _mamba_block(c: ArchConfig, p, x, conv_state, ssm_state, *, chunk):
 def _shared_attn_block(c: ArchConfig, p, x, x0, positions, cache=None,
                        pos=None):
     """Zamba2 shared block on concat(x, x0); returns (x, new kv slice).
-    With ``cache`` (ck, cv), one decode step at the scalar ``pos``."""
+    With ``cache`` (ck, cv), one decode step at the scalar ``pos``.  On
+    the model axis its stored-split leaves are gathered first."""
+    tp = transformer.tp_plan(c)
+    if tp is not None:
+        p = transformer.gather_model(tp, build_decls(c)["shared"], p)
     b = x.shape[0]
     h2 = rms_norm(torch.cat([x, x0], dim=-1), p["ln"])
     hd, hq, hkv = c.hd, c.n_heads, c.n_kv_heads
@@ -271,8 +298,12 @@ def init_state(c: ArchConfig, batch: int, max_seq: int,
 
 
 def _mamba_layer(c: ArchConfig, h, lp):
-    """One Mamba2 layer of the prefill, from zero conv and SSM states."""
+    """One Mamba2 layer of the prefill, from zero conv and SSM states;
+    on the model axis its stored-split leaves gathered first."""
     lp = cast_compute(lp)
+    tp = transformer.tp_plan(c)
+    if tp is not None:
+        lp = transformer.gather_model(tp, build_decls(c)["mamba_layers"], lp)
     b = h.shape[0]
     d_in, H, N, G, conv_ch = _dims(c)
     zc = torch.zeros((b, c.conv_width - 1, conv_ch), dtype=torch.bfloat16,
@@ -295,7 +326,7 @@ def _group(c: ArchConfig, positions, h, shared, layers, x0):
 def forward(c: ArchConfig, params, tokens):
     """Training/prefill forward -> (logits, aux)."""
     b, s = tokens.shape
-    x0 = params["embed"][tokens].to(torch.bfloat16)
+    x0 = transformer._embed(c, params, tokens)
     x = x0
     positions = torch.arange(s, device=tokens.device)
     every = c.shared_attn_every or (c.n_layers + 1)
@@ -311,15 +342,13 @@ def forward(c: ArchConfig, params, tokens):
     if tail:
         for lp in layers[-tail:]:
             x = checkpointed(c, functools.partial(_mamba_layer, c), x, lp)
-    x = rms_norm(x, params["final_norm"])
-    logits = x @ params["unembed"].to(x.dtype)
+    logits = transformer._logits(c, params, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def loss_fn(c: ArchConfig, params, batch):
-    logits, aux = forward(c, params, batch["tokens"])
-    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
-    return ce + aux, {"ce": ce, "aux": aux}
+    return transformer.lm_loss(c, forward(c, params, batch["tokens"]),
+                               batch)
 
 
 def _mamba_step(c: ArchConfig, h, lp, conv_st, ssm_st):

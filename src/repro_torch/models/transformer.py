@@ -9,22 +9,35 @@ embeddings and a causal decoder with cross-attention).
   ``lax.scan`` over them becomes a loop over layers that slices layer l and
   casts the slice to bf16 (``cast_compute``), so the 1-D norm scales stay
   float32.
-* Tensor parallelism (the dense family, under an active mesh whose
+* Tensor parallelism (every family, under an active mesh whose
   ``model`` axis has more than one rank; ``launch/train_step.py`` runs
   it).  The parameters come as each rank's blocks of ``param_specs``
   (gathered over ``data``).  The compute splits a dim over ``model`` only
   where the JAX package's sharding constraint at that point resolves to
   ``model`` for that shape, otherwise the weight is gathered over
-  ``model`` first (``gather_from``): the attention heads where q's
-  ``heads_act`` resolves (each rank's q heads, the K/V heads they read
-  from the replicated ``wk``/``wv``, the partial ``wo`` product summed
-  over ``model``), the FFN where its ``mlp`` dim is stored split
-  (columns of ``w_gate``/``w_up``, rows of ``w_down``, then a sum), and
-  the vocabulary where ``vocab_act`` resolves (a masked local embedding
-  lookup then a sum; local logit columns into the vocab-parallel
-  ``cross_entropy_loss``).  The residual stays replicated over ``model``:
-  nemotron's ``shard_residual_embed`` (``embed_act`` -> ``model``) only
-  moves its layout.  The other families raise at ``model`` above 1.
+  ``model`` first (``gather_from``):
+  - the attention heads where q's ``heads_act`` resolves: each rank's q
+    heads, the K/V heads they read from the replicated ``wk``/``wv``, the
+    partial ``wo`` product summed over ``model``.  Self-attention (causal,
+    and whisper's non-causal encoder) and cross-attention alike: the
+    VLM's and whisper's ``x_`` blocks take K/V from the features (no
+    RoPE, non-causal), which enter through ``copy_to``;
+  - the FFN where its ``mlp`` dim is stored split: columns of
+    ``w_gate``/``w_up``, rows of ``w_down``, then a sum.  This holds for
+    the VLM's gated ``x_`` FFN and llama4's shared expert (its own
+    ``d_ff_shared``) too.  Whisper's ``b_up`` is split with its columns;
+    its ``b_down`` is added once, after the sum;
+  - the experts where ``experts_act`` resolves (``models/moe.py``:
+    expert parallelism, one sum over ``model`` a layer);
+  - the vocabulary where ``vocab_act`` resolves: a masked local
+    embedding lookup then a sum; local logit columns into the
+    vocab-parallel ``cross_entropy_loss``.  Whisper's 51 866 divides by
+    2 and not by 4, so at ``model`` 4 it stays replicated.
+  The norms, the VLM's tanh gates and the residual stay replicated over
+  ``model``: nemotron's ``shard_residual_embed`` (``embed_act`` ->
+  ``model``) only moves its layout.  ``gather_model`` gathers a layer's
+  stored-split leaves for the recurrent families (``rwkv6.py``,
+  ``ssm.py``), whose JAX modules constrain only ``vocab_act``.
 * Dense FFNs follow ``c.activation``: SwiGLU, nemotron's squared ReLU (no
   gate), or whisper's GELU MLP with biases.  Norms follow ``c.norm``: RMS,
   or whisper's layer norm (scale ``1 + p[name]`` and bias ``p[name_b]``).
@@ -99,11 +112,6 @@ from repro_torch.models.common import (ParamDecl, apply_rope, cast_compute,
                                        swiglu, tree_leaves, tree_map)
 
 P = ParamDecl
-
-
-NO_TP = ("tensor parallelism (a mesh's model axis of {n} ranks) is ported "
-         "for the dense family only; the {family} family's is ROADMAP "
-         "Queue 1 #2b")
 
 
 def _check_family(c: ArchConfig) -> None:
@@ -256,8 +264,9 @@ def layer_slice(stacked: Dict[str, torch.Tensor], l: int
 class TPPlan(NamedTuple):
     """Where the model axis splits the compute: q's heads (``heads``), the
     K/V heads as q's (``kv``: ``kv_eff`` divides too), ``wq``'s columns
-    and ``wo``'s rows stored split (``qkv_stored``), the FFN's ``mlp`` dim
-    and the vocabulary."""
+    and ``wo``'s rows stored split (``qkv_stored``), the FFN's ``mlp`` dim,
+    the vocabulary, the MoE experts and llama4's shared expert's ``mlp``
+    dim (``d_ff_shared``)."""
     mesh: Mesh
     n: int
     m: int
@@ -266,18 +275,17 @@ class TPPlan(NamedTuple):
     qkv_stored: bool
     mlp: bool
     vocab: bool
+    experts: bool
+    shared_mlp: bool
 
 
 def tp_plan(c: ArchConfig) -> Optional[TPPlan]:
     """The active mesh's tensor-parallel plan for ``c``; None without a
-    mesh or with one rank on ``model``.  Raises for a family other than
-    dense."""
+    mesh or with one rank on ``model``."""
     mesh = shd.active_mesh()
     n = 1 if mesh is None else mesh.axis_size("model")
     if n == 1:
         return None
-    if c.family != "dense":
-        raise NotImplementedError(NO_TP.format(n=n, family=c.family))
 
     def on_model(names, shape, dim):
         return shd.resolve_spec(names, shape).padded(len(shape))[dim] \
@@ -292,20 +300,47 @@ def tp_plan(c: ArchConfig) -> Optional[TPPlan]:
                             (c.d_model, c.n_heads * c.hd), 1),
         mlp=on_model(("embed", "mlp"), (c.d_model, c.d_ff), 1),
         vocab=on_model(("batch", None, "vocab_act"),
-                       (1, 1, c.vocab_size), 2))
+                       (1, 1, c.vocab_size), 2),
+        experts=on_model(("batch", "experts_act", None, None),
+                         (1, c.n_experts, 1, 1), 1),
+        shared_mlp=on_model(("embed", "mlp"), (c.d_model, c.d_ff_shared), 1))
 
 
-def _project_qkv_tp(c: ArchConfig, tp: TPPlan, p, x, positions):
+def gather_model(tp: TPPlan, decls: Dict[str, P], p: Dict[str, torch.Tensor],
+                 keep: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``p`` (a layer slice, or an unstacked block) with every leaf whose
+    stored spec (``decls``: its declarations, stacked ones with the
+    leading layer dim) splits a dim over ``model`` gathered over it, but
+    the leaves named in ``keep``, which the caller computes split."""
+    out = dict(p)
+    for k, t in p.items():
+        if k in keep:
+            continue
+        d = decls[k]
+        off = len(d.shape) - t.dim()
+        spec = shd.resolve_spec(d.names, d.shape).padded(len(d.shape))
+        for dim, part in enumerate(spec):
+            if part == "model":
+                out[k] = coll.gather_from(t, tp.mesh, "model", dim - off)
+    return out
+
+
+def _project_qkv_tp(c: ArchConfig, tp: TPPlan, p, x, positions,
+                    prefix: str = "", rope: bool = True,
+                    kv_from: Optional[torch.Tensor] = None):
     """``_project_qkv`` for this rank's q heads (``tp.heads``): q from its
     ``wq`` columns, K and V of the KV heads those q heads read (their
     own block where ``kv_eff`` splits too, else one per q head), from the
-    replicated ``wk``/``wv`` whose gradients are summed over ``model``."""
+    replicated ``wk``/``wv`` whose gradients are summed over ``model``;
+    ``kv_from`` the replicated features of cross-attention."""
     hd, hq = c.hd, c.n_heads
     mesh = tp.mesh
     b, s = x.shape[0], x.shape[1]
     hl = hq // tp.n
     x = coll.copy_to(x, mesh, "model")
-    q = (x @ p["wq"]).reshape(b, s, hl, hd)
+    kv_src = x if kv_from is None else coll.copy_to(kv_from, mesh, "model")
+    sk = kv_src.shape[1]
+    q = (x @ p[prefix + "wq"]).reshape(b, s, hl, hd)
     # the eff KV head of each local q head, then its original head
     eff = torch.arange(tp.m * hl, (tp.m + 1) * hl) // (hq // c.kv_eff)
     if tp.kv:
@@ -313,16 +348,17 @@ def _project_qkv_tp(c: ArchConfig, tp: TPPlan, p, x, positions):
     orig = eff // (c.kv_eff // c.n_kv_heads)
     lo, hi = int(orig[0]), int(orig[-1]) + 1
     cols = slice(lo * hd, hi * hd)
-    k = (x @ coll.copy_to(p["wk"], mesh, "model")[:, cols]).reshape(
-        b, s, hi - lo, hd)
-    v = (x @ coll.copy_to(p["wv"], mesh, "model")[:, cols]).reshape(
-        b, s, hi - lo, hd)
+    k = (kv_src @ coll.copy_to(p[prefix + "wk"], mesh, "model")[:, cols]
+         ).reshape(b, sk, hi - lo, hd)
+    v = (kv_src @ coll.copy_to(p[prefix + "wv"], mesh, "model")[:, cols]
+         ).reshape(b, sk, hi - lo, hd)
     if c.qk_norm:
-        q = rms_norm(q, coll.copy_to(p["q_norm"], mesh, "model"))
-        k = rms_norm(k, coll.copy_to(p["k_norm"], mesh, "model"))
+        q = rms_norm(q, coll.copy_to(p[prefix + "q_norm"], mesh, "model"))
+        k = rms_norm(k, coll.copy_to(p[prefix + "k_norm"], mesh, "model"))
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    q = apply_rope(q, positions, c.rope_theta)
-    k = apply_rope(k, positions, c.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, c.rope_theta)
+        k = apply_rope(k, positions, c.rope_theta)
     idx = (orig - lo).to(x.device)
     return q, k.index_select(1, idx), v.index_select(1, idx)
 
@@ -332,16 +368,25 @@ def _self_attn_tp(c: ArchConfig, tp: TPPlan, p, x, positions, causal):
     the partial ``wo`` products, or, where q's heads do not split, the
     whole attention on every rank with ``wq``/``wo`` gathered."""
     if not tp.heads:
-        if tp.qkv_stored:
-            p = dict(p, wq=coll.gather_from(p["wq"], tp.mesh, "model", 1),
-                     wo=coll.gather_from(p["wo"], tp.mesh, "model", 0))
-        return _self_attn(c, p, x, positions, causal, tp=None)
+        return _self_attn(c, _gather_qo(tp, p), x, positions, causal,
+                          tp=None)
     q, k, v = _project_qkv_tp(c, tp, p, x, positions)
     o = attn.flash_attention(q, k, v, causal=causal,
                              chunk=min(1024, q.shape[2]))
     b, hl, s, _ = q.shape
     o = o.transpose(1, 2).reshape(b, s, hl * c.hd)
     return coll.reduce_from(o @ p["wo"], tp.mesh, "model")
+
+
+def _gather_qo(tp: TPPlan, p, prefix: str = ""):
+    """``p`` with ``wq``'s columns and ``wo``'s rows gathered over
+    ``model`` where they are stored split (q's heads do not split)."""
+    if not tp.qkv_stored:
+        return p
+    return dict(p, **{
+        prefix + "wq": coll.gather_from(p[prefix + "wq"], tp.mesh, "model", 1),
+        prefix + "wo": coll.gather_from(p[prefix + "wo"], tp.mesh, "model",
+                                        0)})
 
 
 # --------------------------------------------------------------- layer bodies
@@ -391,10 +436,15 @@ def _self_attn(c: ArchConfig, p, x, positions, causal=True, *,
 
 def _ffn(c: ArchConfig, p, x, prefix: str = "", *,
          tp: Optional[TPPlan] = None):
-    if tp is not None and tp.mlp:
-        # this rank's d_ff columns, then the sum of the partial products
+    if tp is not None and (tp.shared_mlp if prefix == "shared_" else tp.mlp):
+        # this rank's d_ff columns, then the sum of the partial products;
+        # the output bias (whisper's b_down, replicated) once, after it
+        bias = p.get(prefix + "b_down")
+        if bias is not None:
+            p = dict(p, **{prefix + "b_down": torch.zeros_like(bias)})
         y = _ffn(c, p, coll.copy_to(x, tp.mesh, "model"), prefix)
-        return coll.reduce_from(y, tp.mesh, "model")
+        y = coll.reduce_from(y, tp.mesh, "model")
+        return y if bias is None else y + bias.to(y.dtype)
     if c.activation == "swiglu" or prefix == "shared_":
         return swiglu(x, p[prefix + "w_gate"], p[prefix + "w_up"],
                       p[prefix + "w_down"])
@@ -404,14 +454,16 @@ def _ffn(c: ArchConfig, p, x, prefix: str = "", *,
                     p[prefix + "w_down"], p[prefix + "b_down"])
 
 
-def _moe_ffn(c: ArchConfig, p, x):
-    """Routed experts (plus the shared expert's SwiGLU): (y, aux)."""
+def _moe_ffn(c: ArchConfig, p, x, *, tp: Optional[TPPlan] = None):
+    """Routed experts (plus the shared expert's SwiGLU): (y, aux); under
+    ``tp`` the experts split over ``model`` where they are stored so."""
     out = moe_lib.moe_layer(
         x, p["w_router"], p["we_gate"], p["we_up"], p["we_down"],
-        top_k=c.top_k, capacity_factor=c.capacity_factor)
+        top_k=c.top_k, capacity_factor=c.capacity_factor,
+        split=tp.mesh if tp is not None and tp.experts else None)
     y = out.y
     if c.shared_expert:
-        y = y + _ffn(c, p, x, prefix="shared_")
+        y = y + _ffn(c, p, x, prefix="shared_", tp=tp)
     return y, out.aux_loss
 
 
@@ -422,7 +474,7 @@ def _block(c: ArchConfig, p, x, positions, *, moe: bool, causal: bool = True):
                        tp=tp)
     h = _norm(c, p, x, "ln2")
     if moe:
-        y, aux = _moe_ffn(c, p, h)
+        y, aux = _moe_ffn(c, p, h, tp=tp)
     else:
         y = _ffn(c, p, h, tp=tp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -437,18 +489,32 @@ def _gated(c: ArchConfig, p, gate: str, x, y):
     return x + y
 
 
+def _cross_attn(c: ArchConfig, p, h, kv_feats, tp: Optional[TPPlan]):
+    """The ``x_`` attention over the features (no RoPE, non-causal, one
+    chunk of all the keys): this rank's q heads and the sum of the
+    partial ``x_wo`` products where q's heads split over ``model``."""
+    if tp is not None and not tp.heads:
+        p, tp = _gather_qo(tp, p, "x_"), None
+    if tp is None:
+        q, k, v = _project_qkv(c, p, h, None, prefix="x_", rope=False,
+                               kv_from=kv_feats)
+    else:
+        q, k, v = _project_qkv_tp(c, tp, p, h, None, prefix="x_",
+                                  rope=False, kv_from=kv_feats)
+    o = attn.flash_attention(q, k, v, causal=False, chunk=k.shape[2])
+    b, hl, s, _ = q.shape
+    o = o.transpose(1, 2).reshape(b, s, hl * c.hd) @ p["x_wo"]
+    return o if tp is None else coll.reduce_from(o, tp.mesh, "model")
+
+
 def _cross_block(c: ArchConfig, p, x, kv_feats):
     """Cross-attention over precomputed features (no RoPE, every feature
     visible), plus the VLM's gated FFN."""
-    h = _norm(c, p, x, "x_ln")
-    q, k, v = _project_qkv(c, p, h, None, prefix="x_", rope=False,
-                           kv_from=kv_feats)
-    o = attn.flash_attention(q, k, v, causal=False, chunk=k.shape[2])
-    b, _, s, _ = q.shape
-    o = o.transpose(1, 2).reshape(b, s, c.n_heads * c.hd) @ p["x_wo"]
+    tp = tp_plan(c)
+    o = _cross_attn(c, p, _norm(c, p, x, "x_ln"), kv_feats, tp)
     x = _gated(c, p, "x_attn_gate", x, o)
     if c.family == "vlm":
-        m = _ffn(c, p, _norm(c, p, x, "x_ln_mlp"), prefix="x_")
+        m = _ffn(c, p, _norm(c, p, x, "x_ln_mlp"), prefix="x_", tp=tp)
         x = _gated(c, p, "x_mlp_gate", x, m)
     return x
 
@@ -653,9 +719,17 @@ def loss_fn(c: ArchConfig, params, batch) -> Tuple[torch.Tensor,
                                                    Dict[str, torch.Tensor]]:
     """(ce + aux, {"ce", "aux"}) of a batch {tokens, labels[, mask]
     [, img_embeds | enc_embeds]}."""
-    logits, aux = forward(c, params, batch["tokens"],
-                          img_embeds=batch.get("img_embeds"),
-                          enc_embeds=batch.get("enc_embeds"))
+    return lm_loss(c, forward(c, params, batch["tokens"],
+                              img_embeds=batch.get("img_embeds"),
+                              enc_embeds=batch.get("enc_embeds")), batch)
+
+
+def lm_loss(c: ArchConfig, out, batch) -> Tuple[torch.Tensor,
+                                                Dict[str, torch.Tensor]]:
+    """(ce + aux, {"ce", "aux"}) of a forward's (logits, aux): the logits'
+    ``cross_entropy_loss``, vocab-parallel where the vocabulary splits
+    over ``model``."""
+    logits, aux = out
     tp = tp_plan(c)
     ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"),
                             vocab_axis="model" if tp is not None and tp.vocab

@@ -40,7 +40,9 @@ the resident ``local_move`` kernels and ``bin_rank`` and equal the
 single-graph ``pallas`` runs and the ``ell`` batch, and the service's
 clean flush on the card equals its requests' single-graph runs.
 Two gloo ranks on cuda:0 take a (2, 1) mesh train step of the REDUCED
-qwen3-1.7b that holds against the one-rank step on the card.
+qwen3-1.7b that holds against the one-rank step on the card, and a (1, 2)
+expert-parallel step of the REDUCED qwen3-moe, its MoE layer held against
+the unsharded layer on the card.
 Shard-local ``distributed_louvain`` in two gloo ranks spawned on cuda:0
 and in a one-rank NCCL group equals the single-device ``segment``
 ``louvain()`` bit for bit on unit and integer weights, ``bin_rank``
@@ -2259,8 +2261,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
         assert bool(((a - g).abs() <= 2 * lr + 1e-6 * a.abs()).all())
 
 
-def _par_step(mesh_shape, dev):
-    """One ``make_train_step`` of the REDUCED qwen3-1.7b (``grad_accum``
+def _par_step(mesh_shape, dev, arch="qwen3-1.7b"):
+    """One ``make_train_step`` of the REDUCED ``arch`` (``grad_accum``
     2, a (4 x 64) batch) on ``dev``, on ``mesh_shape``'s mesh or none:
     (metrics, the optimizer's gradients and the parameters after, whole
     and on the host, the wgmma launches of the step)."""
@@ -2272,7 +2274,7 @@ def _par_step(mesh_shape, dev):
     from repro_torch.train.data import make_batch
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    c = configs.get("qwen3-1.7b", reduced=True).replace(grad_accum=2)
+    c = configs.get(arch, reduced=True).replace(grad_accum=2)
     m = model_api.build(c)
     cell = ShapeCell("t", "train", 64, 4)
     batch = {k: _card(v, dev) for k, v in make_batch(c, cell, 0).items()}
@@ -2344,6 +2346,74 @@ def test_data_parallel_step_of_two_gloo_ranks_on_one_card(cuda_device,
         lr = met["lr"]
         for a, p in zip(params, r_params):
             assert bool(((a - p).abs() <= 2 * lr + 1e-6 * a.abs()).all())
+
+
+def _moe_card_rank(rank, world):
+    """One rank of a (1, 2) gloo mesh on cuda:0 (spawned): the MoE layer
+    check of ``tests/test_torch_parallel_train.py`` on the card, then the
+    REDUCED qwen3-moe's unsharded step on the card recording its expert
+    ids and the mesh step taking them, with the (q, KV) heads of every
+    attention call of the mesh step."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
+    from test_torch_parallel_train import _flips, _moe_layer_check, _routing
+
+    dev = torch.device("cuda", 0)
+    layer = _moe_layer_check(make_host_mesh(1, 2), dev)
+    calls, heads, entry = [], [], attention.flash_attention
+    with _routing(calls):
+        ref = _par_step(None, dev, "qwen3-moe-30b-a3b")
+
+    def counted(q, k, v, causal=True, chunk=1024):
+        heads.append((q.shape[1], k.shape[1]))
+        return entry(q, k, v, causal, chunk)
+
+    attention.flash_attention = counted
+    try:
+        with _routing(calls, force=True) as seen:
+            got = _par_step((1, 2), dev, "qwen3-moe-30b-a3b")
+    finally:
+        attention.flash_attention = entry
+    return layer, ref, got, _flips(seen), sorted(set(heads)), len(heads)
+
+
+@pytest.mark.cuda
+def test_expert_parallel_moe_of_two_gloo_ranks_on_one_card(cuda_device):
+    """Two gloo ranks on cuda:0 at (1, 2), the REDUCED qwen3-moe's 8
+    experts split 4 a rank.  The MoE layer on the card: its expert FFN
+    on 4 experts, one sum over ``model`` in its forward, the output
+    within 2^-7 and the gradients (input, router, this rank's experts)
+    within 2^-6 of the unsharded layer's largest magnitude.  The mesh
+    step with the unsharded step's expert ids (no decided flip): every
+    attention call through the wgmma kernel at the local heads (2 query
+    over 1 KV head of 4 over 2), 2 x 2 layers x 2 microbatches of them,
+    the loss within TRAIN_LOSS_REL and every gradient within
+    TRAIN_GRAD_REL of the unsharded step on the card, the ranks'
+    metrics equal."""
+    from repro_torch.launch.ranks import spawn_ranks
+
+    ranks = spawn_ranks(_moe_card_rank, 2, backend="gloo", timeout_s=300)
+    for layer, ref, got, flips, heads, calls in ranks:
+        whole, split = layer[False], layer[True]
+        assert whole["experts_run"] == [8] and split["experts_run"] == [4]
+        assert [op[:2] for op in split["ops"]] == [("sum", "model")]
+        scale = np.abs(whole["y"]).max()
+        assert np.abs(split["y"] - whole["y"]).max() <= 2.0 ** -7 * scale
+        lo, hi = layer["mine"]
+        for i, (g, w) in enumerate(zip(split["grads"], whole["grads"])):
+            w = w[lo:hi] if i >= 2 else w
+            assert np.abs(g - w).max() <= 2.0 ** -6 * np.abs(w).max(), i
+        met, grads, _, _ = ref
+        r_met, r_grads, _, launches = got
+        assert flips[0] == 0, flips
+        assert launches == calls == 8 and heads == [(2, 1)]
+        assert r_met == ranks[0][2][0]
+        assert abs(r_met["loss"] - met["loss"]) <= \
+            TRAIN_LOSS_REL * abs(met["loss"])
+        for a, g in zip(grads, r_grads):
+            assert torch.isfinite(g).all()
+            assert float((a - g).abs().max()) <= \
+                TRAIN_GRAD_REL * float(a.abs().max())
 
 
 DIST_FIELDS = ("labels", "n_communities", "levels", "modularity",

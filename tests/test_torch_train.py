@@ -655,9 +655,10 @@ def test_grad_accum_averages_the_microbatches(monkeypatch):
 
 def test_meshes_and_serve_steps():
     """The mesh paths of the serve steps raise ``NotImplementedError``
-    naming their ROADMAP item (the dry run's), and so does a train step
-    on a model axis above 1 for a family other than dense; the serve
-    steps without a mesh are the model's functions."""
+    naming their ROADMAP item (the dry run's); a train step on a model
+    axis above 1 builds for a family other than dense (RWKV6's
+    vocabulary split over ``model``); the serve steps without a mesh are
+    the model's functions."""
     from repro_torch.launch.mesh import Mesh
 
     c = t_configs.get("qwen3-1.7b", reduced=True)
@@ -669,9 +670,9 @@ def test_meshes_and_serve_steps():
         with pytest.raises(NotImplementedError, match="Queue 1 #6"):
             make()
     rwkv = t_api.build(t_configs.get("rwkv6-1.6b", reduced=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 #2b"):
-        t_train_step.make_train_step(rwkv, t_optim.OptimConfig(), cell,
-                                     mesh=mesh)
+    _, (pspecs, _, _), _, _ = t_train_step.make_train_step(
+        rwkv, t_optim.OptimConfig(), cell, mesh=mesh)
+    assert pspecs["embed"][0] == pspecs["unembed"][1] == "model"
     params = t_common.init_params(m.decls, seed=0, device="cpu")
     toks = torch.from_numpy(np.arange(16).reshape(2, 8) % c.vocab_size)
     prefill = t_train_step.make_prefill_step(m, cell)[0]
@@ -786,17 +787,58 @@ def test_launcher_resumes_bit_identically(tmp_path):
 
 
 def test_launcher_refuses_meshes_and_a_missing_card():
-    """``--model`` above 1 on a family other than dense and an ``nccl``
-    group without a card a rank raise before any rank starts; without a
-    card and without ``--device cpu`` the launcher raises "no CUDA
-    device"."""
-    p = _run(["--arch", "rwkv6-1.6b"] + BASE[2:] + ["--model", "2"],
-             check=False)
-    assert p.returncode != 0
-    assert "NotImplementedError" in p.stderr and "Queue 1 #2b" in p.stderr
+    """``--model`` above 1 on a family other than dense trains (RWKV6 on
+    two gloo ranks of the CPU); an ``nccl`` group without a card a rank
+    raises before any rank starts; without a card and without ``--device
+    cpu`` the launcher raises "no CUDA device"."""
+    p = _run(["--arch", "rwkv6-1.6b"] + BASE[2:] + ["--model", "2",
+                                                    "--steps", "2"])
+    assert json.loads(p.stdout.strip().splitlines()[-1])["steps_run"] == 2
     p = _run(BASE + ["--data", "2", "--backend", "nccl"], check=False)
     assert p.returncode != 0
     if not torch.cuda.is_available():
         assert "the nccl backend needs the card" in p.stderr
         p = _run(BASE[:-2], check=False)
         assert p.returncode != 0 and "no CUDA device" in p.stderr
+
+
+def test_launcher_moe_resumes_a_model_axis_run_unsharded(tmp_path):
+    """qwen3-moe-30b-a3b on a (2, 2) mesh (its experts split over
+    ``model``, its dispatch groups over ``data``) checkpoints at step 2.
+    Resumed at (1, 1) to step 4, ``final_loss`` equals bit for bit that
+    of an unsharded run in this process restored from a copy of the same
+    checkpoint (``launch.train.train``, one thread as the launcher's
+    ranks); resumed at (2, 1) from another copy, it runs the 2 steps."""
+    import shutil
+
+    from repro_torch.launch import train as t_launch
+
+    moe = ["--arch", "qwen3-moe-30b-a3b", "--reduced", "--seq-len", "64",
+           "--global-batch", "4", "--device", "cpu"]
+    ck = tmp_path / "ck"
+    _run(moe + ["--ckpt-dir", str(ck), "--ckpt-every", "2", "--steps", "2",
+                "--data", "2", "--model", "2", "--backend", "gloo"])
+    with open(ck / "step_00000002" / "manifest.json") as f:
+        assert json.load(f)["mesh_shape"] == {"data": 2, "model": 2}
+    copies = [tmp_path / "b", tmp_path / "c"]
+    for dst in copies:
+        shutil.copytree(ck, dst)
+    p = _run(moe + ["--ckpt-dir", str(ck), "--steps", "4"])
+    one = json.loads(p.stdout.strip().splitlines()[-1])
+    assert "resuming from checkpoint step 2" in p.stdout
+    assert one["steps_run"] == 2
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, _, hist = t_launch.train(
+            t_configs.get("qwen3-moe-30b-a3b", reduced=True),
+            ShapeCell("cli", "train", 64, 4), steps=4,
+            ckpt_dir=str(copies[0]), device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert [h["step"] for h in hist] == [2, 3]
+    assert hist[-1]["loss"] == one["final_loss"]
+    p = _run(moe + ["--ckpt-dir", str(copies[1]), "--steps", "4",
+                    "--data", "2", "--backend", "gloo"])
+    assert "resuming from checkpoint step 2" in p.stdout
+    assert json.loads(p.stdout.strip().splitlines()[-1])["steps_run"] == 2
